@@ -3,9 +3,13 @@
 Edge shapes that the main path's own shapes do not reach: grids that are no
 multiple of the CC tile, sweep counts that are no multiple of the temporal
 block, match capacities that are no multiple of the block's threads, exact
-distance ties, and cummax lengths, widths and runs across the scan's block
-and level boundaries.  Each output must equal the plain version's bit for
-bit, and each call must count one launch.
+distance ties, cummax lengths, widths and runs across the scan's block
+and level boundaries, key images that are no multiple of the dilation tile,
+dilation radii across the kernel's pass groups, splats on the image edges
+and empty images.  Each output must equal the plain version's bit for bit,
+and each call must count the launches its design makes: one, or
+ceil(radius / passes per launch) for the dilation.  The segmentation must
+give the same ids on every run on the card, and the card's frame the CPU's.
 
 Needs a card, so it skips on a machine without one.  On the card, where JAX
 is absent, run it without the suite's conftest:
@@ -17,7 +21,14 @@ import numpy as np
 import pytest
 import torch
 
+from treee_tpu_torch import config as tconfig
+from treee_tpu_torch import pipeline as tpl
+from treee_tpu_torch import segmentation as tsg
+from treee_tpu_torch.io import las as tlas
 from treee_tpu_torch.ops import kernels
+from treee_tpu_torch.ops.kernels import build
+from treee_tpu_torch.render import Camera
+from treee_tpu_torch.render import splat
 
 pytestmark = pytest.mark.cuda
 IBIG = 0x7FFFFFFF
@@ -94,3 +105,105 @@ def test_wrappers_raise_on_bad_input_on_the_card(dev):
         kernels.segmented_cummax(torch.zeros(4, dtype=torch.int32, device=dev),
                                  torch.zeros(4, 17, device=dev))
     assert sum(kernels.launches().values()) == 0
+
+
+# the dilation's constants at 720p with the default camera and point size:
+# a splat's pixel radius is ~87 / its view depth in metres
+DILATE_PARAMS = splat.dilate_params(Camera.orbital(), tconfig.RenderConfig())
+
+
+def _key_image(h, w, kind, seed):
+    """Raw keys: far points (radius < 1 px) and near ones (up to ~29 px);
+    ``edges`` puts the near ones on the image's border rows and columns,
+    ``empty`` has no key at all."""
+    rng = np.random.default_rng(seed)
+    kimg = np.full((h, w), IBIG, np.int64)
+    if kind == "empty":
+        return torch.from_numpy(kimg.astype(np.int32))
+    n = max(1, h * w // 20)
+    depth = np.where(rng.random(n) < 0.1, rng.uniform(3, 10, n),
+                     rng.uniform(60, 150, n))
+    zq = ((1.00001 - 0.1 / depth) * ((1 << 23) - 1)).astype(np.int64)
+    key = (zq << 8) | rng.integers(0, 256, n)
+    r, c = rng.integers(0, h, n), rng.integers(0, w, n)
+    if kind == "edges":
+        side = rng.integers(0, 4, n)
+        r = np.where(side == 0, 0, np.where(side == 1, h - 1, r))
+        c = np.where(side == 2, 0, np.where(side == 3, w - 1, c))
+    np.minimum.at(kimg, (r, c), key)
+    return torch.from_numpy(kimg.astype(np.int32))
+
+
+@pytest.mark.parametrize("radius", [1, 3, 8, 13])
+@pytest.mark.parametrize("h,w,kind", [
+    (97, 131, "mixed"), (1, 1, "mixed"), (1, 1, "empty"), (33, 65, "edges"),
+    (64, 64, "edges"), (97, 131, "empty"), (720, 1280, "mixed"),
+])
+def test_dilate_kernel_equals_plain(dev, h, w, kind, radius):
+    kimg = _key_image(h, w, kind, seed=h * w + radius).to(dev)
+    got = kernels.dilate(kimg, radius, *DILATE_PARAMS)
+    _same(got, kernels.dilate_plain(kimg, radius, *DILATE_PARAMS))
+    per = build.library().treee_dilate_passes_per_launch()
+    assert per == 3
+    assert kernels.dilate.launches == -(-radius // per)
+    if kind != "empty" and h * w > 1:
+        assert int((got != IBIG).sum()) > int((kimg != IBIG).sum())
+
+
+@pytest.mark.parametrize("h,w", [(1, 1), (2, 1), (1, 7), (97, 131),
+                                 (720, 1280)])
+def test_eye_dome_kernel_equals_plain(dev, h, w):
+    gen = torch.Generator(device=dev).manual_seed(h * w)
+    z01 = torch.rand((h, w), device=dev, generator=gen)
+    z01 = torch.where(torch.rand((h, w), device=dev, generator=gen) < 0.3,
+                      1.0, z01)
+    z01[: max(1, h // 4)] = 0.999 + 0.0009 * z01[: max(1, h // 4)]
+    color = torch.rand((h, w, 3), device=dev, generator=gen)
+    s = 0.3 ** 6
+    for ed in ((0.0, 0.0, 0.0), (0.2, 0.4, 0.9)):
+        _same(kernels.eye_dome(color, z01, 0.1, 1e4, s, ed),
+              kernels.eye_dome_plain(color, z01, 0.1, 1e4, s, ed))
+    assert kernels.eye_dome.launches == 2
+
+
+SMALL_CFG = tconfig.Config(
+    segmentation=tconfig.SegmentationConfig(
+        grid_size=128, max_bands=32, cc_occupied_cap=1 << 14),
+    characteristics=tconfig.CharacteristicsConfig(max_slices=64),
+    render=tconfig.RenderConfig(width=320, height=240))
+
+
+def test_segment_ids_repeat_on_the_card(dev):
+    """The centroid sums take a fixed order on the card: two runs give the
+    same ids and centroids bit for bit."""
+    pts = tlas.synthetic_forest(n_trees=16, points_per_tree=2000,
+                                ground_points=8000, seed=1)
+    runs = []
+    for _ in range(2):
+        s = tpl.Session.from_points(pts, SMALL_CFG, device=dev)
+        runs.append(s.segment(0.75))
+    a, b = runs
+    assert torch.equal(a.segment, b.segment)
+    assert torch.equal(a.tracked_pos, b.tracked_pos)
+    # many rows to a few targets: the case float atomics reorder
+    gen = torch.Generator(device=dev).manual_seed(0)
+    tgt = torch.randint(0, 3, (1 << 20,), device=dev, generator=gen)
+    val = torch.rand((1 << 20, 2), device=dev, generator=gen) * 1e3
+    assert torch.equal(tsg._sums_by_target(tgt, val, 4),
+                       tsg._sums_by_target(tgt, val, 4))
+
+
+def test_frame_on_the_card_matches_the_cpu(dev):
+    """A small scene's frame through Session.render on the card equals the
+    port's CPU frame within 1 per channel, through both kernels."""
+    pts = tlas.synthetic_forest(n_trees=16, points_per_tree=2000,
+                                ground_points=8000, seed=1)
+    cam = Camera.orbital(distance=60.0).rotate_orbital(40.0, -60.0)
+    frames = []
+    for device in ("cpu", dev):
+        s = tpl.Session.from_points(pts, SMALL_CFG, device=device)
+        s.segment(0.75)
+        frames.append(s.render(cam.to(device)))
+    assert kernels.dilate.launches > 0 and kernels.eye_dome.launches == 1
+    diff = np.abs(frames[0].astype(int) - frames[1].astype(int))
+    assert diff.max() <= 1

@@ -146,7 +146,8 @@ def test_wrappers_take_plain_path_on_cpu_and_count_no_launch():
     assert torch.equal(kernels.segmented_cummax(key, val),
                        kernels.segmented_cummax_plain(key, val))
     assert kernels.launches() == {"cc_sweep": 0, "match_scan": 0,
-                                  "segmented_cummax": 0}
+                                  "segmented_cummax": 0, "dilate": 0,
+                                  "eye_dome": 0}
 
 
 def test_wrappers_refuse_devices_without_a_kernel():
@@ -183,11 +184,14 @@ def test_build_targets_hopper_without_fma_contraction(monkeypatch, tmp_path):
     assert "-fmad=false" in flags
     assert not any("fast_math" in f for f in flags)
     names = {p.name for p in build.sources()}
-    assert {"cc_sweep.cu", "match_scan.cu", "seg_cummax.cu"} <= names
+    assert {"cc_sweep.cu", "match_scan.cu", "seg_cummax.cu", "dilate.cu",
+            "eye_dome.cu"} <= names
     # every kernel source names the TPU kernel it replaces
     for src, tpu in [("cc_sweep.cu", "_cc_sweep_kernel"),
                      ("match_scan.cu", "_match_kernel"),
-                     ("seg_cummax.cu", "_seg_cummax_kernel")]:
+                     ("seg_cummax.cu", "_seg_cummax_kernel"),
+                     ("dilate.cu", "_dilate_kernel"),
+                     ("eye_dome.cu", "_eye_dome_kernel")]:
         assert f"pallas_kernels.py::{tpu}" in (build.CSRC / src).read_text()
     cmd = build.nvcc_command(tmp_path / "lib.so")
     assert cmd[0] == "nvcc" and str(tmp_path / "lib.so") in cmd

@@ -211,3 +211,47 @@ def test_config_replace_keeps_port_fields():
                                          max_distance=1.0))
     s = tpl.Session(cfg)
     assert s.max_distance == 1.0 and s.device == torch.device("cpu")
+
+
+def test_ordered_centroid_sums_give_the_jax_ids(scene, monkeypatch):
+    """The order-fixed centroid sums that a CUDA tensor takes (stable sort
+    by target, segmented doubling scan), run here on the CPU: the same ids
+    as the JAX package.  Centroids within 1e-4 m: each is a sum of up to
+    ~10^4 f32 terms (count x cell centre) that XLA adds in row order and
+    the tree adds pairwise, so the two round apart by up to ~1e-5 of the
+    summands' size."""
+    monkeypatch.setattr(tsg, "_sums_by_target", tsg._sums_by_target_ordered)
+    pos, valid = torch.from_numpy(scene["pos"]), torch.from_numpy(scene["valid"])
+    got = tsg.segment_points(pos, valid, 0.75, TSC(**SMALL_SEG))
+    ref = scene["res"]
+    np.testing.assert_array_equal(got.segment.numpy(), np.asarray(ref.segment))
+    assert int(got.n_segments) == int(ref.n_segments)
+    np.testing.assert_array_equal(got.tracked_active.numpy(),
+                                  np.asarray(ref.tracked_active))
+    np.testing.assert_allclose(got.tracked_pos.numpy(),
+                               np.asarray(ref.tracked_pos), rtol=1e-6,
+                               atol=1e-4)
+
+
+@pytest.mark.parametrize("n,n_targets", [(1, 1), (5000, 60), (70_000, 3)])
+def test_ordered_sums_match_and_repeat(n, n_targets):
+    """Per-target sums with a fixed order: within f32 rounding of the exact
+    sums, equal to the sequential CPU sums' rounding class, bit-equal from
+    call to call, zero where a target has no rows."""
+    rng = np.random.default_rng(n)
+    tgt = rng.integers(0, n_targets, n)
+    tgt[: n // 2] = 0  # one long run, as the ground band's component
+    val = (rng.normal(size=(n, 2)) * 1e4 + 3e4).astype(np.float32)
+    size = n_targets + 2
+    t_tgt, t_val = torch.from_numpy(tgt), torch.from_numpy(val)
+    got = tsg._sums_by_target_ordered(t_tgt, t_val, size)
+    assert torch.equal(got, tsg._sums_by_target_ordered(t_tgt, t_val, size))
+    ref = np.zeros((size, 2))
+    np.add.at(ref, tgt, val.astype(np.float64))
+    mag = np.zeros((size, 2))
+    np.add.at(mag, tgt, np.abs(val).astype(np.float64))
+    bound = 2 * np.ceil(np.log2(max(n, 2))) * EPS * mag
+    assert (np.abs(got.numpy() - ref) <= bound).all()
+    seq = tsg._sums_by_target(t_tgt, t_val, size).numpy()
+    assert (np.abs(seq - ref) <= n * EPS * mag + 1e-30).all()
+    assert not got[n_targets:].any()

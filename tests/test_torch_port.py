@@ -48,7 +48,7 @@ def test_port_and_chip_smoke_import_no_jax():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     n_mods, bad = out.stdout.split(maxsplit=1)
-    assert int(n_mods) >= 12
+    assert int(n_mods) >= 23
     assert bad.strip() == "[]"
 
 
@@ -61,11 +61,13 @@ DROPPED = {
         "cc_pallas_bodies"},
     "CharacteristicsConfig": {
         "use_pallas_scan", "pallas_scan_block", "score_chunk"},
+    "RenderConfig": {"use_pallas", "raster_tile"},
 }
 RENAMED = {"cc_sweeps": "cc_pallas_sweeps"}
 
 
-@pytest.mark.parametrize("cls", ["SegmentationConfig", "CharacteristicsConfig"])
+@pytest.mark.parametrize("cls", ["SegmentationConfig", "CharacteristicsConfig",
+                                 "RenderConfig"])
 def test_config_defaults_match_jax(cls):
     port = {f.name: f.default for f in dataclasses.fields(getattr(tconfig, cls))}
     ref = {f.name: f.default for f in dataclasses.fields(getattr(jconfig, cls))}

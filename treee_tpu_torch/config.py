@@ -17,6 +17,9 @@ why:
   so neither bound applies.
 - ``score_chunk``: the support scans run unchunked (peak memory at 15M
   points is a few GB of the card's 80 GB).
+- ``RenderConfig.use_pallas``: the splat dilation and eye-dome kernels
+  always run on a CUDA tensor, their plain versions on a CPU tensor.
+- ``RenderConfig.raster_tile``: nothing in the JAX package reads it.
 
 ``cc_pallas_sweeps`` is called ``cc_sweeps`` here, with the same meaning.
 """
@@ -24,6 +27,7 @@ why:
 from __future__ import annotations
 
 import dataclasses
+import math
 
 
 @dataclasses.dataclass(frozen=True)
@@ -63,13 +67,35 @@ class CharacteristicsConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class RenderConfig:
+    """Splat renderer parameters (render/src/*.wgsl semantics)."""
+
+    width: int = 1280
+    height: int = 720
+    fov_y: float = 45.0 * math.tau / 360.0  # camera.rs:7
+    near: float = 0.1                   # camera.rs:24
+    far: float = 10_000.0               # camera.rs:25
+    point_size: float = 0.1             # program.rs:156 (view-space splat radius)
+    background: tuple[float, float, float] = (0.3, 0.5, 0.7)  # program.rs:200
+    eye_dome_strength: float = 0.7      # program.rs:160
+    eye_dome_color: tuple[float, float, float] = (0.0, 0.0, 0.0)  # eye_dome.rs:93
+    palette: str = "turbo"              # program.rs:174
+    # splat dilation passes: max splat footprint half-extent in pixels
+    max_splat_radius: int = 3
+    # property range filter (point_cloud.wgsl:44-49); u32 range semantics
+    prop_min: int = 0
+    prop_max: int = 0xFFFFFFFF
+
+
+@dataclasses.dataclass(frozen=True)
 class Config:
-    """Top-level configuration of the port's main path."""
+    """Top-level configuration of the port."""
 
     segmentation: SegmentationConfig = dataclasses.field(
         default_factory=SegmentationConfig)
     characteristics: CharacteristicsConfig = dataclasses.field(
         default_factory=CharacteristicsConfig)
+    render: RenderConfig = dataclasses.field(default_factory=RenderConfig)
 
     def replace(self, **kw) -> "Config":
         return dataclasses.replace(self, **kw)

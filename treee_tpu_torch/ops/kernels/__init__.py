@@ -7,10 +7,12 @@ kernel launches in a plain integer attribute, ``wrapper.launches``.
 """
 
 from .cc_sweep import cc_sweep, cc_sweep_plain
+from .dilate import dilate, dilate_plain
+from .eye_dome import eye_dome, eye_dome_plain
 from .match_scan import match_scan, match_scan_plain
 from .seg_cummax import segmented_cummax, segmented_cummax_plain
 
-WRAPPERS = (cc_sweep, match_scan, segmented_cummax)
+WRAPPERS = (cc_sweep, match_scan, segmented_cummax, dilate, eye_dome)
 
 
 def reset_launches() -> None:

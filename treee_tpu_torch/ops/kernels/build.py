@@ -105,6 +105,12 @@ def library() -> ctypes.CDLL:
     lib.treee_seg_cummax.restype = i
     lib.treee_seg_cummax_scratch_bytes.argtypes = [ll, i]
     lib.treee_seg_cummax_scratch_bytes.restype = ll
+    lib.treee_dilate.argtypes = [p, p, p, p, p, i, i, i, f, f, f, f, p]
+    lib.treee_dilate.restype = i
+    lib.treee_dilate_passes_per_launch.argtypes = []
+    lib.treee_dilate_passes_per_launch.restype = i
+    lib.treee_eye_dome.argtypes = [p, p, p, i, i, f, f, f, f, f, f, f, p]
+    lib.treee_eye_dome.restype = i
     lib.treee_error_string.argtypes = [i]
     lib.treee_error_string.restype = ctypes.c_char_p
     return lib

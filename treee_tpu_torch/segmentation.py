@@ -113,6 +113,52 @@ def _cell_centers(occ_idx: torch.Tensor, lo: torch.Tensor, s: torch.Tensor,
     return cx, cz
 
 
+def _sums_by_target(tgt: torch.Tensor, val: torch.Tensor,
+                    size: int) -> torch.Tensor:
+    """Sums of the rows of ``val`` f32[M,C] per target index in [0, size).
+
+    On the CPU, ``index_add_`` adds in row order, as XLA's scatter-add does
+    on the CPU, so the port equals the JAX package bit for bit there.  On
+    CUDA, ``index_add_`` is float atomics whose order changes from run to
+    run, which moved a few segment ids between runs of the 15M scan; there
+    :func:`_sums_by_target_ordered` fixes the order instead.
+    """
+    if val.device.type == "cpu":
+        out = torch.zeros(size, val.shape[1], dtype=val.dtype)
+        return out.index_add_(0, tgt, val)
+    return _sums_by_target_ordered(tgt, val, size)
+
+
+def _sums_by_target_ordered(tgt: torch.Tensor, val: torch.Tensor,
+                            size: int) -> torch.Tensor:
+    """:func:`_sums_by_target` with an addition order fixed by the input.
+
+    The rows are stably sorted by target, then summed within each run of
+    equal targets by a segmented doubling scan (row i adds the partial sum
+    ``s`` rows back while that row lies in its run, for s = 1, 2, 4, ...),
+    and each run's last row is written to its target.  Every step is an
+    elementwise op or a scatter to distinct indices, so two runs on the same
+    input give the same bits on any device.  A run may hold 10^5 cells (the
+    ground band's component), so one thread walking each run would be slow,
+    and the running total over all runs reaches ~1e10, so differences of
+    one global cumsum would lose the centroids' low bits.
+    """
+    order = torch.sort(tgt, stable=True).indices
+    t = tgt[order]
+    v = val[order]
+    m = t.shape[0]
+    s = 1
+    while s < m:
+        same = (t[s:] == t[:-s])[:, None]
+        v = torch.cat([v[:s], torch.where(same, v[s:] + v[:-s], v[s:])])
+        s *= 2
+    last = torch.ones(m, dtype=torch.bool, device=t.device)
+    last[:-1] = t[1:] != t[:-1]
+    out = torch.zeros(size, val.shape[1], dtype=val.dtype, device=val.device)
+    out[t[last]] = v[last]
+    return out
+
+
 def _extract_clusters(labels, cnt, lo, s, max_clusters: int, min_points: int,
                       occ_idx, occ_valid):
     """The ``max_clusters`` biggest clusters of each band, by point count.
@@ -136,10 +182,9 @@ def _extract_clusters(labels, cnt, lo, s, max_clusters: int, min_points: int,
     w = cnt_occ.float()
     pcount = torch.zeros(b * gg + 1, dtype=torch.int32, device=dev)
     pcount.index_add_(0, tgt, cnt_occ)
-    psx = torch.zeros(b * gg + 1, dtype=torch.float32, device=dev)
-    psx.index_add_(0, tgt, w * center_x)
-    psz = torch.zeros(b * gg + 1, dtype=torch.float32, device=dev)
-    psz.index_add_(0, tgt, w * center_z)
+    ps = _sums_by_target(tgt, torch.stack([w * center_x, w * center_z], 1),
+                         b * gg + 1)
+    psx, psz = ps[:, 0], ps[:, 1]
 
     cnt_self = pcount[occ_l]
     is_cand = occ_valid & (cnt_self >= max(min_points, 1))
