@@ -9,23 +9,36 @@ Phases, each of which raises on failure:
 0. The device: the card's name and power limit, the toolchain, and the build
    of the port's CUDA kernels from ``treee_tpu_torch/ops/kernels/csrc``
    (into ``build/treee_tpu_torch/``).
-1-5. Each kernel on the card at the shapes its path gives it (its inputs
-   are recorded from one run of the main path and one ``Session.render`` on
-   the 15M-point scan), held bit for bit against its plain PyTorch version
-   on the same inputs, with both times from CUDA events.
-6. The main path as a user drives it: ``Session.from_points(...).segment()``
+1-7. Each kernel on the card at the shapes its path gives it (its inputs
+   are recorded from one run of the main path, one ``Session.render``, both
+   inventory forms and one flood-fill segmentation on the 15M-point scan),
+   held bit for bit against its plain PyTorch version on the same inputs,
+   with both times from CUDA events and the least time the card could take
+   for the same work (its bound).
+8. The main path as a user drives it: ``Session.from_points(...).segment()``
    and ``.table``, then ``octree.build_keys``, on the 15M-point synthetic
    forest that ``bench.py`` times (937 trees of 12,000 points, 7 m apart,
    seed 0).  The kernels' launch counters are zeroed just before and read
    just after; every kernel of the path must have run.  The same path with
    the plain versions swapped in, and every repeated kernel run, must give
    every point the same segment id.
-7. The frame: ``Session.render`` of the segmented 15M scan at 1280x720 for
+9. The frame: ``Session.render`` of the segmented 15M scan at 1280x720 for
    8 orbit cameras (``bench.py``'s frame sweep), with the counters zeroed
    before and read after each frame; both frame kernels must run in every
    frame, and the same frames with the plain versions swapped in must be
-   byte-equal.  Then a small scene's ids and frame on the card against the
-   port's CPU run.
+   byte-equal.
+10. The inventory of the segmented scan, ``Session.inventory()`` (average
+   axis, max RBVs) and ``inventory(axis_algo="lowhigh", method="mean",
+   symmetric=True)``, with the counters zeroed before and read after each;
+   both scan kernels must run.  A second kernel run and a run with the plain
+   versions swapped in must give identical columns; the columns must hold
+   the inventory's invariants.
+11. The flood-fill Voronoi: ``Session.from_points(...,
+   config=<use_bruteforce_voronoi=False, use_packed_jfa=False>)
+   .segment(0.75)``; the ``jump_flood`` kernel must run, and the plain run
+   must give the same ids.  The packed flood runs once.
+12. A small scene on the card against the port's CPU run: ids, Morton keys,
+   a frame, and the inventory's columns wherever the ids agree.
 
 The last two lines are a JSON object of per-kernel results and the JSON
 result line ``{"ok": true, "device": {...}}``.
@@ -43,6 +56,7 @@ import subprocess
 import sys
 import time
 
+import numpy as np
 import torch
 
 N_POINTS = 15_000_000            # bench.py's default target
@@ -58,6 +72,19 @@ MAIN_PATH_REPS = 3
 N_FRAMES = 8
 ORBIT_DISTANCE = 120.0
 ORBIT_STEP = 40.0
+# the two inventory forms: average axis + max RBVs, low-high axis + mean
+INVENTORY_CALLS = ({}, {"axis_algo": "lowhigh", "method": "mean",
+                        "symmetric": True})
+# card against CPU for the inventory's float columns: the two add in other
+# orders (torch's reductions over grid cells) and CUDA's atan2 may differ
+# from the CPU's in the last bit, which moves a point only if it lies on a
+# sector edge
+INVENTORY_RTOL = 1e-4
+# the card's peak rates (NVIDIA H100 SXM data sheet): device memory, and
+# f32 operations outside the tensor cores; the kernels' integer compares
+# and selects are counted at the f32 rate
+HBM_BYTES_PER_S = 3.35e12
+F32_OPS_PER_S = 67e12
 
 # (wrapper name, CUDA source, the TPU kernel it replaces)
 KERNELS = (
@@ -71,9 +98,17 @@ KERNELS = (
      "treee_tpu/ops/pallas_kernels.py:90"),
     ("eye_dome", "treee_tpu_torch/ops/kernels/csrc/eye_dome.cu",
      "treee_tpu/ops/pallas_kernels.py:180"),
+    ("segmented_cumsum", "treee_tpu_torch/ops/kernels/csrc/seg_cumsum.cu",
+     "treee_tpu/ops/pallas_kernels.py:485"),
+    ("jump_flood", "treee_tpu_torch/ops/kernels/csrc/jump_flood.cu",
+     "treee_tpu/ops/pallas_kernels.py:32"),
 )
-MAIN_PATH_KERNELS = ("cc_sweep", "match_scan", "segmented_cummax")
+# the card's centroid sums run through segmented_cumsum on every path
+MAIN_PATH_KERNELS = ("cc_sweep", "match_scan", "segmented_cummax",
+                     "segmented_cumsum")
 FRAME_KERNELS = ("dilate", "eye_dome")
+INVENTORY_KERNELS = ("segmented_cummax", "segmented_cumsum")
+FLOOD_KERNELS = MAIN_PATH_KERNELS + ("jump_flood",)
 
 
 def log(*args) -> None:
@@ -134,6 +169,46 @@ def as_tuple(x):
     return x if isinstance(x, tuple) else (x,)
 
 
+def work(name: str, args: tuple, flood_steps) -> tuple[int, int]:
+    """(bytes, operations) the function must spend on one call's inputs:
+    each input read once and each output written once; the operations its
+    algorithm performs on these inputs (per element: cc_sweep 8 mins and a
+    select per sweep; match_scan 5 per centroid-slot distance per round;
+    the scans one per value; dilate ~12 per pixel, direction and pass;
+    eye_dome ~40 per pixel; jump_flood 8 per cell and direction)."""
+    if name == "cc_sweep":
+        lbl, sweeps = args[:2]
+        return 8 * lbl.numel(), 9 * sweeps * lbl.numel()
+    if name == "match_scan":
+        cents, cmask, _, rounds, t_cap = args[:5]
+        b, c = cmask.shape
+        return (4 * cents.numel() + cmask.numel() + b * t_cap * 9 + 4,
+                5 * b * rounds * c * t_cap)
+    if name in ("segmented_cummax", "segmented_cumsum"):
+        key, val = args[:2]
+        return 4 * key.numel() + 8 * val.numel(), val.numel()
+    if name == "dilate":
+        kimg, radius = args[:2]
+        return 8 * kimg.numel(), 12 * 8 * radius * kimg.numel()
+    if name == "eye_dome":
+        color, z01 = args[:2]
+        return 4 * (2 * color.numel() + z01.numel()), 40 * z01.numel()
+    if name == "jump_flood":
+        slot, pos, cc = args[:3]
+        n_dirs = 8 * len(flood_steps(slot.shape[-1]))
+        return (4 * (2 * slot.numel() + pos.numel() + cc.numel()),
+                8 * n_dirs * slot.numel())
+    raise KeyError(name)
+
+
+def bound_ms(name: str, args: tuple, flood_steps) -> tuple[float, str]:
+    """The least time the card could take for one call, and what sets it."""
+    nbytes, ops = work(name, args, flood_steps)
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
 def max_abs_err(got, ref) -> float:
     """Largest |got - ref| over all outputs; equal entries count 0 (so
     matching -3e38 fills give 0, not inf - inf)."""
@@ -145,10 +220,11 @@ def max_abs_err(got, ref) -> float:
     return err
 
 
-def check_kernel(name: str, wrapper, plain, calls: list) -> dict:
+def check_kernel(name: str, wrapper, plain, calls: list, flood_steps) -> dict:
     """The kernel against its plain version on every recorded input: bit
-    equality, and both median times (kernel and plain in turns)."""
-    shapes, ms, plain_ms, err = [], 0.0, 0.0, 0.0
+    equality, both median times (kernel and plain in turns), and the
+    bound, each summed over the recorded shapes."""
+    shapes, ms, plain_ms, err, bound, by = [], 0.0, 0.0, 0.0, 0.0, {}
     for sig, args in calls:
         got = as_tuple(wrapper(*args))
         ref = as_tuple(plain(*args))
@@ -164,13 +240,18 @@ def check_kernel(name: str, wrapper, plain, calls: list) -> dict:
             k_t += cuda_ms(lambda: wrapper(*args), 1)
             p_t += cuda_ms(lambda: plain(*args), 1)
         k_ms, p_ms = statistics.median(k_t), statistics.median(p_t)
+        b_ms, b_by = bound_ms(name, args, flood_steps)
         log(f"  {name} {list(map(list, sig))}: bit-equal; kernel "
-            f"{k_ms:.3f} ms, plain {p_ms:.3f} ms (median of {TIMING_REPS})")
+            f"{k_ms:.3f} ms, plain {p_ms:.3f} ms (median of {TIMING_REPS}); "
+            f"bound {b_ms:.4f} ms ({b_by})")
         shapes.append([list(s) for s in sig])
         ms += k_ms
         plain_ms += p_ms
+        bound += b_ms
+        by[b_by] = by.get(b_by, 0.0) + b_ms
     return {"shapes": shapes, "ms": ms, "plain_ms": plain_ms,
-            "max_abs_err": err}
+            "max_abs_err": err, "bound_ms": bound,
+            "bound_by": max(by, key=by.get)}
 
 
 def run_main_path(pts, pipeline, octree, device, config=None):
@@ -194,22 +275,22 @@ def orbit_cameras(camera_cls, device) -> list:
     return cams
 
 
+def stage_timer(stages: dict, reps: int):
+    """``timed(name, fn)``: runs ``fn`` ``reps`` times, each ended by a
+    synchronize, records the median host-clock ms under ``name`` in
+    ``stages``, and returns ``fn``'s output."""
+    def timed(name, fn):
+        out = []
+        stages[name] = timed_ms(lambda: out.append(fn()), reps)[0]
+        return out[-1]
+    return timed
+
+
 def frame_stages(session, cam, splat) -> dict:
-    """Host-clock ms of each stage of one frame, each ended by a
-    synchronize (median of TIMING_REPS)."""
+    """Host-clock ms of each stage of one frame (median of TIMING_REPS)."""
     cloud, cfg = session.cloud, session.config.render
     stages = {}
-
-    def timed(name, fn):
-        times = []
-        for _ in range(TIMING_REPS):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            out = fn()
-            torch.cuda.synchronize()
-            times.append((time.perf_counter() - t0) * 1e3)
-        stages[name] = statistics.median(times)
-        return out
+    timed = stage_timer(stages, TIMING_REPS)
 
     prop = timed("prop_from_segment + mask", lambda: (
         splat.prop_from_segment(cloud.segment),
@@ -257,13 +338,119 @@ def check_outputs(session, res, keys, n: int, n_trees: int,
         f"{int(table.present.sum())} table rows present")
 
 
+def dbh_slice_filled(session, kw: dict, trunk_axis, rbv) -> np.ndarray:
+    """bool[S]: whether the trunk grid of each segment, as ``inventory(**kw)``
+    builds it, holds a point in the slice that DBH reads (1.3 m up)."""
+    cloud, n_seg = session.cloud, int(session.full_table().present.shape[0])
+    seg = cloud.segment
+    live = cloud.valid & (seg != 0) & (seg < n_seg)
+    axis_fn = (trunk_axis.batched_low_high_layer
+               if kw.get("axis_algo") == "lowhigh"
+               else trunk_axis.batched_average_direction)
+    axes = axis_fn(cloud.pos, live & (cloud.classification == 1), seg, n_seg)
+    _, trunk = rbv.batched_split_rbv(
+        cloud.pos, cloud.classification, live, seg, n_seg,
+        trunk_axis.batched_axis_transform(axes),
+        method=rbv.METHOD_MEAN if kw.get("method") == "mean" else
+        rbv.METHOD_MAX, symmetric=kw.get("symmetric", False))
+    grid = trunk.distances.view(n_seg, trunk.slices, trunk.sectors)
+    sl = torch.clamp(torch.div(torch.full_like(trunk.slice_height, 1.3),
+                               trunk.slice_height).to(torch.int32),
+                     0, trunk.slices - 1)
+    rows = grid[torch.arange(n_seg, device=grid.device), sl.long()]
+    return (rows > 0).any(dim=1).cpu().numpy()
+
+
+def check_inventory(inv: dict, n_trees: int, max_segments: int,
+                    n_live: int, filled: np.ndarray) -> None:
+    """The inventory's invariants: one row per tree, counts that add up to
+    the live points, finite columns, and a positive DBH exactly where the
+    trunk grid's 1.3 m slice holds a point (``filled``, by segment)."""
+    n = len(inv["segment"])
+    if not 0.9 * n_trees <= n <= max_segments:
+        raise AssertionError(f"{n} inventory rows outside "
+                             f"[{0.9 * n_trees}, {max_segments}]")
+    for k, col in inv.items():
+        if len(col) != n or not np.isfinite(col).all():
+            raise AssertionError(f"inventory column {k} is not {n} finite "
+                                 "values")
+    if not (inv["n_points"] == inv["n_ground"] + inv["n_trunk"]
+            + inv["n_crown"]).all():
+        raise AssertionError("per-class counts do not add up")
+    if int(inv["n_points"].sum()) != n_live:
+        raise AssertionError(f"inventory counts {int(inv['n_points'].sum())} "
+                             f"points, {n_live} are live")
+    # a segment whose trunk-class points all lie away from 1.3 m (one point
+    # above the ground separator, the rest below the crown's, the trunk
+    # itself in a neighbouring segment) has DBH 0, in the JAX package too
+    has_axis = inv["axis_found"] & (inv["n_trunk"] > 0)
+    dbh = inv["diameter_breast_height"]
+    if not ((dbh > 0) == filled[inv["segment"]]).all():
+        raise AssertionError("DBH is positive other than where the trunk "
+                             "grid's 1.3 m slice holds a point")
+    if not (dbh[has_axis] > 0).mean() > 0.9:
+        raise AssertionError("fewer than 90% of the trunks have a DBH")
+    zero = has_axis & ~(dbh > 0)
+    n_zero = inv["n_trunk"][zero]
+    log(f"  {int(has_axis.sum())} rows with a trunk axis; DBH 0 in "
+        f"{int(zero.sum())} of them, each with an empty 1.3 m trunk slice"
+        + (f" ({int(n_zero.min())}-{int(n_zero.max())} trunk points)"
+           if zero.any() else ""))
+
+
+def same_columns(a: dict, b: dict) -> list[str]:
+    """Names of the columns in which two inventories differ at all."""
+    if list(a) != list(b):
+        return ["<column names>"]
+    return [k for k in a if a[k].shape != b[k].shape
+            or a[k].tobytes() != b[k].tobytes()]
+
+
+def timed_ms(fn, reps: int) -> tuple[float, list[float]]:
+    """Median host-clock ms of ``reps`` calls, each ended by a synchronize."""
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times), times
+
+
+def inventory_stages(session, trunk_axis, rbv) -> dict:
+    """Host-clock ms of each stage of the inventory on its full table
+    (median of MAIN_PATH_REPS)."""
+    cloud, n_seg = session.cloud, int(session.full_table().present.shape[0])
+    seg = cloud.segment
+    live = cloud.valid & (seg != 0) & (seg < n_seg)
+    trunk = live & (cloud.classification == 1)
+    stages = {}
+    timed = stage_timer(stages, MAIN_PATH_REPS)
+
+    axes = timed("batched_average_direction", lambda: (
+        trunk_axis.batched_average_direction(cloud.pos, trunk, seg, n_seg)))
+    timed("batched_low_high_layer", lambda: (
+        trunk_axis.batched_low_high_layer(cloud.pos, trunk, seg, n_seg)))
+    tfs = timed("batched_axis_transform",
+                lambda: trunk_axis.batched_axis_transform(axes))
+    grids = timed("batched_split_rbv (max)", lambda: rbv.batched_split_rbv(
+        cloud.pos, cloud.classification, live, seg, n_seg, tfs))
+    timed("batched_split_rbv (mean, symmetric)", lambda: (
+        rbv.batched_split_rbv(cloud.pos, cloud.classification, live, seg,
+                              n_seg, tfs, method=rbv.METHOD_MEAN,
+                              symmetric=True)))
+    timed("batched_traits", lambda: rbv.batched_traits(*grids))
+    return stages
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
               "needs a CUDA card", file=sys.stderr)
         return 1
     from treee_tpu_torch import config as tconfig
-    from treee_tpu_torch import pipeline
+    from treee_tpu_torch import pipeline, rbv, trunk_axis
     from treee_tpu_torch.io import las
     from treee_tpu_torch.ops import kernels, octree
     from treee_tpu_torch.ops.kernels import build
@@ -305,24 +492,32 @@ def main() -> int:
     log(f"scene: {n} points, {N_TREES} trees, made in "
         f"{time.perf_counter() - t0:.1f} s")
 
-    # --- phases 1-5: each kernel against its plain version ---
+    flood_cfg = tconfig.Config(segmentation=tconfig.SegmentationConfig(
+        use_bruteforce_voronoi=False, use_packed_jfa=False))
+
+    # --- phases 1-7: each kernel against its plain version ---
     calls = {k: [] for k, _, _ in KERNELS}
     with swapped(kernels, **{k: recorder(getattr(kernels, k), calls[k])
                              for k, _, _ in KERNELS}):
         session, _, _ = run_main_path(pts, pipeline, octree, dev)
         session.render(Camera.orbital(distance=ORBIT_DISTANCE, device=dev))
-    del session
+        for kw in INVENTORY_CALLS:
+            session.inventory(**kw)
+        del session
+        pipeline.Session.from_points(pts, flood_cfg, device=dev).segment(
+            MAX_DISTANCE)
     results = {}
     for i, (k, _, _) in enumerate(KERNELS, start=1):
         log(f"phase {i}: {k}")
         if not calls[k]:
-            raise AssertionError(f"the main path never called {k}")
+            raise AssertionError(f"the port's paths never called {k}")
         results[k] = check_kernel(k, getattr(kernels, k),
-                                  getattr(kernels, k + "_plain"), calls[k])
+                                  getattr(kernels, k + "_plain"), calls[k],
+                                  kernels.jump_flood_steps)
     del calls
 
-    # --- phase 6: the main path ---
-    log("phase 6: main path, Session.from_points(...).segment(0.75) + "
+    # --- phase 8: the main path ---
+    log("phase 8: main path, Session.from_points(...).segment(0.75) + "
         "build_keys")
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launches()
@@ -373,8 +568,8 @@ def main() -> int:
         f"{[round(t * 1e3, 1) for t in times]}, {n / step_s / 1e6:.2f} Mpts/s")
     del seg_kernel
 
-    # --- phase 7: the frame ---
-    log(f"phase 7: frame, Session.render of the segmented scan at "
+    # --- phase 9: the frame ---
+    log(f"phase 9: frame, Session.render of the segmented scan at "
         f"{session.config.render.width}x{session.config.render.height}, "
         f"{N_FRAMES} orbit cameras")
     cams = orbit_cameras(Camera, dev)
@@ -418,9 +613,111 @@ def main() -> int:
     log(f"  plain versions: {same} of {N_FRAMES} frames byte-equal")
     if same != N_FRAMES:
         raise AssertionError("frames with the plain versions differ")
-    del session, frames, plain_frames
+    del frames, plain_frames
 
-    # --- a small scene: the card's run against the port's CPU run ---
+    # --- phase 10: the inventory ---
+    log("phase 10: inventory of the segmented scan")
+    n_live = int((session.cloud.valid & (session.cloud.segment != 0)).sum())
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    session.full_table()
+    torch.cuda.synchronize()
+    log(f"  full_table (characteristics with full boxes): "
+        f"{(time.perf_counter() - t0) * 1e3:.1f} ms")
+    inv_launches = dict.fromkeys(INVENTORY_KERNELS, 0)
+    for kw in INVENTORY_CALLS:
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launches()
+        inv = session.inventory(**kw)
+        torch.cuda.synchronize()
+        got = kernels.launches()
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        for k in INVENTORY_KERNELS:
+            if got[k] <= 0:
+                raise AssertionError(f"inventory({kw}) launched no {k} kernel")
+            inv_launches[k] += got[k]
+        log(f"  inventory({kw}): launches {got}; {len(inv['segment'])} trees; "
+            f"peak device memory {peak:.2f} GiB")
+        check_inventory(inv, N_TREES, max_segments, n_live,
+                        dbh_slice_filled(session, kw, trunk_axis, rbv))
+        differ = same_columns(inv, session.inventory(**kw))
+        if differ:
+            raise AssertionError(f"a second kernel run of inventory({kw}) "
+                                 f"differs in {differ}")
+        with swapped(kernels, **plain):
+            differ = same_columns(inv, session.inventory(**kw))
+        if differ:
+            raise AssertionError(f"inventory({kw}) with the plain versions "
+                                 f"differs in {differ}")
+        inv_ms, inv_times = timed_ms(lambda: session.inventory(**kw),
+                                     MAIN_PATH_REPS)
+        log(f"  inventory({kw}): kernel runs and the plain run give "
+            f"identical columns; median {inv_ms:.1f} ms of {MAIN_PATH_REPS} "
+            f"warm runs {[round(t, 1) for t in inv_times]}")
+        dbh = inv["diameter_breast_height"][inv["n_trunk"] > 0]
+        log(f"  DBH over {len(dbh)} trees with trunk points: median "
+            f"{float(np.median(dbh)):.4f} m, range {float(dbh.min()):.4f}-"
+            f"{float(dbh.max()):.4f} m")
+    log(f"  launches over both inventories: {inv_launches}")
+    for stage, ms in inventory_stages(session, trunk_axis, rbv).items():
+        log(f"  stage {stage}: {ms:.3f} ms")
+    del session, inv
+
+    # --- phase 11: the flood-fill Voronoi ---
+    log("phase 11: flood-fill Voronoi, Session.from_points(..., "
+        "use_bruteforce_voronoi=False, use_packed_jfa=False).segment(0.75)")
+    brute = pipeline.Session.from_points(pts, device=dev)
+    brute.segment(MAX_DISTANCE)
+    seg_brute = brute.cloud.segment[brute.cloud.valid]
+    bf_ms, _ = timed_ms(lambda: brute.segment(MAX_DISTANCE), MAIN_PATH_REPS)
+    del brute
+    flood = pipeline.Session.from_points(pts, flood_cfg, device=dev)
+    kernels.reset_launches()
+    res = flood.segment(MAX_DISTANCE)
+    torch.cuda.synchronize()
+    got = kernels.launches()
+    log(f"  launches: {got}")
+    for k in FLOOD_KERNELS:
+        if got[k] <= 0:
+            raise AssertionError(f"the flood-fill step launched no {k} kernel")
+    launches["jump_flood"] = got["jump_flood"]
+    if bool(res.occupied_overflow):
+        raise AssertionError("occupied-cell compaction overflowed")
+    seg_flood = flood.cloud.segment[flood.cloud.valid]
+    n_flood = int(res.n_segments)
+    if not 0.9 * N_TREES <= n_flood <= max_segments:
+        raise AssertionError(f"flood-fill n_segments {n_flood} outside "
+                             f"[{0.9 * N_TREES}, {max_segments}]")
+    with swapped(kernels, **plain):
+        plain_seg = pipeline.Session.from_points(pts, flood_cfg, device=dev)
+        plain_seg.segment(MAX_DISTANCE)
+    differ = int((plain_seg.cloud.segment[plain_seg.cloud.valid]
+                  != seg_flood).sum())
+    del plain_seg
+    if differ:
+        raise AssertionError(f"the plain flood-fill path gives {differ} "
+                             "points another segment id than the kernels")
+    fl_ms, fl_times = timed_ms(lambda: flood.segment(MAX_DISTANCE),
+                               MAIN_PATH_REPS)
+    if not torch.equal(flood.cloud.segment[flood.cloud.valid], seg_flood):
+        raise AssertionError("a repeated flood-fill run gave other ids")
+    agree = float((seg_flood == seg_brute).double().mean())
+    log(f"  {n_flood} segments; the plain run and {MAIN_PATH_REPS + 1} kernel "
+        f"runs give identical ids; {agree:.6f} of the points take the "
+        f"brute-force Voronoi's id")
+    log(f"  segment step (segment + table, cloud on the card): flood fill "
+        f"median {fl_ms:.1f} ms {[round(t, 1) for t in fl_times]}, brute "
+        f"force median {bf_ms:.1f} ms, of {MAIN_PATH_REPS} warm runs each")
+    del flood, seg_flood, seg_brute
+    packed_cfg = tconfig.Config(segmentation=tconfig.SegmentationConfig(
+        use_bruteforce_voronoi=False, use_packed_jfa=True))
+    packed = pipeline.Session.from_points(pts, packed_cfg, device=dev)
+    res = packed.segment(MAX_DISTANCE)
+    log(f"  packed flood (plain torch on every device): "
+        f"{int(res.n_segments)} segments")
+    del packed, res
+
+    # --- phase 12: a small scene, the card's run against the port's CPU run ---
     small = las.synthetic_forest(n_trees=16, points_per_tree=2000,
                                  ground_points=8000, seed=1)
     small_cfg = tconfig.Config(
@@ -438,7 +735,8 @@ def main() -> int:
         f"{int(r_cpu.n_segments)}, keys equal {torch.equal(k_gpu.cpu(), k_cpu)}")
     if small_agree < MIN_CPU_AGREEMENT or not torch.equal(k_gpu.cpu(), k_cpu):
         raise AssertionError("the card's run disagrees with the CPU run")
-    cam = Camera.orbital(distance=60.0).rotate_orbital(ORBIT_STEP, -60.0)
+    cam = Camera.orbital(distance=60.0, device="cpu").rotate_orbital(
+        ORBIT_STEP, -60.0)
     f_cpu = s_cpu.render(cam)
     f_gpu = s_gpu.render(cam.to(dev))
     diff = abs(f_cpu.astype(int) - f_gpu.astype(int))
@@ -447,6 +745,33 @@ def main() -> int:
     if diff.max() > 1:
         raise AssertionError("the card's frame differs from the CPU's by "
                              "more than 1 per channel")
+    seg_c = s_cpu.cloud.segment
+    seg_g = s_gpu.cloud.segment.cpu()
+    bad = set(seg_c[seg_c != seg_g].tolist()) | set(seg_g[seg_c != seg_g]
+                                                     .tolist())
+    for kw in INVENTORY_CALLS:
+        a, b = s_gpu.inventory(**kw), s_cpu.inventory(**kw)
+        rows_a = ~np.isin(a["segment"], list(bad))
+        rows_b = ~np.isin(b["segment"], list(bad))
+        worst = 0.0
+        for k in a:
+            ga, gb = a[k][rows_a], b[k][rows_b]
+            if ga.dtype.kind in "biu":
+                if not np.array_equal(ga, gb):
+                    raise AssertionError(f"small inventory({kw}) column {k}: "
+                                         "card and CPU differ")
+                continue
+            scale = np.abs(gb).max(initial=1.0)
+            rel = float((np.abs(ga - gb) / np.maximum(np.abs(gb),
+                                                      scale * 1e-2)).max(
+                initial=0.0))
+            worst = max(worst, rel)
+            if rel > INVENTORY_RTOL:
+                raise AssertionError(f"small inventory({kw}) column {k}: "
+                                     f"card vs CPU relative difference {rel}")
+        log(f"  small inventory({kw}): {int(rows_a.sum())} of "
+            f"{len(a['segment'])} rows with agreeing ids; card vs CPU largest "
+            f"relative difference {worst:.3g}")
 
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(card_line())
@@ -454,6 +779,8 @@ def main() -> int:
         {"name": k, "route": "cuda", "source": src, "replaces": tpu,
          "launches": launches[k], "max_abs_err": results[k]["max_abs_err"],
          "ms": results[k]["ms"], "plain_ms": results[k]["plain_ms"],
+         "bound_ms": results[k]["bound_ms"],
+         "bound_by": results[k]["bound_by"], "library_ms": None,
          "shapes": results[k]["shapes"]}
         for k, src, tpu in KERNELS]}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -6,10 +6,13 @@ block, match capacities that are no multiple of the block's threads, exact
 distance ties, cummax lengths, widths and runs across the scan's block
 and level boundaries, key images that are no multiple of the dilation tile,
 dilation radii across the kernel's pass groups, splats on the image edges
-and empty images.  Each output must equal the plain version's bit for bit,
-and each call must count the launches its design makes: one, or
-ceil(radius / passes per launch) for the dilation.  The segmentation must
-give the same ids on every run on the card, and the card's frame the CPU's.
+and empty images, cumsum lengths around the block size, runs across many
+blocks and both block sizes, jump-flood grids of 1 to 384 cells a side with
+no seed or a seed in every cell.  Each output must equal the plain
+version's bit for bit, and each call must count the launches its design
+makes: one, or ceil(radius / passes per launch) for the dilation.  The
+segmentation and the inventory must repeat bit for bit on the card, and
+the card's frame must match the CPU's.
 
 Needs a card, so it skips on a machine without one.  On the card, where JAX
 is absent, run it without the suite's conftest:
@@ -97,6 +100,52 @@ def test_segmented_cummax_kernel_equals_plain(dev, n, c, n_keys):
     assert kernels.segmented_cummax.launches == 1
 
 
+@pytest.mark.parametrize("n,c,block,n_keys", [
+    (0, 3, 8192, 1), (1, 1, 8192, 1), (8191, 3, 8192, 4), (8192, 2, 8192, 4),
+    (8193, 3, 8192, 4), (255, 1, 256, 3), (257, 2, 256, 3),
+    (3_000_000, 3, 8192, 1), (1_000_000, 1, 256, 1), (500_000, 2, 256, 9000),
+    (2_000_000, 6, 8192, 300), (1_000_000, 16, 8192, 50),
+])
+def test_segmented_cumsum_kernel_equals_plain(dev, n, c, block, n_keys):
+    gen = torch.Generator(device=dev).manual_seed(n + c + block)
+    key = torch.sort(torch.randint(0, n_keys, (n,), device=dev, generator=gen,
+                                   dtype=torch.int32)).values
+    shape = (n,) if c == 1 else (n, c)
+    val = torch.randn(shape, device=dev, generator=gen) * 100
+    val[::7] = -0.0
+    got = kernels.segmented_cumsum(key, val, block=block)
+    _same(got, kernels.segmented_cumsum_plain(key, val, block=block))
+    assert got.view(torch.int32).equal(
+        kernels.segmented_cumsum_plain(key, val, block=block).view(torch.int32))
+    assert kernels.segmented_cumsum.launches == (1 if n else 0)
+
+
+@pytest.mark.parametrize("b,g,fill", [
+    (1, 1, 1.0), (2, 2, 0.5), (1, 3, 0.0), (3, 17, 0.1), (1, 17, 1.0),
+    (2, 384, 0.001), (64, 384, 0.0005), (1, 64, 0.0),
+])
+def test_jump_flood_kernel_equals_plain(dev, b, g, fill):
+    gen = torch.Generator(device=dev).manual_seed(b * g)
+    seeded = torch.rand((b, g, g), device=dev, generator=gen) < fill
+    slot = torch.where(seeded, torch.randint(0, 2048, (b, g, g), device=dev,
+                                             generator=gen, dtype=torch.int32),
+                       -1).to(torch.int32)
+    ij = torch.stack(torch.meshgrid(torch.arange(g, device=dev),
+                                    torch.arange(g, device=dev),
+                                    indexing="ij"), -1).float()
+    pos = (ij + torch.rand((b, g, g, 2), device=dev, generator=gen)) * 0.75
+    centre = (torch.arange(g, device=dev).float() + 0.5) * 0.75
+    cc = torch.stack([centre[:, None].expand(g, g),
+                      centre[None, :].expand(g, g)], -1)
+    got = kernels.jump_flood(slot, pos, cc)
+    _same(got, kernels.jump_flood_plain(slot, pos, cc))
+    assert kernels.jump_flood.launches == 1
+    if fill > 0.0:
+        assert bool((got >= 0).all())
+    else:
+        assert bool((got == -1).all())
+
+
 def test_wrappers_raise_on_bad_input_on_the_card(dev):
     lbl = torch.zeros(1, 8, 8, dtype=torch.int32, device=dev)
     with pytest.raises(ValueError):
@@ -104,12 +153,19 @@ def test_wrappers_raise_on_bad_input_on_the_card(dev):
     with pytest.raises(ValueError):
         kernels.segmented_cummax(torch.zeros(4, dtype=torch.int32, device=dev),
                                  torch.zeros(4, 17, device=dev))
+    with pytest.raises(ValueError):
+        kernels.segmented_cumsum(torch.zeros(4, dtype=torch.int32, device=dev),
+                                 torch.zeros(4, 3, device=dev), block=100)
+    with pytest.raises(ValueError):
+        kernels.jump_flood(lbl, torch.zeros(1, 8, 8, 2, device=dev),
+                           torch.zeros(8, 8, 1, device=dev))
     assert sum(kernels.launches().values()) == 0
 
 
 # the dilation's constants at 720p with the default camera and point size:
 # a splat's pixel radius is ~87 / its view depth in metres
-DILATE_PARAMS = splat.dilate_params(Camera.orbital(), tconfig.RenderConfig())
+DILATE_PARAMS = splat.dilate_params(Camera.orbital(device="cpu"),
+                                    tconfig.RenderConfig())
 
 
 def _key_image(h, w, kind, seed):
@@ -198,7 +254,7 @@ def test_frame_on_the_card_matches_the_cpu(dev):
     port's CPU frame within 1 per channel, through both kernels."""
     pts = tlas.synthetic_forest(n_trees=16, points_per_tree=2000,
                                 ground_points=8000, seed=1)
-    cam = Camera.orbital(distance=60.0).rotate_orbital(40.0, -60.0)
+    cam = Camera.orbital(distance=60.0, device="cpu").rotate_orbital(40.0, -60.0)
     frames = []
     for device in ("cpu", dev):
         s = tpl.Session.from_points(pts, SMALL_CFG, device=device)
@@ -207,3 +263,33 @@ def test_frame_on_the_card_matches_the_cpu(dev):
     assert kernels.dilate.launches > 0 and kernels.eye_dome.launches == 1
     diff = np.abs(frames[0].astype(int) - frames[1].astype(int))
     assert diff.max() <= 1
+
+
+def test_inventory_repeats_on_the_card(dev):
+    """Both inventory forms on a small scene: two runs on the card give the
+    same columns bit for bit (the float sums go through the segmented
+    cumsum, not float atomics), both new kernels run, and the columns agree
+    with the CPU's within float rounding wherever the ids agree."""
+    pts = tlas.synthetic_forest(n_trees=16, points_per_tree=2000,
+                                ground_points=8000, seed=1)
+    s = tpl.Session.from_points(pts, SMALL_CFG, device=dev)
+    s.segment(0.75)
+    for kw in (dict(), dict(axis_algo="lowhigh", method="mean",
+                            symmetric=True)):
+        kernels.reset_launches()
+        a = s.inventory(**kw)
+        assert kernels.segmented_cumsum.launches > 0
+        assert kernels.segmented_cummax.launches > 0
+        b = s.inventory(**kw)
+        assert list(a) == list(b)
+        for k in a:
+            np.testing.assert_array_equal(a[k], b[k], err_msg=k)
+        cpu = tpl.Session.from_points(pts, SMALL_CFG, device="cpu")
+        cpu.segment(0.75)
+        if torch.equal(cpu.cloud.segment, s.cloud.segment.cpu()):
+            c = cpu.inventory(**kw)
+            for k in a:
+                np.testing.assert_allclose(
+                    np.asarray(a[k], np.float64), np.asarray(c[k], np.float64),
+                    rtol=1e-5, atol=1e-6 * np.abs(c[k]).max(initial=1.0),
+                    err_msg=k)

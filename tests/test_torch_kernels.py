@@ -2,12 +2,14 @@
 the JAX package's Pallas kernels in interpret mode, bit for bit, and the
 dispatch rules (plain path only for CPU tensors, no launches counted)."""
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 from treee_tpu import characteristics as jch
+from treee_tpu import segmentation as jsg
 from treee_tpu.ops import pallas_kernels as pk
 from treee_tpu_torch.ops import kernels
 from treee_tpu_torch.ops.kernels import build
@@ -126,6 +128,123 @@ def test_segmented_cummax_plain_run_edges(kind):
     np.testing.assert_array_equal(got.numpy(), ref)
 
 
+def _cumsum_case(kind, rng):
+    """(keys, values, block) of one segmented-cumsum case."""
+    block = 256
+    if kind == "one_d":            # f32[N], runs across blocks, padded tail
+        key = np.sort(rng.integers(0, 37, 1000))
+        val = rng.normal(size=1000) * 100
+    elif kind == "three_channels":  # the inventory's width, ragged tail
+        key = np.sort(rng.integers(0, 23, 1500))
+        val = rng.normal(size=(1500, 3)) * 100
+    elif kind == "long_runs":      # runs spanning several whole blocks
+        key = np.repeat(np.arange(3), [700, 1100, 300])
+        val = rng.normal(size=(2100, 2)) * 10 + 50
+    elif kind == "one_run":
+        key = np.zeros(3000)
+        val = rng.normal(size=(3000, 3))
+    elif kind == "all_distinct":
+        key = np.arange(777)
+        val = rng.normal(size=(777, 3))
+    elif kind == "signed_zeros":   # -0.0 rounds to +0.0 through "+ where(.., 0)"
+        key = np.sort(rng.integers(0, 9, 600))
+        val = np.where(rng.random((600, 2)) < 0.5, -0.0,
+                       rng.normal(size=(600, 2)))
+    else:                          # the default block, exact multiple of it
+        block = 8192
+        key = np.sort(rng.integers(0, 5, 2 * 8192))
+        val = rng.normal(size=(2 * 8192, 3)) * 1e3
+    return key.astype(np.int32), val.astype(np.float32), block
+
+
+@pytest.mark.parametrize("kind", ["one_d", "three_channels", "long_runs",
+                                  "one_run", "all_distinct", "signed_zeros",
+                                  "default_block"])
+def test_segmented_cumsum_plain_matches_pallas(kind):
+    """Bit for bit, signs of zeros included: the plain version adds in the
+    Pallas kernel's order (blocks, doubling steps, chained carry)."""
+    key, val, block = _cumsum_case(kind, np.random.default_rng(len(kind)))
+    ref = np.asarray(pk.segmented_cumsum_pallas(
+        jnp.asarray(key), jnp.asarray(val), block=block, interpret=True))
+    got = kernels.segmented_cumsum(torch.from_numpy(key),
+                                   torch.from_numpy(val), block=block).numpy()
+    assert got.dtype == ref.dtype and got.shape == ref.shape
+    np.testing.assert_array_equal(got.view(np.int32), ref.view(np.int32))
+    # each run's last row holds the run total, to f32 rounding
+    ends = np.flatnonzero(np.r_[key[1:] != key[:-1], True])
+    tot = np.zeros((key.max() + 1,) + val.shape[1:])
+    np.add.at(tot, key, val.astype(np.float64))
+    scale = np.zeros_like(tot)
+    np.add.at(scale, key, np.abs(val).astype(np.float64))
+    assert (np.abs(got[ends] - tot[key[ends]])
+            <= 64 * np.finfo(np.float32).eps * scale[key[ends]] + 1e-30).all()
+
+
+def _flood_case(kind, rng):
+    """(seed_slot i32[B,G,G], seed_pos f32[B,G,G,2], cell_center f32[G,G,2])
+    of one jump-flood case, on a unit grid from 0."""
+    g, b, n_seeds, integer = {
+        "g16": (16, 2, 6, False), "g48": (48, 3, 25, False),
+        "g64": (64, 2, 40, False), "no_seed": (16, 2, 0, False),
+        "one_seed": (64, 1, 1, False), "edges": (48, 2, 12, False),
+        "integer_ties": (48, 2, 30, True)}[kind]
+    slot = np.full((b, g, g), -1, np.int32)
+    pos = np.zeros((b, g, g, 2), np.float32)
+    for bi in range(b):
+        cells = rng.choice(g * g, n_seeds, replace=False)
+        ij = np.stack(np.divmod(cells, g), -1)
+        if kind == "edges":   # seeds on the border rows and columns
+            ij[::2, 0] = rng.choice([0, g - 1], len(ij[::2]))
+            ij[1::2, 1] = rng.choice([0, g - 1], len(ij[1::2]))
+            ij = np.unique(ij, axis=0)
+        for k, (i, j) in enumerate(ij):
+            slot[bi, i, j] = k
+            off = 0.5 if integer else rng.random(2)
+            pos[bi, i, j] = (np.array([i, j]) + off).astype(np.float32)
+    centre = np.arange(g, dtype=np.float32) + 0.5
+    cc = np.stack(np.meshgrid(centre, centre, indexing="ij"), -1)
+    return slot, pos, cc.astype(np.float32)
+
+
+@pytest.mark.parametrize("kind", ["g16", "g48", "g64", "no_seed", "one_seed",
+                                  "edges", "integer_ties"])
+def test_jump_flood_plain_matches_pallas(kind):
+    """Bit for bit against the Pallas kernel in interpret mode (one band per
+    call) and, at one grid size, against the JAX package's batched jnp flood
+    run op by op (slow: every op compiles).  Seeds on the edges win wrapped
+    cells; integer positions make exact distance ties, which only a strict
+    < resolves the same way."""
+    slot, pos, cc = _flood_case(kind, np.random.default_rng(len(kind)))
+    got = kernels.jump_flood(torch.from_numpy(slot), torch.from_numpy(pos),
+                             torch.from_numpy(cc)).numpy()
+    ref = np.stack([np.asarray(pk.jump_flood_pallas(
+        jnp.asarray(slot[i]), jnp.asarray(pos[i]), jnp.asarray(cc),
+        interpret=True)) for i in range(len(slot))])
+    np.testing.assert_array_equal(got, ref)
+    if kind in ("edges", "integer_ties"):
+        with jax.disable_jit():
+            ref_jnp = np.asarray(jsg._jump_flood(
+                jnp.asarray(slot), jnp.asarray(pos), jnp.asarray(cc)))
+        np.testing.assert_array_equal(got, ref_jnp)
+    seeded = (slot >= 0).any(axis=(1, 2))
+    assert ((got >= 0).all(axis=(1, 2)) == seeded).all()
+    if kind == "edges":
+        g = slot.shape[-1]
+        # some cell is won by a seed reached only across the wrap: its seed
+        # is nearer the far edge than the cell itself
+        seed_i = {(b, k): i for b, i, _ in zip(*np.nonzero(slot >= 0))
+                  for k in [slot[b, i, _]]}
+        wrapped = [abs(i - seed_i[b, got[b, i, j]]) > g // 2
+                   for b, i, j in zip(*np.nonzero(got >= 0))]
+        assert any(wrapped)
+
+
+def test_jump_flood_steps():
+    assert kernels.jump_flood_steps(384) == [192, 96, 48, 24, 12, 6, 3, 1]
+    assert kernels.jump_flood_steps(1) == []
+    assert kernels.jump_flood_steps(3) == [1]
+
+
 def _cpu_inputs():
     rng = np.random.default_rng(0)
     lbl = torch.from_numpy(_labels(_blob_grid(2, 32, 3, seed=1)))
@@ -145,9 +264,16 @@ def test_wrappers_take_plain_path_on_cpu_and_count_no_launch():
         assert torch.equal(a, b)
     assert torch.equal(kernels.segmented_cummax(key, val),
                        kernels.segmented_cummax_plain(key, val))
+    assert torch.equal(kernels.segmented_cumsum(key, val, block=32),
+                       kernels.segmented_cumsum_plain(key, val, block=32))
+    slot, pos, cc = (torch.from_numpy(a) for a in
+                     _flood_case("g16", np.random.default_rng(0)))
+    assert torch.equal(kernels.jump_flood(slot, pos, cc),
+                       kernels.jump_flood_plain(slot, pos, cc))
     assert kernels.launches() == {"cc_sweep": 0, "match_scan": 0,
                                   "segmented_cummax": 0, "dilate": 0,
-                                  "eye_dome": 0}
+                                  "eye_dome": 0, "segmented_cumsum": 0,
+                                  "jump_flood": 0}
 
 
 def test_wrappers_refuse_devices_without_a_kernel():
@@ -161,6 +287,12 @@ def test_wrappers_refuse_devices_without_a_kernel():
         kernels.match_scan(meta[1], meta[2], 1.0, 2, 16)
     with pytest.raises(ValueError, match="device"):
         kernels.segmented_cummax(meta[3], meta[4])
+    with pytest.raises(ValueError, match="device"):
+        kernels.segmented_cumsum(meta[3], meta[4])
+    slot, pos, cc = (torch.from_numpy(a).to("meta") for a in
+                     _flood_case("g16", np.random.default_rng(0)))
+    with pytest.raises(ValueError, match="device"):
+        kernels.jump_flood(slot, pos, cc)
     assert sum(kernels.launches().values()) == 0
 
 
@@ -176,6 +308,20 @@ def test_wrappers_check_their_inputs():
         kernels.segmented_cummax(key.long(), val)
     with pytest.raises(ValueError):
         kernels.segmented_cummax(key, torch.zeros(100, 17))
+    with pytest.raises(ValueError):
+        kernels.segmented_cumsum(key, val, block=100)  # not a power of two
+    with pytest.raises(ValueError):
+        kernels.segmented_cumsum(key, val, block=16384)
+    with pytest.raises(ValueError):
+        kernels.segmented_cumsum(key, val.double())
+    slot, pos, cc = (torch.from_numpy(a) for a in
+                     _flood_case("g16", np.random.default_rng(0)))
+    with pytest.raises(ValueError):
+        kernels.jump_flood(slot[:, :, :8], pos, cc)
+    with pytest.raises(ValueError):
+        kernels.jump_flood(slot, pos[..., :1], cc)
+    with pytest.raises(ValueError):
+        kernels.jump_flood(slot.long(), pos, cc)
 
 
 def test_build_targets_hopper_without_fma_contraction(monkeypatch, tmp_path):
@@ -185,13 +331,15 @@ def test_build_targets_hopper_without_fma_contraction(monkeypatch, tmp_path):
     assert not any("fast_math" in f for f in flags)
     names = {p.name for p in build.sources()}
     assert {"cc_sweep.cu", "match_scan.cu", "seg_cummax.cu", "dilate.cu",
-            "eye_dome.cu"} <= names
+            "eye_dome.cu", "seg_cumsum.cu", "jump_flood.cu"} <= names
     # every kernel source names the TPU kernel it replaces
     for src, tpu in [("cc_sweep.cu", "_cc_sweep_kernel"),
                      ("match_scan.cu", "_match_kernel"),
                      ("seg_cummax.cu", "_seg_cummax_kernel"),
                      ("dilate.cu", "_dilate_kernel"),
-                     ("eye_dome.cu", "_eye_dome_kernel")]:
+                     ("eye_dome.cu", "_eye_dome_kernel"),
+                     ("seg_cumsum.cu", "_seg_cumsum_kernel"),
+                     ("jump_flood.cu", "_jfa_kernel")]:
         assert f"pallas_kernels.py::{tpu}" in (build.CSRC / src).read_text()
     cmd = build.nvcc_command(tmp_path / "lib.so")
     assert cmd[0] == "nvcc" and str(tmp_path / "lib.so") in cmd

@@ -165,7 +165,7 @@ def test_session_main_path_matches_jax(scene):
     .table and .cloud, then build_keys, against JAX full_pipeline +
     build_keys."""
     kernels.reset_launches()
-    s = tpl.Session.from_points(scene["pts"], _tcfg())
+    s = tpl.Session.from_points(scene["pts"], _tcfg(), device="cpu")
     res = s.segment(0.75)
     keys = toctree.build_keys(s.cloud.pos, s.cloud.valid)
     assert s.cloud.capacity == len(scene["pos"])
@@ -193,13 +193,15 @@ def test_occupied_overflow_matches_jax_and_warns(caplog):
                              0.75, TSC(**{**SMALL_SEG, "cc_occupied_cap": 256}))
     _check_segmentation(got, ref)
     with caplog.at_level(logging.WARNING, logger=tpl.__name__):
-        tpl.Session.from_points(pts, _tcfg(cc_occupied_cap=256)).segment()
+        tpl.Session.from_points(pts, _tcfg(cc_occupied_cap=256),
+                                device="cpu").segment()
     assert "cc_occupied_cap=256" in caplog.text
 
 
 def test_session_on_empty_cloud():
     """An all-padding cloud segments to nothing without failing."""
-    s = tpl.Session.from_points(np.zeros((0, 3), np.float32), _tcfg())
+    s = tpl.Session.from_points(np.zeros((0, 3), np.float32), _tcfg(),
+                               device="cpu")
     res = s.segment(0.75)
     assert int(res.n_segments) == 0 and not s.cloud.segment.any()
     assert not s.table.present.any()
@@ -209,18 +211,18 @@ def test_config_replace_keeps_port_fields():
     cfg = tpl.DEFAULT_CONFIG.replace(
         segmentation=dataclasses.replace(tpl.DEFAULT_CONFIG.segmentation,
                                          max_distance=1.0))
-    s = tpl.Session(cfg)
+    s = tpl.Session(cfg, device="cpu")
     assert s.max_distance == 1.0 and s.device == torch.device("cpu")
 
 
 def test_ordered_centroid_sums_give_the_jax_ids(scene, monkeypatch):
     """The order-fixed centroid sums that a CUDA tensor takes (stable sort
-    by target, segmented doubling scan), run here on the CPU: the same ids
-    as the JAX package.  Centroids within 1e-4 m: each is a sum of up to
-    ~10^4 f32 terms (count x cell centre) that XLA adds in row order and
-    the tree adds pairwise, so the two round apart by up to ~1e-5 of the
+    by target, segmented cumsum), run here on the CPU: the same ids as the
+    JAX package.  Centroids within 1e-4 m: each is a sum of up to ~10^4 f32
+    terms (count x cell centre) that XLA adds in row order and the cumsum
+    in doubling steps, so the two round apart by up to ~1e-5 of the
     summands' size."""
-    monkeypatch.setattr(tsg, "_sums_by_target", tsg._sums_by_target_ordered)
+    monkeypatch.setattr(tsg, "_sums_by_target", tsg.sums_by_key)
     pos, valid = torch.from_numpy(scene["pos"]), torch.from_numpy(scene["valid"])
     got = tsg.segment_points(pos, valid, 0.75, TSC(**SMALL_SEG))
     ref = scene["res"]
@@ -244,8 +246,8 @@ def test_ordered_sums_match_and_repeat(n, n_targets):
     val = (rng.normal(size=(n, 2)) * 1e4 + 3e4).astype(np.float32)
     size = n_targets + 2
     t_tgt, t_val = torch.from_numpy(tgt), torch.from_numpy(val)
-    got = tsg._sums_by_target_ordered(t_tgt, t_val, size)
-    assert torch.equal(got, tsg._sums_by_target_ordered(t_tgt, t_val, size))
+    got = tsg.sums_by_key(t_tgt, t_val, size)
+    assert torch.equal(got, tsg.sums_by_key(t_tgt, t_val, size))
     ref = np.zeros((size, 2))
     np.add.at(ref, tgt, val.astype(np.float64))
     mag = np.zeros((size, 2))
@@ -255,3 +257,41 @@ def test_ordered_sums_match_and_repeat(n, n_targets):
     seq = tsg._sums_by_target(t_tgt, t_val, size).numpy()
     assert (np.abs(seq - ref) <= n * EPS * mag + 1e-30).all()
     assert not got[n_targets:].any()
+
+
+# tests/test_segmentation.py's configuration and two of its scenes, padded to
+# one capacity so that each JAX configuration compiles once
+FLOOD_SEG = dict(grid_size=128, max_bands=16, max_segments=128,
+                 max_trees_per_band=32)
+FLOOD_CAP = 11264
+FLOOD_SCENES = {
+    "two_trees": lambda: np.concatenate([
+        jlas.synthetic_tree(rng, np.array([gap, 0.0, 0.0]), n_points=3000,
+                            crown_radius=1.5, trunk_height=3.0,
+                            crown_height=4.0)
+        for rng in [np.random.default_rng(0)] for gap in (0.0, 6.0)]),
+    "forest": lambda: jlas.synthetic_forest(n_trees=6, points_per_tree=1500,
+                                            ground_points=2000, seed=11),
+}
+
+
+@pytest.mark.parametrize("packed", [False, True])
+@pytest.mark.parametrize("name", sorted(FLOOD_SCENES))
+def test_flood_fill_voronoi_matches_jax(name, packed):
+    """The jump-flood Voronoi (``use_bruteforce_voronoi=False``), unpacked
+    (the jump_flood kernel's path) and packed, against the JAX package's
+    jnp floods (``use_pallas=False``; the unpacked one equals its Pallas
+    kernel, test_torch_kernels.py): the same segment ids bit for bit."""
+    pts = FLOOD_SCENES[name]()
+    pos = np.zeros((FLOOD_CAP, 3), np.float32)
+    pos[:len(pts)] = pts
+    valid = np.arange(FLOOD_CAP) < len(pts)
+    flags = dict(use_bruteforce_voronoi=False, use_packed_jfa=packed)
+    ref = jsg.segment_points(jnp.asarray(pos), jnp.asarray(valid), 0.75,
+                             JSC(**FLOOD_SEG, **flags, **TPU_DEFAULT,
+                                 use_pallas=False))
+    got = tsg.segment_points(torch.from_numpy(pos), torch.from_numpy(valid),
+                             0.75, TSC(**FLOOD_SEG, **flags))
+    _check_segmentation(got, ref)
+    seg = got.segment.numpy()
+    assert (seg[valid] > 0).all() and int(got.n_segments) >= 2

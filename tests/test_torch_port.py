@@ -48,7 +48,7 @@ def test_port_and_chip_smoke_import_no_jax():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     n_mods, bad = out.stdout.split(maxsplit=1)
-    assert int(n_mods) >= 23
+    assert int(n_mods) >= 28
     assert bad.strip() == "[]"
 
 
@@ -56,9 +56,8 @@ def test_port_and_chip_smoke_import_no_jax():
 # and bounds that the port's single algorithm does not read
 DROPPED = {
     "SegmentationConfig": {
-        "use_pallas", "use_pallas_cc", "use_pallas_match", "use_packed_jfa",
-        "use_bruteforce_voronoi", "use_sorted_extract", "cc_iters",
-        "cc_pallas_bodies"},
+        "use_pallas", "use_pallas_cc", "use_pallas_match",
+        "use_sorted_extract", "cc_iters", "cc_pallas_bodies"},
     "CharacteristicsConfig": {
         "use_pallas_scan", "pallas_scan_block", "score_chunk"},
     "RenderConfig": {"use_pallas", "raster_tile"},
@@ -76,6 +75,56 @@ def test_config_defaults_match_jax(cls):
     kept = {RENAMED.get(n, n) for n in port}
     assert set(ref) - kept == DROPPED[cls]
     assert not hasattr(tconfig, "resolve_use_pallas")
+
+
+def _device_defaults():
+    """Every entry point that places tensors, with its device default."""
+    import inspect
+
+    from treee_tpu_torch import pipeline as tpl
+    from treee_tpu_torch.render import Camera
+    from treee_tpu_torch.render import palettes as tpal
+
+    fns = {"Session": tpl.Session.__init__,
+           "Session.from_points": tpl.Session.from_points,
+           "PointCloud.from_numpy": tcloud.PointCloud.from_numpy,
+           "SegmentTable.from_numpy": tch.SegmentTable.from_numpy,
+           "Camera.orbital": Camera.orbital,
+           "Camera.from_numpy": Camera.from_numpy,
+           **{f"palettes.{n}": getattr(tpal, n)
+              for n in ("get", "turbo", "warm", "white", "rgb_cube")}}
+    return {name: inspect.signature(fn).parameters["device"].default
+            for name, fn in fns.items()}
+
+
+def test_entry_points_default_to_the_card():
+    """The port runs on the card unless asked for the CPU: every entry
+    point defaults to CUDA, and without a card it raises instead of running
+    on the CPU."""
+    from treee_tpu_torch import device as tdevice
+    from treee_tpu_torch import pipeline as tpl
+    from treee_tpu_torch.render import Camera
+    from treee_tpu_torch.render import palettes as tpal
+
+    assert tdevice.DEFAULT_DEVICE == "cuda"
+    assert set(_device_defaults().values()) == {"cuda"}
+    pts = np.zeros((5, 3), np.float32)
+    if torch.cuda.is_available():
+        assert tpl.Session().device.type == "cuda"
+        return
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tpl.Session()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tpl.Session.from_points(pts)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tcloud.PointCloud.from_numpy(pts)
+    with pytest.raises((RuntimeError, AssertionError)):
+        Camera.orbital()
+    with pytest.raises((RuntimeError, AssertionError)):
+        tpal.get("turbo")
+    s = tpl.Session.from_points(pts, device="cpu")
+    assert s.device.type == "cpu" and s.cloud.pos.device.type == "cpu"
+    assert s.camera.device.type == "cpu" and s.palette.device.type == "cpu"
 
 
 @pytest.mark.parametrize("kw", [
@@ -134,7 +183,7 @@ def test_point_cloud_round_trip_matches_jax():
     pts = rng.normal(size=(1500, 3)).astype(np.float32)
     seg = rng.integers(0, 9, 1500).astype(np.int32)
     ref = jcloud.PointCloud.from_numpy(pts, segment=seg)
-    got = tcloud.PointCloud.from_numpy(pts, segment=seg)
+    got = tcloud.PointCloud.from_numpy(pts, segment=seg, device="cpu")
     assert got.capacity == ref.capacity == 2048
     for f in ("pos", "segment", "classification", "valid"):
         np.testing.assert_array_equal(getattr(got, f).numpy(),
@@ -144,7 +193,7 @@ def test_point_cloud_round_trip_matches_jax():
     np.testing.assert_array_equal(back["pos"], pts)
     np.testing.assert_array_equal(back["segment"], seg)
     with pytest.raises(ValueError):
-        tcloud.PointCloud.from_numpy(pts, capacity=1024)
+        tcloud.PointCloud.from_numpy(pts, capacity=1024, device="cpu")
     assert (tcloud.CLASS_GROUND, tcloud.CLASS_TRUNK, tcloud.CLASS_CROWN,
             tcloud.DELETED_SEGMENT) == (jcloud.CLASS_GROUND, jcloud.CLASS_TRUNK,
                                         jcloud.CLASS_CROWN,
@@ -164,7 +213,7 @@ def test_segment_table_round_trip():
         **{f: rng.normal(size=s).astype(np.float32)
            for f in ("ground_sep", "crown_sep", "trunk_height", "crown_height")},
     }
-    table = tch.SegmentTable.from_numpy(arrays)
+    table = tch.SegmentTable.from_numpy(arrays, device="cpu")
     assert table.areas.dtype == torch.float32 and table.present.dtype == torch.bool
     back = table.to_numpy()
     assert set(back) == set(arrays)

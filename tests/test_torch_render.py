@@ -75,7 +75,7 @@ def _close(got, ref, rtol=1e-6):
 
 def _port_camera(jc):
     return TCamera.from_numpy(np.asarray(jc.transform), np.asarray(jc.offset),
-                              jc.fov_y, jc.near, jc.far)
+                              jc.fov_y, jc.near, jc.far, device="cpu")
 
 
 def _t(a):
@@ -99,7 +99,7 @@ MOVES = {
 @pytest.mark.parametrize("move", sorted(MOVES))
 def test_camera_matches_jax(move):
     jc = MOVES[move](JCamera.orbital(distance=37.5))
-    tc = MOVES[move](TCamera.orbital(distance=37.5))
+    tc = MOVES[move](TCamera.orbital(distance=37.5, device="cpu"))
     assert tc.transform.dtype == torch.float32 and tc.offset.dtype == torch.float32
     _close(tc.transform, jc.transform)
     _close(tc.offset, jc.offset)
@@ -119,12 +119,12 @@ def test_camera_state_round_trips_from_jax():
     tc = _port_camera(jc)
     np.testing.assert_array_equal(tc.transform.numpy(), np.asarray(jc.transform))
     assert tc.to_numpy()["offset"] == np.float32(jc.offset)
-    back = TCamera.from_numpy(**tc.to_numpy())
+    back = TCamera.from_numpy(**tc.to_numpy(), device="cpu")
     assert torch.equal(back.transform, tc.transform)
     assert torch.equal(back.offset, tc.offset)
     assert (back.fov_y, back.near, back.far) == (jc.fov_y, jc.near, jc.far)
     with pytest.raises(ValueError):
-        TCamera.from_numpy(np.eye(3), 1.0)
+        TCamera.from_numpy(np.eye(3), 1.0, device="cpu")
     with pytest.raises(dataclasses.FrozenInstanceError):
         tc.near = 1.0
 
@@ -135,21 +135,21 @@ def test_camera_state_round_trips_from_jax():
                                        ("white", 256), ("turbo", 17),
                                        ("warm", 5)])
 def test_palettes_are_byte_equal(name, size):
-    got = tpal.get(name, size)
+    got = tpal.get(name, size, device="cpu")
     ref = np.asarray(jpal.get(name, size))
     assert got.dtype == torch.float32 and got.device.type == "cpu"
     assert got.numpy().tobytes() == ref.tobytes()
 
 
 def test_rgb_cube_sample_and_unknown_palette():
-    assert tpal.rgb_cube().numpy().tobytes() == np.asarray(jpal.rgb_cube()).tobytes()
+    assert tpal.rgb_cube(device="cpu").numpy().tobytes() == np.asarray(jpal.rgb_cube()).tobytes()
     t = np.linspace(-0.5, 1.5, 101).astype(np.float32)
-    pal = tpal.turbo()
+    pal = tpal.turbo(device="cpu")
     np.testing.assert_array_equal(
         tpal.sample(pal, _t(t)).numpy(),
         np.asarray(jpal.sample(jpal.turbo(), jnp.asarray(t))))
     with pytest.raises(ValueError, match="palette"):
-        tpal.get("viridis")
+        tpal.get("viridis", device="cpu")
 
 
 def test_prop_from_segment_is_bit_equal():
@@ -378,7 +378,7 @@ def test_overlay_matches_jax():
     jc = JCamera.orbital(distance=40.0).rotate_orbital(25.0, -60.0)
     tc = _port_camera(jc)
     color, z01, _ = tsplat.render_points(_t(pts), _t(prop), _t(mask), tc,
-                                         tpal.turbo(), TRC(**SMALL))
+                                         tpal.turbo(device="cpu"), TRC(**SMALL))
     rng = np.random.default_rng(7)
     ends = rng.uniform(-15, 15, (12, 2, 3)).astype(np.float32)
     ends[..., 1] += 12
@@ -429,7 +429,7 @@ def sessions(request):
     tcfg = TConfig(segmentation=TSC(**SMALL_SEG),
                    characteristics=TCC(**SMALL_CH), render=TRC(**FRAME))
     js = jpl.Session.from_points(pts, jcfg)
-    ts = tpl.Session.from_points(pts, tcfg)
+    ts = tpl.Session.from_points(pts, tcfg, device="cpu")
     return js, ts
 
 
@@ -496,10 +496,11 @@ def test_segment_preview_callback():
     cfg = TConfig(segmentation=TSC(**SMALL_SEG),
                   characteristics=TCC(**SMALL_CH), render=TRC(**FRAME))
     frames = []
-    s = tpl.Session.from_points(pts, cfg)
-    s.camera = TCamera.orbital(distance=50.0).rotate_orbital(10.0, -50.0)
+    s = tpl.Session.from_points(pts, cfg, device="cpu")
+    s.camera = TCamera.orbital(distance=50.0, device="cpu").rotate_orbital(
+        10.0, -50.0)
     s.segment(0.75, preview_cb=frames.append, preview_stride=4)
-    plain = tpl.Session.from_points(pts, cfg)
+    plain = tpl.Session.from_points(pts, cfg, device="cpu")
     plain.segment(0.75)
     assert torch.equal(s.cloud.segment, plain.cloud.segment)
     assert len(frames) == 1
@@ -516,9 +517,9 @@ def test_segment_preview_callback():
 
 
 def test_session_frame_state_lives_on_the_session_device():
-    s = tpl.Session(TConfig(render=TRC(palette="warm")))
+    s = tpl.Session(TConfig(render=TRC(palette="warm")), device="cpu")
     assert s.camera.transform.device == s.device
-    assert torch.equal(s.palette, tpal.warm())
+    assert torch.equal(s.palette, tpal.warm(device="cpu"))
     assert float(s.camera.offset) == 100.0
 
 

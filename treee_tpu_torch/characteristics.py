@@ -25,6 +25,7 @@ import torch
 
 from .cloud import CLASS_CROWN, CLASS_GROUND, CLASS_TRUNK
 from .config import CharacteristicsConfig
+from .device import DEFAULT_DEVICE
 from .ops import kernels
 
 INF = 3.0e38
@@ -50,7 +51,8 @@ class SegmentTable:
                 for f in dataclasses.fields(self)}
 
     @classmethod
-    def from_numpy(cls, arrays: dict, device: str | torch.device = "cpu",
+    def from_numpy(cls, arrays: dict,
+                   device: str | torch.device = DEFAULT_DEVICE,
                    ) -> "SegmentTable":
         return cls(**{f.name: torch.as_tensor(np.asarray(arrays[f.name]),
                                               device=device)

@@ -15,6 +15,8 @@ import dataclasses
 import numpy as np
 import torch
 
+from .device import DEFAULT_DEVICE, resolve
+
 DELETED_SEGMENT = 0
 
 CLASS_GROUND = 0
@@ -49,7 +51,7 @@ class PointCloud:
         capacity: int | None = None,
         segment: np.ndarray | None = None,
         classification: np.ndarray | None = None,
-        device: str | torch.device = "cpu",
+        device: str | torch.device = DEFAULT_DEVICE,
     ) -> "PointCloud":
         """Copy host arrays to ``device``, padded to ``capacity`` rows.
 
@@ -60,6 +62,7 @@ class PointCloud:
             capacity = max(1024, ((n + 1023) // 1024) * 1024)
         if capacity < n:
             raise ValueError(f"capacity {capacity} < point count {n}")
+        device = resolve(device)
 
         def pad(a: np.ndarray, fill) -> torch.Tensor:
             out = np.full((capacity,) + a.shape[1:], fill, dtype=a.dtype)

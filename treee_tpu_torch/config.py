@@ -2,16 +2,27 @@
 
 The same frozen dataclasses as ``treee_tpu/config.py``, with the same field
 names and defaults, minus the fields that only choose between TPU and XLA
-implementations.  The port runs one algorithm: the one the TPU runs by
-default (CC sweep kernel to the fixpoint, sorted cluster extraction, match
-kernel, brute-force Voronoi, segmented-cummax kernel).  Fields left out, and
-why:
+implementations.  The port runs the algorithm the TPU runs by default (CC
+sweep kernel to the fixpoint, sorted cluster extraction, match kernel,
+brute-force Voronoi, segmented-cummax kernel), and keeps the JAX package's
+choice of Voronoi:
+
+- ``use_bruteforce_voronoi=True`` (the default): the exact nearest tracked
+  centroid at the occupied cells.
+- ``use_bruteforce_voronoi=False, use_packed_jfa=False``: the unpacked
+  jump flood, through the ``jump_flood`` kernel on a CUDA tensor.  This is
+  what the JAX package computes with ``use_pallas=True`` (its Pallas jump
+  flood), or with ``use_pallas=False, use_packed_jfa=False``.
+- ``use_bruteforce_voronoi=False, use_packed_jfa=True``: the packed jump
+  flood (seed positions on an s/64 lattice in one i32 plane), for grids up
+  to 512; the JAX package has no kernel for it, so it is plain torch on
+  every device.  Above 512 the unpacked flood runs, as in JAX.
+
+Fields left out, and why:
 
 - ``use_pallas``, ``use_pallas_cc``, ``use_pallas_match``,
   ``use_pallas_scan``, ``pallas_scan_block``: on a CUDA tensor the kernel
   always runs; on a CPU tensor its plain PyTorch version does.
-- ``use_packed_jfa``, ``use_bruteforce_voronoi``: the jump-flood Voronoi is
-  not ported; the brute-force Voronoi is the only one.
 - ``use_sorted_extract``: the sorted extraction is the only one.
 - ``cc_iters``, ``cc_pallas_bodies``: CC runs until its labels stop changing,
   so neither bound applies.
@@ -48,6 +59,8 @@ class SegmentationConfig:
     # aggregation and the Voronoi; cells beyond it set occupied_overflow
     cc_occupied_cap: int = 1 << 19
     match_rounds: int = 4               # mutual-nearest matching rounds per band
+    use_packed_jfa: bool = True         # packed jump flood (when not brute force)
+    use_bruteforce_voronoi: bool = True  # exact Voronoi at occupied cells
     voronoi_chunk: int = 256            # tracked slots per running-min chunk
     cc_sweeps: int = 64                 # min-pool sweeps per CC body
 

@@ -9,10 +9,14 @@ kernel launches in a plain integer attribute, ``wrapper.launches``.
 from .cc_sweep import cc_sweep, cc_sweep_plain
 from .dilate import dilate, dilate_plain
 from .eye_dome import eye_dome, eye_dome_plain
+from .jump_flood import jump_flood, jump_flood_plain
+from .jump_flood import steps as jump_flood_steps
 from .match_scan import match_scan, match_scan_plain
 from .seg_cummax import segmented_cummax, segmented_cummax_plain
+from .seg_cumsum import segmented_cumsum, segmented_cumsum_plain
 
-WRAPPERS = (cc_sweep, match_scan, segmented_cummax, dilate, eye_dome)
+WRAPPERS = (cc_sweep, match_scan, segmented_cummax, dilate, eye_dome,
+            segmented_cumsum, jump_flood)
 
 
 def reset_launches() -> None:

@@ -111,6 +111,12 @@ def library() -> ctypes.CDLL:
     lib.treee_dilate_passes_per_launch.restype = i
     lib.treee_eye_dome.argtypes = [p, p, p, i, i, f, f, f, f, f, f, f, p]
     lib.treee_eye_dome.restype = i
+    lib.treee_seg_cumsum.argtypes = [p, p, p, ll, i, i, p, p]
+    lib.treee_seg_cumsum.restype = i
+    lib.treee_seg_cumsum_scratch_bytes.argtypes = [ll, i, i]
+    lib.treee_seg_cumsum_scratch_bytes.restype = ll
+    lib.treee_jump_flood.argtypes = [p, p, p, p, p, p, p, i, i, p]
+    lib.treee_jump_flood.restype = i
     lib.treee_error_string.argtypes = [i]
     lib.treee_error_string.restype = ctypes.c_char_p
     return lib

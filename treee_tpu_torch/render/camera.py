@@ -19,6 +19,8 @@ import math
 import numpy as np
 import torch
 
+from ..device import DEFAULT_DEVICE
+
 ROTATE_SPEED = 0.002      # camera.rs:3 BASE_ROTATE_SPEED
 VERTICAL_SPEED = 0.02     # camera.rs:4
 
@@ -87,7 +89,7 @@ class Camera:
 
     @classmethod
     def orbital(cls, distance: float = 100.0,
-                device: str | torch.device = "cpu", **kw) -> "Camera":
+                device: str | torch.device = DEFAULT_DEVICE, **kw) -> "Camera":
         """Default view: camera backed off ``distance`` along +z (camera.rs:27-28)."""
         t = _eye(device)
         t[2, 3] = distance
@@ -96,7 +98,7 @@ class Camera:
     @classmethod
     def from_numpy(cls, transform, offset, fov_y: float = 45.0 * math.tau / 360.0,
                    near: float = 0.1, far: float = 10_000.0,
-                   device: str | torch.device = "cpu") -> "Camera":
+                   device: str | torch.device = DEFAULT_DEVICE) -> "Camera":
         """A camera from host state, such as the JAX package's camera's
         ``np.asarray(cam.transform)`` and ``np.asarray(cam.offset)``."""
         t = np.asarray(transform, np.float32)

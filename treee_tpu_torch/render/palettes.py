@@ -13,6 +13,8 @@ import functools
 import numpy as np
 import torch
 
+from ..device import DEFAULT_DEVICE
+
 PALETTE_SIZE = 256
 
 # Turbo colormap polynomial coefficients (Google AI blog, 2019).
@@ -51,26 +53,26 @@ def _rgb_cube() -> np.ndarray:
     return np.stack([r, g, b], -1).astype(np.float32)
 
 
-def turbo(size: int = PALETTE_SIZE, device: str | torch.device = "cpu"):
+def turbo(size: int = PALETTE_SIZE, device: str | torch.device = DEFAULT_DEVICE):
     return torch.from_numpy(_turbo(size)).to(device)
 
 
-def warm(size: int = PALETTE_SIZE, device: str | torch.device = "cpu"):
+def warm(size: int = PALETTE_SIZE, device: str | torch.device = DEFAULT_DEVICE):
     return torch.from_numpy(_warm(size)).to(device)
 
 
-def white(size: int = PALETTE_SIZE, device: str | torch.device = "cpu"):
+def white(size: int = PALETTE_SIZE, device: str | torch.device = DEFAULT_DEVICE):
     return torch.ones((size, 3), dtype=torch.float32, device=device)
 
 
-def rgb_cube(device: str | torch.device = "cpu"):
+def rgb_cube(device: str | torch.device = DEFAULT_DEVICE):
     """256-entry 3-3-2 true-colour cube for source-RGB display: index
     (r3 << 5) | (g3 << 2) | b2, channels quantized to 8/8/4 levels."""
     return torch.from_numpy(_rgb_cube()).to(device)
 
 
 def get(name: str, size: int = PALETTE_SIZE,
-        device: str | torch.device = "cpu") -> torch.Tensor:
+        device: str | torch.device = DEFAULT_DEVICE) -> torch.Tensor:
     try:
         fn = {"turbo": turbo, "warm": warm, "white": white}[name]
     except KeyError:

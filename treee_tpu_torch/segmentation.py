@@ -12,9 +12,10 @@ The same algorithm at the TPU's defaults:
    tracked centroids within 2d, new slots for the rest (CUDA kernel
    ``match_scan``).
 4. *Assign*: each occupied cell takes its band's nearest tracked centroid
-   (brute force over the slots), and every point takes its cell's.
-
-The jump-flood Voronoi variants of the JAX package are not ported.
+   (brute force over the slots, the default), or every cell takes the slot
+   a jump flood from the centroids' cells reaches (CUDA kernel
+   ``jump_flood``, or the packed flood in plain torch); every point takes
+   its cell's.
 """
 
 from __future__ import annotations
@@ -26,6 +27,8 @@ import torch
 
 from .config import SegmentationConfig
 from .ops import kernels
+from .ops.kernels.dilate import full
+from .ops.sums import sums_by_key
 
 INF = 3.0e38
 IBIG = 0x7FFFFFFF
@@ -121,42 +124,15 @@ def _sums_by_target(tgt: torch.Tensor, val: torch.Tensor,
     on the CPU, so the port equals the JAX package bit for bit there.  On
     CUDA, ``index_add_`` is float atomics whose order changes from run to
     run, which moved a few segment ids between runs of the 15M scan; there
-    :func:`_sums_by_target_ordered` fixes the order instead.
+    :func:`~treee_tpu_torch.ops.sums.sums_by_key` fixes the order instead
+    (a run may hold 10^5 cells, the ground band's component, and the
+    running total over all runs reaches ~1e10, so neither one thread a run
+    nor differences of one global cumsum would do).
     """
     if val.device.type == "cpu":
         out = torch.zeros(size, val.shape[1], dtype=val.dtype)
         return out.index_add_(0, tgt, val)
-    return _sums_by_target_ordered(tgt, val, size)
-
-
-def _sums_by_target_ordered(tgt: torch.Tensor, val: torch.Tensor,
-                            size: int) -> torch.Tensor:
-    """:func:`_sums_by_target` with an addition order fixed by the input.
-
-    The rows are stably sorted by target, then summed within each run of
-    equal targets by a segmented doubling scan (row i adds the partial sum
-    ``s`` rows back while that row lies in its run, for s = 1, 2, 4, ...),
-    and each run's last row is written to its target.  Every step is an
-    elementwise op or a scatter to distinct indices, so two runs on the same
-    input give the same bits on any device.  A run may hold 10^5 cells (the
-    ground band's component), so one thread walking each run would be slow,
-    and the running total over all runs reaches ~1e10, so differences of
-    one global cumsum would lose the centroids' low bits.
-    """
-    order = torch.sort(tgt, stable=True).indices
-    t = tgt[order]
-    v = val[order]
-    m = t.shape[0]
-    s = 1
-    while s < m:
-        same = (t[s:] == t[:-s])[:, None]
-        v = torch.cat([v[:s], torch.where(same, v[s:] + v[:-s], v[s:])])
-        s *= 2
-    last = torch.ones(m, dtype=torch.bool, device=t.device)
-    last[:-1] = t[1:] != t[:-1]
-    out = torch.zeros(size, val.shape[1], dtype=val.dtype, device=val.device)
-    out[t[last]] = v[last]
-    return out
+    return sums_by_key(tgt, val, size)
 
 
 def _extract_clusters(labels, cnt, lo, s, max_clusters: int, min_points: int,
@@ -240,6 +216,88 @@ def _bruteforce_voronoi(occ_idx, occ_valid, tracked_pos_b, active_b, lo, s,
     return _scatter_set(n_bands * gg, -1, tgt, best).view(n_bands, g, g)
 
 
+def _seed_grids(tracked_pos_b, active_b, lo, s, g: int):
+    """Each band's active tracked centroids as seeds of a jump flood:
+    (seed_slot i32[B,G,G], -1 where no seed, seed_pos f32[B,G,G,2]).
+
+    Where several slots fall in one cell the highest slot wins (an integer
+    scatter-max), and only the winners write their positions, so the
+    position scatter's only duplicates go to the drop slot.
+    """
+    b, t_cap, _ = tracked_pos_b.shape
+    gg = g * g
+    dev = tracked_pos_b.device
+    tcx = torch.clamp(torch.floor((tracked_pos_b[..., 0] - lo[0]) / s)
+                      .to(torch.int32), 0, g - 1)
+    tcz = torch.clamp(torch.floor((tracked_pos_b[..., 1] - lo[2]) / s)
+                      .to(torch.int32), 0, g - 1)
+    band_off = torch.arange(b, dtype=torch.int32, device=dev)[:, None] * gg
+    seed_cell = torch.where(active_b, band_off + tcx * g + tcz,
+                            b * gg).reshape(-1)
+    slot_ids = torch.arange(t_cap, dtype=torch.int32,
+                            device=dev).repeat(b)
+    seed_slot = torch.full((b * gg + 1,), -1, dtype=torch.int32, device=dev)
+    seed_slot.scatter_reduce_(0, seed_cell.long(), slot_ids, "amax")
+    won = seed_slot[seed_cell.clamp(0, b * gg - 1).long()] == slot_ids
+    pos_tgt = torch.where(won, seed_cell, b * gg)
+    seed_pos = torch.zeros((b * gg + 1, 2), dtype=torch.float32, device=dev)
+    seed_pos[pos_tgt.long()] = tracked_pos_b.reshape(-1, 2)
+    return (seed_slot[:b * gg].view(b, g, g),
+            seed_pos[:b * gg].view(b, g, g, 2))
+
+
+def _cell_center_planes(lo, s, g: int) -> torch.Tensor:
+    """f32[G,G,2] (x, z) centres of the grid's cells, as band_scan builds
+    them: lo + (index + 0.5) * s."""
+    i = torch.arange(g, dtype=torch.float32, device=lo.device)
+    cx = lo[0] + (i + 0.5) * s
+    cz = lo[2] + (i + 0.5) * s
+    return torch.stack([cx[:, None].expand(g, g), cz[None, :].expand(g, g)],
+                       dim=-1)
+
+
+def _jump_flood_packed(seed_slot, seed_pos, cell_center, lo, s):
+    """The jump flood of ``kernels.jump_flood_plain``, carrying each seed's
+    position as one i32 (two 15-bit coordinates on the s/64 lattice above
+    ``lo``, so the grid may have up to 512 cells a side) and its distance
+    as a third plane, as ``treee_tpu/segmentation.py::_jump_flood_packed``
+    does.  Winners can differ from the unpacked flood's only on near ties."""
+    g = seed_slot.shape[-1]
+    qs = s / 64.0
+    inv_qs = torch.div(full(1.0, qs), qs)
+    qmax = g * 64 - 1
+
+    def quant(p, axis_lo):
+        return torch.clamp(torch.round((p - axis_lo) * inv_qs).to(torch.int32),
+                           0, qmax)
+
+    packed = torch.where(seed_slot >= 0,
+                         (quant(seed_pos[..., 0], lo[0]) << 15)
+                         | quant(seed_pos[..., 1], lo[2]), -1)
+    ccx, ccz = cell_center[..., 0], cell_center[..., 1]
+
+    def unpack_dist(slot, pk):
+        ex = lo[0] + (pk >> 15).float() * qs - ccx
+        ez = lo[2] + (pk & 0x7FFF).float() * qs - ccz
+        return torch.where(slot >= 0, ex * ex + ez * ez, INF)
+
+    slot = seed_slot
+    dist = unpack_dist(slot, packed)
+    for step in kernels.jump_flood_steps(g):
+        for dy in (-step, 0, step):
+            for dx in (-step, 0, step):
+                if dy == 0 and dx == 0:
+                    continue
+                cs = torch.roll(slot, (dy, dx), (1, 2))
+                cq = torch.roll(packed, (dy, dx), (1, 2))
+                cd = unpack_dist(cs, cq)
+                better = cd < dist
+                slot = torch.where(better, cs, slot)
+                packed = torch.where(better, cq, packed)
+                dist = torch.where(better, cd, dist)
+    return slot
+
+
 def scene_bounds(pos: torch.Tensor, valid: torch.Tensor):
     """(lo, hi) f32[3] over valid points; the unit box if there are none."""
     m = valid[:, None]
@@ -316,9 +374,18 @@ def band_scan(cnt, lo, s, d: float, cfg: SegmentationConfig):
     radius = float(np.float32(cfg.match_radius_factor) * np.float32(d))
     tracked_pos_b, active_b, n_alloc = kernels.match_scan(
         cents_b, cmask_b, radius, cfg.match_rounds, cfg.max_segments)
-    slot_grids = _bruteforce_voronoi(
-        occ_idx, occ_valid, tracked_pos_b, active_b, lo, s,
-        cnt.shape[0], g, cfg.voronoi_chunk)
+    if cfg.use_bruteforce_voronoi:
+        slot_grids = _bruteforce_voronoi(
+            occ_idx, occ_valid, tracked_pos_b, active_b, lo, s,
+            cnt.shape[0], g, cfg.voronoi_chunk)
+        return slot_grids, n_alloc, tracked_pos_b, active_b
+    seed_slot, seed_pos = _seed_grids(tracked_pos_b, active_b, lo, s, g)
+    cell_center = _cell_center_planes(lo, s, g)
+    if cfg.use_packed_jfa and g <= 512:  # 15-bit packed coordinates
+        slot_grids = _jump_flood_packed(seed_slot, seed_pos, cell_center,
+                                        lo, s)
+    else:
+        slot_grids = kernels.jump_flood(seed_slot, seed_pos, cell_center)
     return slot_grids, n_alloc, tracked_pos_b, active_b
 
 

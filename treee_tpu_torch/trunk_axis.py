@@ -1,0 +1,204 @@
+"""Trunk axes of every segment at once, the PyTorch port of the batched
+functions of ``treee_tpu/trunk_axis.py`` (treee/src/interactive/
+trunk_axis.rs:108-232).
+
+- ``batched_average_direction``: split each trunk into ``layers`` horizontal
+  layers; origin = mean (x, z) of the points 0.4-0.6 m above the trunk's base
+  (else the lowest layer's mean); direction = the normalized sum of the unit
+  vectors from the origin to each layer's mean.  Sorted form only: one
+  stable sort by segment turns the extents into a segmented cummax (CUDA
+  kernel ``segmented_cummax``), the per-point (base, layer height) into a
+  run fill, and the band and layer sums into segmented cumsums (CUDA kernel
+  ``segmented_cumsum``) read at each run's end.
+- ``batched_low_high_layer``: the means of the lowest and highest
+  ``layer_width`` bands, connected.  Its sums also go through one sort and
+  a segmented cumsum, so they repeat bit for bit on the card.
+- ``batched_axis_transform``: each axis's 4x4 frame (trunk_axis.rs:56-70).
+
+Float sums take another order than the JAX package's scatter-adds, so the
+axes agree with it to float rounding, not bit for bit.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from . import rbv
+from .ops import kernels
+from .ops.sums import sums_by_key
+
+INF = 3.0e38
+
+
+@dataclasses.dataclass
+class TrunkAxis:
+    origin: torch.Tensor     # f32[S,3]
+    direction: torch.Tensor  # f32[S,3] unit, roughly +y
+    found: torch.Tensor      # bool[S]; False where a segment has no trunk point
+
+
+def _norm(v: torch.Tensor) -> torch.Tensor:
+    """Euclidean norm over the last axis of size 3, summed in index order."""
+    return torch.sqrt(v[..., 0] * v[..., 0] + v[..., 1] * v[..., 1]
+                      + v[..., 2] * v[..., 2])
+
+
+def _cross(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a x b over the last axis, as separate products and differences."""
+    return torch.stack([a[..., 1] * b[..., 2] - a[..., 2] * b[..., 1],
+                        a[..., 2] * b[..., 0] - a[..., 0] * b[..., 2],
+                        a[..., 0] * b[..., 1] - a[..., 1] * b[..., 0]], dim=-1)
+
+
+def _up(like: torch.Tensor) -> torch.Tensor:
+    return torch.tensor([0.0, 1.0, 0.0], dtype=torch.float32,
+                        device=like.device)
+
+
+def _segment_minmax_y(y, mask, seg_t, n_segments):
+    """Per-segment (lo, hi, found) of the masked y: scatter min and max,
+    which take no order."""
+    lo = torch.full((n_segments + 1,), INF, dtype=torch.float32,
+                    device=y.device)
+    hi = torch.full((n_segments + 1,), -INF, dtype=torch.float32,
+                    device=y.device)
+    lo.scatter_reduce_(0, seg_t.long(), torch.where(mask, y, INF), "amin")
+    hi.scatter_reduce_(0, seg_t.long(), torch.where(mask, y, -INF), "amax")
+    lo, hi = lo[:n_segments], hi[:n_segments]
+    found = lo < INF
+    return torch.where(found, lo, 0.0), torch.where(found, hi, 0.0), found
+
+
+def _axis_from_tables(lo, hi, found, layer_h, band_n, band_x, band_z,
+                      lsum_x, lsum_z, lcnt, layers):
+    """The [S]-level tail of AverageDirection from the per-segment tables."""
+    lmean_x = lsum_x / torch.clamp(lcnt, min=1.0)
+    lmean_z = lsum_z / torch.clamp(lcnt, min=1.0)
+    origin_x = torch.where(band_n > 0, band_x / torch.clamp(band_n, min=1.0),
+                           lmean_x[:, 0])
+    origin_z = torch.where(band_n > 0, band_z / torch.clamp(band_n, min=1.0),
+                           lmean_z[:, 0])
+    origin = torch.stack([origin_x, lo, origin_z], dim=-1)
+    heights = lo[:, None] + (
+        torch.arange(layers, dtype=torch.float32, device=lo.device)[None, :]
+        + 0.5) * layer_h[:, None]
+    means3 = torch.stack([lmean_x, heights, lmean_z], dim=-1)
+    vecs = means3 - origin[:, None, :]
+    norms = _norm(vecs)[..., None]
+    unit = torch.where((lcnt > 0)[:, :, None],
+                       vecs / torch.clamp(norms, min=1e-6), 0.0)
+    direction = unit.sum(dim=1)
+    direction = direction / torch.clamp(_norm(direction)[:, None], min=1e-6)
+    direction = torch.where(found[:, None], direction, _up(lo))
+    origin = torch.where(found[:, None], origin, 0.0)
+    return TrunkAxis(origin=origin, direction=direction, found=found)
+
+
+def _run_ends(key_s: torch.Tensor, n_runs: int):
+    """(left, right, has, end) of runs 0..n_runs-1 over sorted keys: the
+    rows [left, right) hold key r, ``end`` is its last row (clipped)."""
+    n = key_s.shape[0]
+    q = torch.arange(n_runs + 1, dtype=torch.int32, device=key_s.device)
+    bounds = torch.searchsorted(key_s, q, side="left")
+    left, right = bounds[:-1], bounds[1:]
+    return left, right, right > left, torch.clamp(right - 1, 0, n - 1)
+
+
+def batched_average_direction(pos: torch.Tensor, mask: torch.Tensor,
+                              segment: torch.Tensor, n_segments: int,
+                              layers: int = 10) -> TrunkAxis:
+    """AverageDirection for every segment at once; row i is segment i's axis
+    from its masked points (``found`` False where it has none)."""
+    key = torch.where(mask, segment, n_segments).to(torch.int32)
+    key_s, order = torch.sort(key, stable=True)
+    x_s, y_s, z_s = pos[order, 0], pos[order, 1], pos[order, 2]
+    left, right, has, end = _run_ends(key_s, n_segments)
+
+    ext = kernels.segmented_cummax(key_s, torch.stack([-y_s, y_s], dim=1))
+    picked = ext[end]
+    lo = torch.where(has, -picked[:, 0], INF)
+    hi = torch.where(has, picked[:, 1], -INF)
+    found = lo < INF
+    lo = torch.where(found, lo, 0.0)
+    hi = torch.where(found, hi, 0.0)
+    layer_h = torch.clamp(rbv.div(hi - lo, layers), min=1e-6)
+
+    per2 = rbv.run_fill(key_s, left, right, torch.stack([lo, layer_h], dim=1))
+    lo_p, lh_p = per2[:, 0], per2[:, 1]
+    in_seg = key_s < n_segments
+    band = in_seg & (y_s >= lo_p + 0.4) & (y_s < lo_p + 0.6)
+    bsum = kernels.segmented_cumsum(key_s, torch.stack(
+        [band.float(), torch.where(band, x_s, 0.0),
+         torch.where(band, z_s, 0.0)], dim=1))
+    bp = bsum[end]
+    band_n = torch.where(has, bp[:, 0], 0.0)
+    band_x = torch.where(has, bp[:, 1], 0.0)
+    band_z = torch.where(has, bp[:, 2], 0.0)
+
+    li = torch.clamp(((y_s - lo_p) / lh_p).to(torch.int32), 0, layers - 1)
+    bucket = torch.where(in_seg, key_s * layers + li, n_segments * layers)
+    lp = sums_by_key(bucket, torch.stack([torch.ones_like(x_s), x_s, z_s],
+                                         dim=1), n_segments * layers)
+    lcnt = lp[:, 0].view(n_segments, layers)
+    lsum_x = lp[:, 1].view(n_segments, layers)
+    lsum_z = lp[:, 2].view(n_segments, layers)
+    return _axis_from_tables(lo, hi, found, layer_h, band_n, band_x, band_z,
+                             lsum_x, lsum_z, lcnt, layers)
+
+
+def batched_low_high_layer(pos: torch.Tensor, mask: torch.Tensor,
+                           segment: torch.Tensor, n_segments: int,
+                           layer_width: float = 1.0) -> TrunkAxis:
+    """LowHighLayer for every segment at once; row i is segment i's axis."""
+    y = pos[:, 1]
+    seg_c = torch.clamp(segment, 0, n_segments - 1).long()
+    seg_t = torch.where(mask, segment, n_segments)
+    lo, hi, found = _segment_minmax_y(y, mask, seg_t, n_segments)
+    # the layer, floored: a flat trunk (hi == lo) would leave both bands empty
+    layer = torch.clamp(torch.minimum(
+        rbv.full(layer_width, lo), rbv.div(hi - lo, 2.0)), min=1e-3)
+    lo_p, hi_p, layer_p = lo[seg_c], hi[seg_c], layer[seg_c]
+    low = mask & (y - lo_p < layer_p)
+    high = mask & (hi_p - y < layer_p)
+
+    # both bands' counts and (x, z) sums in one pass
+    cols = []
+    for m in (low, high):
+        cols += [m.float(), torch.where(m, pos[:, 0], 0.0),
+                 torch.where(m, pos[:, 2], 0.0)]
+    tab = sums_by_key(seg_t, torch.stack(cols, dim=1), n_segments)
+    means = []
+    for k in (0, 3):
+        cnt = torch.clamp(tab[:, k], min=1.0)
+        means.append((tab[:, k + 1] / cnt, tab[:, k + 2] / cnt))
+    (lmx, lmz), (hmx, hmz) = means
+    origin = torch.stack([lmx, lo, lmz], dim=-1)
+    target = torch.stack([hmx, hi, hmz], dim=-1)
+    direction = target - origin
+    norm = _norm(direction)[:, None]
+    up = _up(pos)
+    direction = torch.where(norm > 1e-6,
+                            direction / torch.clamp(norm, min=1e-6), up)
+    direction = torch.where(found[:, None], direction, up)
+    origin = torch.where(found[:, None], origin, 0.0)
+    return TrunkAxis(origin=origin, direction=direction, found=found)
+
+
+def batched_axis_transform(axes: TrunkAxis) -> torch.Tensor:
+    """[S,4,4] affine frames whose y axis is each trunk's direction, at its
+    origin (trunk_axis.rs:56-70)."""
+    yv = axes.direction
+    s = yv.shape[0]
+    ez = torch.zeros_like(yv)
+    ez[:, 2] = 1.0
+    xv = _cross(yv, ez)
+    xv = xv / torch.clamp(_norm(xv)[:, None], min=1e-6)
+    zv = _cross(xv, yv)
+    m = torch.eye(4, dtype=torch.float32, device=yv.device).repeat(s, 1, 1)
+    m[:, :3, 0] = xv
+    m[:, :3, 1] = yv
+    m[:, :3, 2] = zv
+    m[:, :3, 3] = axes.origin
+    return m
