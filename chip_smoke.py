@@ -6,12 +6,13 @@
 Needs one CUDA card and the CUDA toolkit; it exits non-zero without them.
 Phases, each of which raises on failure:
 
-0. The device: the card's name and power limit, the toolchain, and the build
-   of the port's CUDA kernels from ``treee_tpu_torch/ops/kernels/csrc``
+0. The device: the card's name and power limit, the toolchain, the build
+   of the port's eight CUDA kernels from ``treee_tpu_torch/ops/kernels/csrc``
    (into ``build/treee_tpu_torch/``).
-1-7. Each kernel on the card at the shapes its path gives it (its inputs
-   are recorded from one run of the main path, one ``Session.render``, both
-   inventory forms and one flood-fill segmentation on the 15M-point scan),
+1-7. Each kernel of a path on the card at the shapes its path gives it (its
+   inputs are recorded from one run of the main path, one ``Session.render``,
+   both inventory forms and one flood-fill segmentation on the 15M-point
+   scan; for ``cc_sweep``, each of the step's bodies),
    held bit for bit against its plain PyTorch version on the same inputs,
    with both times from CUDA events and the least time the card could take
    for the same work (its bound).
@@ -21,7 +22,9 @@ Phases, each of which raises on failure:
    seed 0).  The kernels' launch counters are zeroed just before and read
    just after; every kernel of the path must have run.  The same path with
    the plain versions swapped in, and every repeated kernel run, must give
-   every point the same segment id.
+   every point the same segment id.  For each ``cc_sweep`` call of the run,
+   how many sweeps each band took to stop changing (the plain version, one
+   sweep at a time, on the call's recorded input).
 9. The frame: ``Session.render`` of the segmented 15M scan at 1280x720 for
    8 orbit cameras (``bench.py``'s frame sweep), with the counters zeroed
    before and read after each frame; both frame kernels must run in every
@@ -39,9 +42,14 @@ Phases, each of which raises on failure:
    must give the same ids.  The packed flood runs once.
 12. A small scene on the card against the port's CPU run: ids, Morton keys,
    a frame, and the inventory's columns wherever the ids agree.
+13. The gather probe, on no path of the system: the four gathers of
+   ``treee_tpu_torch.tools.probe_extract`` (the Mosaic probe's shapes) through
+   ``take_along_axis``, with the counters zeroed before and read after; then
+   the kernel against its plain version and ``torch.take_along_dim``.
 
-The last two lines are a JSON object of per-kernel results and the JSON
-result line ``{"ok": true, "device": {...}}``.
+The last lines are the card's name and power limit, a JSON object of
+per-kernel results and the JSON result line ``{"ok": true, "device":
+{...}}``.
 """
 
 from __future__ import annotations
@@ -85,6 +93,7 @@ INVENTORY_RTOL = 1e-4
 # and selects are counted at the f32 rate
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
+IBIG = 0x7FFFFFFF                # an empty cell of the CC labels
 
 # (wrapper name, CUDA source, the TPU kernel it replaces)
 KERNELS = (
@@ -102,7 +111,12 @@ KERNELS = (
      "treee_tpu/ops/pallas_kernels.py:485"),
     ("jump_flood", "treee_tpu_torch/ops/kernels/csrc/jump_flood.cu",
      "treee_tpu/ops/pallas_kernels.py:32"),
+    ("take_along_axis", "treee_tpu_torch/ops/kernels/csrc/take_along.cu",
+     "tools/probe_extract.py:97"),
 )
+# the kernels that the system's paths run (phases 1-7); the gather probe's
+# kernel has only the probe tool's path (phase 13)
+PATH_KERNELS = tuple(k for k, _, _ in KERNELS if k != "take_along_axis")
 # the card's centroid sums run through segmented_cumsum on every path
 MAIN_PATH_KERNELS = ("cc_sweep", "match_scan", "segmented_cummax",
                      "segmented_cumsum")
@@ -138,12 +152,18 @@ def swapped(kernels, **fns):
             setattr(kernels, name, fn)
 
 
-def recorder(fn, calls: list):
+def recorder(fn, calls: list, by_value: bool = False):
     """``fn`` that also keeps the arguments of its first call at each
-    distinct set of input shapes."""
+    distinct set of input shapes (with ``by_value``, of each distinct set of
+    inputs)."""
+    def same(a, b):
+        return all(not torch.is_tensor(x) or torch.equal(x, y)
+                   for x, y in zip(a, b))
+
     def record(*args):
         sig = tuple(tuple(a.shape) for a in args if torch.is_tensor(a))
-        if all(s != sig for s, _ in calls):
+        if all(s != sig or (by_value and not same(args, a))
+               for s, a in calls):
             calls.append((sig, tuple(a.clone() if torch.is_tensor(a) else a
                                      for a in args)))
         return fn(*args)
@@ -169,16 +189,21 @@ def as_tuple(x):
     return x if isinstance(x, tuple) else (x,)
 
 
-def work(name: str, args: tuple, flood_steps) -> tuple[int, int]:
+def work(name: str, args: tuple, kernels) -> tuple[int, int]:
     """(bytes, operations) the function must spend on one call's inputs:
     each input read once and each output written once; the operations its
     algorithm performs on these inputs (per element: cc_sweep 8 mins and a
-    select per sweep; match_scan 5 per centroid-slot distance per round;
+    select per sweep, over the sweeps each band needs to reach its fixpoint
+    and see it, at most ``sweeps``; match_scan 5 per centroid-slot distance
+    per round;
     the scans one per value; dilate ~12 per pixel, direction and pass;
-    eye_dome ~40 per pixel; jump_flood 8 per cell and direction)."""
+    eye_dome ~40 per pixel; jump_flood 8 per cell and direction;
+    take_along_axis one per output)."""
     if name == "cc_sweep":
         lbl, sweeps = args[:2]
-        return 8 * lbl.numel(), 9 * sweeps * lbl.numel()
+        fix = sweeps_to_fixpoint(kernels.cc_sweep_plain, lbl, sweeps)
+        needed = int(torch.clamp(fix + 1, max=sweeps).sum())
+        return 8 * lbl.numel(), 9 * needed * lbl[0].numel()
     if name == "match_scan":
         cents, cmask, _, rounds, t_cap = args[:5]
         b, c = cmask.shape
@@ -195,15 +220,18 @@ def work(name: str, args: tuple, flood_steps) -> tuple[int, int]:
         return 4 * (2 * color.numel() + z01.numel()), 40 * z01.numel()
     if name == "jump_flood":
         slot, pos, cc = args[:3]
-        n_dirs = 8 * len(flood_steps(slot.shape[-1]))
+        n_dirs = 8 * len(kernels.jump_flood_steps(slot.shape[-1]))
         return (4 * (2 * slot.numel() + pos.numel() + cc.numel()),
                 8 * n_dirs * slot.numel())
+    if name == "take_along_axis":
+        tab, idx = args[:2]
+        return 4 * (tab.numel() + 2 * idx.numel()), idx.numel()
     raise KeyError(name)
 
 
-def bound_ms(name: str, args: tuple, flood_steps) -> tuple[float, str]:
+def bound_ms(name: str, args: tuple, kernels) -> tuple[float, str]:
     """The least time the card could take for one call, and what sets it."""
-    nbytes, ops = work(name, args, flood_steps)
+    nbytes, ops = work(name, args, kernels)
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
@@ -220,11 +248,15 @@ def max_abs_err(got, ref) -> float:
     return err
 
 
-def check_kernel(name: str, wrapper, plain, calls: list, flood_steps) -> dict:
+def check_kernel(name: str, kernels, calls: list, library=None) -> dict:
     """The kernel against its plain version on every recorded input: bit
     equality, both median times (kernel and plain in turns), and the
-    bound, each summed over the recorded shapes."""
+    bound, each summed over the recorded shapes.  ``library(*args)``, where
+    given, returns a call of one PyTorch function that computes the same
+    thing, timed in the same turns."""
+    wrapper, plain = getattr(kernels, name), getattr(kernels, name + "_plain")
     shapes, ms, plain_ms, err, bound, by = [], 0.0, 0.0, 0.0, 0.0, {}
+    lib_ms = None if library is None else 0.0
     for sig, args in calls:
         got = as_tuple(wrapper(*args))
         ref = as_tuple(plain(*args))
@@ -235,23 +267,44 @@ def check_kernel(name: str, wrapper, plain, calls: list, flood_steps) -> dict:
                     f"{name} at {sig}: kernel output differs from the plain "
                     f"version (max abs err {max_abs_err(got, ref)})")
         err = max(err, max_abs_err(got, ref))
-        k_t, p_t = [], []
+        lib_call = None if library is None else library(*args)
+        k_t, p_t, l_t = [], [], []
         for _ in range(TIMING_REPS):
             k_t += cuda_ms(lambda: wrapper(*args), 1)
             p_t += cuda_ms(lambda: plain(*args), 1)
+            if lib_call is not None:
+                l_t += cuda_ms(lib_call, 1)
         k_ms, p_ms = statistics.median(k_t), statistics.median(p_t)
-        b_ms, b_by = bound_ms(name, args, flood_steps)
+        b_ms, b_by = bound_ms(name, args, kernels)
+        lib_txt = ""
+        if lib_call is not None:
+            lib_ms += statistics.median(l_t)
+            lib_txt = f", library {statistics.median(l_t):.4f} ms"
         log(f"  {name} {list(map(list, sig))}: bit-equal; kernel "
-            f"{k_ms:.3f} ms, plain {p_ms:.3f} ms (median of {TIMING_REPS}); "
-            f"bound {b_ms:.4f} ms ({b_by})")
+            f"{k_ms:.4f} ms, plain {p_ms:.4f} ms{lib_txt} (median of "
+            f"{TIMING_REPS}); bound {b_ms:.4f} ms ({b_by})")
         shapes.append([list(s) for s in sig])
         ms += k_ms
         plain_ms += p_ms
         bound += b_ms
         by[b_by] = by.get(b_by, 0.0) + b_ms
     return {"shapes": shapes, "ms": ms, "plain_ms": plain_ms,
-            "max_abs_err": err, "bound_ms": bound,
+            "library_ms": lib_ms, "max_abs_err": err, "bound_ms": bound,
             "bound_by": max(by, key=by.get)}
+
+
+def sweeps_to_fixpoint(plain, lbl: torch.Tensor, cap: int) -> torch.Tensor:
+    """i64[B]: per band, the number of sweeps after which one more sweep
+    leaves it unchanged (cap + 1 where it still changes after cap)."""
+    fix = torch.full((lbl.shape[0],), cap + 1, dtype=torch.int64,
+                     device=lbl.device)
+    x = lbl
+    for k in range(cap + 1):
+        y = plain(x, 1)
+        still = (y != x).flatten(1).any(1)
+        fix = torch.where(~still & (fix > cap), k, fix)
+        x = y
+    return fix
 
 
 def run_main_path(pts, pipeline, octree, device, config=None):
@@ -305,6 +358,56 @@ def frame_stages(session, cam, splat) -> dict:
                                                      session.palette, cfg))
     img = timed("eye_dome", lambda: splat.eye_dome(color, z01, cfg))
     timed("to_u8 + copy to host", lambda: splat.to_u8(img).cpu().numpy())
+    return stages
+
+
+def step_stages(session, kernels, sg, ch, octree) -> dict:
+    """Host-clock ms of each stage of the step on the session's cloud, as
+    ``full_pipeline`` and ``build_keys`` run them (median of
+    MAIN_PATH_REPS).  Raises unless the stages end in the session's own
+    segment ids and classes, so that they time what the step runs."""
+    cloud, cfg = session.cloud, session.config
+    scfg = cfg.segmentation
+    pos, valid = cloud.pos, cloud.valid
+    stages = {}
+    timed = stage_timer(stages, MAIN_PATH_REPS)
+
+    def geometry():
+        d = torch.tensor(MAX_DISTANCE, dtype=torch.float32, device=pos.device)
+        lo, hi = sg.scene_bounds(pos, valid)
+        s = sg.cell_size(lo, hi, d, scfg)
+        top = sg.band_anchor(sg.anchor_histogram(pos, valid, lo[1], hi[1]),
+                             lo[1], hi[1], scfg)
+        return lo, s, sg.point_cells(pos, lo, s, top, scfg)
+
+    lo, s, (band, cx, cz) = timed("bounds + anchor + point_cells", geometry)
+    cnt = timed("moment_grids", lambda: sg.moment_grids(valid, band, cx, cz,
+                                                        scfg))
+    labels, occ_idx, occ_valid = timed(
+        "_connected_components (cc_sweep bodies + pointer jumps)",
+        lambda: sg._connected_components(cnt > 0, scfg.cc_occupied_cap,
+                                         scfg.cc_sweeps))
+    cents, cmask = timed("_extract_clusters", lambda: sg._extract_clusters(
+        labels, cnt, lo, s, scfg.max_trees_per_band, scfg.min_points,
+        occ_idx, occ_valid))
+    radius = float(np.float32(scfg.match_radius_factor)
+                   * np.float32(MAX_DISTANCE))
+    tp, act, _ = timed("match_scan", lambda: kernels.match_scan(
+        cents, cmask, radius, scfg.match_rounds, scfg.max_segments))
+    grids = timed("_bruteforce_voronoi", lambda: sg._bruteforce_voronoi(
+        occ_idx, occ_valid, tp, act, lo, s, cnt.shape[0], scfg.grid_size,
+        scfg.voronoi_chunk))
+    seg = timed("assign_points",
+                lambda: sg.assign_points(grids, band, cx, cz, valid))
+    _, cls_ = timed("compute_segments (full_bbox=False)",
+                    lambda: ch.compute_segments(
+                        pos, seg, valid, scfg.max_segments + 1,
+                        cfg.characteristics, full_bbox=False))
+    timed("build_keys", lambda: octree.build_keys(pos, valid))
+    if not (torch.equal(seg, cloud.segment)
+            and torch.equal(cls_, cloud.classification)):
+        raise AssertionError("the timed stages give other segment ids or "
+                             "classes than the step")
     return stages
 
 
@@ -450,11 +553,13 @@ def main() -> int:
               "needs a CUDA card", file=sys.stderr)
         return 1
     from treee_tpu_torch import config as tconfig
-    from treee_tpu_torch import pipeline, rbv, trunk_axis
+    from treee_tpu_torch import (characteristics, pipeline, rbv, segmentation,
+                                 trunk_axis)
     from treee_tpu_torch.io import las
     from treee_tpu_torch.ops import kernels, octree
     from treee_tpu_torch.ops.kernels import build
     from treee_tpu_torch.render import Camera, splat
+    from treee_tpu_torch.tools import probe_extract
 
     t_start = time.perf_counter()
     dev = "cuda"
@@ -495,10 +600,12 @@ def main() -> int:
     flood_cfg = tconfig.Config(segmentation=tconfig.SegmentationConfig(
         use_bruteforce_voronoi=False, use_packed_jfa=False))
 
-    # --- phases 1-7: each kernel against its plain version ---
-    calls = {k: [] for k, _, _ in KERNELS}
-    with swapped(kernels, **{k: recorder(getattr(kernels, k), calls[k])
-                             for k, _, _ in KERNELS}):
+    # --- phases 1-7: each kernel of a path against its plain version ---
+    calls = {k: [] for k in PATH_KERNELS}
+    # every CC body of the step: each stops at its own bands' fixpoints
+    with swapped(kernels, **{k: recorder(getattr(kernels, k), calls[k],
+                                         by_value=k == "cc_sweep")
+                             for k in PATH_KERNELS}):
         session, _, _ = run_main_path(pts, pipeline, octree, dev)
         session.render(Camera.orbital(distance=ORBIT_DISTANCE, device=dev))
         for kw in INVENTORY_CALLS:
@@ -507,21 +614,27 @@ def main() -> int:
         pipeline.Session.from_points(pts, flood_cfg, device=dev).segment(
             MAX_DISTANCE)
     results = {}
-    for i, (k, _, _) in enumerate(KERNELS, start=1):
+    for i, k in enumerate(PATH_KERNELS, start=1):
         log(f"phase {i}: {k}")
         if not calls[k]:
             raise AssertionError(f"the port's paths never called {k}")
-        results[k] = check_kernel(k, getattr(kernels, k),
-                                  getattr(kernels, k + "_plain"), calls[k],
-                                  kernels.jump_flood_steps)
+        results[k] = check_kernel(k, kernels, calls[k])
     del calls
 
     # --- phase 8: the main path ---
     log("phase 8: main path, Session.from_points(...).segment(0.75) + "
         "build_keys")
+    cc_inputs = []
+    cc_kernel = kernels.cc_sweep
+
+    def cc_recorded(lbl, sweeps):
+        cc_inputs.append((lbl.clone(), sweeps))
+        return cc_kernel(lbl, sweeps)
+
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launches()
-    session, res, keys = run_main_path(pts, pipeline, octree, dev)
+    with swapped(kernels, cc_sweep=cc_recorded):
+        session, res, keys = run_main_path(pts, pipeline, octree, dev)
     launches = kernels.launches()
     log(f"  launches: {launches}")
     for k in MAIN_PATH_KERNELS:
@@ -534,6 +647,17 @@ def main() -> int:
     seg_kernel = session.cloud.segment[session.cloud.valid]
     n_seg_kernel = int(res.n_segments)
     del session, res, keys
+    for i, (lbl, sweeps) in enumerate(cc_inputs, start=1):
+        fix = sweeps_to_fixpoint(kernels.cc_sweep_plain, lbl, sweeps).cpu()
+        occupied = (lbl != IBIG).flatten(1).any(1).cpu()
+        f = fix[occupied]
+        log(f"  cc_sweep call {i} of {len(cc_inputs)} ({sweeps} sweeps): "
+            f"{int(occupied.sum())} occupied bands; sweeps to the fixpoint "
+            f"per occupied band: median {float(f.median()) if len(f) else 0},"
+            f" max {int(f.max()) if len(f) else 0}; still changing after "
+            f"{sweeps}: {int((f > sweeps).sum())}; counts "
+            f"{sorted(f.tolist())}")
+    del cc_inputs
 
     plain = {k: getattr(kernels, k + "_plain") for k, _, _ in KERNELS}
     with swapped(kernels, **plain):
@@ -566,6 +690,9 @@ def main() -> int:
     log(f"  step (segment + table + build_keys, cloud on the card): median "
         f"{step_s * 1e3:.1f} ms of {MAIN_PATH_REPS} warm runs "
         f"{[round(t * 1e3, 1) for t in times]}, {n / step_s / 1e6:.2f} Mpts/s")
+    for stage, ms in step_stages(session, kernels, segmentation,
+                                 characteristics, octree).items():
+        log(f"  stage {stage}: {ms:.3f} ms")
     del seg_kernel
 
     # --- phase 9: the frame ---
@@ -773,6 +900,36 @@ def main() -> int:
             f"{len(a['segment'])} rows with agreeing ids; card vs CPU largest "
             f"relative difference {worst:.3g}")
 
+    # --- phase 13: the gather probe (on no path of the system) ---
+    log("phase 13: take_along_axis, the gather probe's four shapes "
+        "(treee_tpu_torch.tools.probe_extract)")
+    cases = probe_extract.gather_cases(probe_extract.probe_inputs())
+    kernels.reset_launches()
+    outs = probe_extract.run_gathers(cases, dev)
+    torch.cuda.synchronize()
+    launches["take_along_axis"] = kernels.launches()["take_along_axis"]
+    log(f"  launches: {launches['take_along_axis']} for {len(cases)} gathers")
+    if launches["take_along_axis"] != len(cases):
+        raise AssertionError("the probe's gathers did not all launch the "
+                             "take_along_axis kernel")
+    probe_calls = []
+    for (_, tab, idx, axis), out in zip(cases, outs):
+        args = (torch.from_numpy(tab).to(dev), torch.from_numpy(idx).to(dev),
+                axis)
+        if not torch.equal(out, kernels.take_along_axis_plain(*args)):
+            raise AssertionError("a probe gather differs from the plain "
+                                 "version")
+        probe_calls.append(((tuple(tab.shape), tuple(idx.shape)), args))
+
+    def take_along_library(tab, idx, axis):
+        idx = idx.long()
+        if axis is None:
+            return lambda: tab[idx]
+        return lambda: torch.take_along_dim(tab, idx, dim=axis)
+
+    results["take_along_axis"] = check_kernel(
+        "take_along_axis", kernels, probe_calls, library=take_along_library)
+
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(card_line())
     log(json.dumps({"kernels": [
@@ -780,7 +937,8 @@ def main() -> int:
          "launches": launches[k], "max_abs_err": results[k]["max_abs_err"],
          "ms": results[k]["ms"], "plain_ms": results[k]["plain_ms"],
          "bound_ms": results[k]["bound_ms"],
-         "bound_by": results[k]["bound_by"], "library_ms": None,
+         "bound_by": results[k]["bound_by"],
+         "library_ms": results[k]["library_ms"],
          "shapes": results[k]["shapes"]}
         for k, src, tpu in KERNELS]}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

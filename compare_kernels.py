@@ -1,0 +1,192 @@
+#!/usr/bin/env python3
+"""Time two builds of the ``cc_sweep`` and ``match_scan`` kernels against
+each other on one CUDA card: this tree's sources and those of another
+commit.
+
+    mkdir -p build/parent
+    git archive <commit> treee_tpu_torch/ops/kernels/csrc \\
+        | tar -x --strip-components=4 -C build/parent
+    python3 compare_kernels.py build/parent [--reps 7]
+
+Each build takes ``cc_sweep.cu``, ``match_scan.cu`` and ``common.cu`` from
+its directory and the port's nvcc flags, into ``build/compare_kernels/``.
+Inputs, each held bit for bit against the plain version for both builds:
+
+- every ``cc_sweep`` call and the ``match_scan`` call of one
+  ``Session.segment(0.75)`` on bench.py's 15M-point scan;
+- one full 384 x 384 band whose minimum needs 383 sweeps to cross it, at 1,
+  2, 16 and 64 sweeps (the per-sweep cost of a band);
+- stacks of 1 to 64 such bands at 64 sweeps: every band busy to the last
+  sweep, the case where the cluster design's waves of resident clusters
+  cost the most;
+- 64 bands of a random 60% fill at 64 sweeps, at G = 384, 512 and 1024.
+
+Times are medians of ``--reps`` CUDA-event intervals around one call of the
+C entry point (no wrapper), the builds in turns.
+"""
+
+from __future__ import annotations
+
+import argparse
+import ctypes
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+from treee_tpu_torch.ops.kernels import build
+
+SOURCES = ("cc_sweep.cu", "match_scan.cu", "common.cu")
+OUT_DIR = build.BUILD_DIR.parent / "compare_kernels"
+
+
+def load(name: str, where: Path) -> ctypes.CDLL:
+    OUT_DIR.mkdir(parents=True, exist_ok=True)
+    out = OUT_DIR / f"lib_{name}.so"
+    cmd = [build.nvcc_path(), *build.NVCC_FLAGS, "-o", str(out),
+           *(str(where / f) for f in SOURCES)]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode:
+        raise RuntimeError(f"{name}: nvcc failed\n{proc.stdout}{proc.stderr}")
+    regs = [line.strip() for line in (proc.stdout + proc.stderr).splitlines()
+            if "registers" in line]
+    print(f"{name}: built in {time.perf_counter() - t0:.1f} s; {regs}")
+    lib = ctypes.CDLL(str(out))
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.treee_cc_sweep.argtypes = [p, p, p, i, i, i, p]
+    lib.treee_match_scan.argtypes = [p, p, i, i, i, i, f, p, p, p, p]
+    return lib
+
+
+def cc_call(lib, lbl, sweeps):
+    out, tmp = torch.empty_like(lbl), torch.empty_like(lbl)
+    b, g, _ = lbl.shape
+    build.check(lib.treee_cc_sweep(lbl.data_ptr(), out.data_ptr(),
+                                   tmp.data_ptr(), b, g, sweeps,
+                                   build.stream(lbl)), "cc_sweep")
+    return out
+
+
+def match_call(lib, cents, cmask, radius, rounds, t_cap):
+    b, c_cap, _ = cents.shape
+    pos = torch.empty(b, t_cap, 2, dtype=torch.float32, device=cents.device)
+    act = torch.empty(b, t_cap, dtype=torch.bool, device=cents.device)
+    n = torch.empty((), dtype=torch.int32, device=cents.device)
+    build.check(lib.treee_match_scan(
+        cents.data_ptr(), cmask.data_ptr(), b, c_cap, t_cap, rounds,
+        float(radius), pos.data_ptr(), act.data_ptr(), n.data_ptr(),
+        build.stream(cents)), "match_scan")
+    return pos, act, n
+
+
+def event_ms(fn) -> float:
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end)
+
+
+def compare(label: str, libs: dict, call, args, ref, reps: int,
+            card: str) -> None:
+    """Bit equality of both builds, then their median times in turns."""
+    for name, lib in libs.items():
+        got = call(lib, *args)
+        got = got if isinstance(got, tuple) else (got,)
+        if not all(torch.equal(a, b) for a, b in zip(got, ref)):
+            raise AssertionError(f"{label}: {name} differs from the plain "
+                                 "version")
+    times = {name: [] for name in libs}
+    order = list(libs) + list(libs)[::-1]
+    for _ in range(reps):
+        for name in order:
+            times[name].append(event_ms(lambda: call(libs[name], *args)))
+    print(f"{label}: bit-equal; median ms " + ", ".join(
+        f"{n} {statistics.median(t):.4f}" for n, t in times.items())
+        + f"   [{card}]", flush=True)
+
+
+def full_band(g: int, b: int) -> torch.Tensor:
+    """b bands, every cell occupied, labels falling along the rows: the
+    minimum starts in the last cell and needs g - 1 sweeps to cross."""
+    idx = torch.arange(g * g, dtype=torch.int32, device="cuda").view(1, g, g)
+    return (g * g - 1 - idx).expand(b, g, g).contiguous()
+
+
+def random_fill(g: int, b: int, fill: float, seed: int) -> torch.Tensor:
+    rng = np.random.default_rng(seed)
+    occ = rng.random((b, g, g)) < fill
+    lbl = np.where(occ, np.arange(g * g, dtype=np.int32).reshape(1, g, g),
+                   0x7FFFFFFF).astype(np.int32)
+    return torch.from_numpy(lbl).cuda()
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("parent", type=Path,
+                    help="directory with the other commit's kernel sources")
+    ap.add_argument("--reps", type=int, default=7)
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("compare_kernels: needs a CUDA card", file=sys.stderr)
+        return 1
+    from treee_tpu_torch import pipeline
+    from treee_tpu_torch.io import las
+    from treee_tpu_torch.ops import kernels
+    from treee_tpu_torch.tools.probe_extract import card as card_line
+
+    card = card_line()
+    libs = {"parent": load("parent", args.parent),
+            "shipped": load("shipped", build.CSRC)}
+
+    def cc(label, lbl, sweeps):
+        compare(label, libs, cc_call, (lbl, sweeps),
+                (kernels.cc_sweep_plain(lbl, sweeps),), args.reps, card)
+
+    for sweeps in (1, 2, 16, 64):
+        cc(f"cc_sweep, one full 384 band, {sweeps} sweeps", full_band(384, 1),
+           sweeps)
+    for b in (8, 15, 16, 30, 45, 64):
+        cc(f"cc_sweep, {b} full 384 bands, 64 sweeps", full_band(384, b), 64)
+    for g in (384, 512, 1024):
+        cc(f"cc_sweep, 64 bands of G={g} at 60% random fill, 64 sweeps",
+           random_fill(g, 64, 0.6, g), 64)
+
+    pts = las.synthetic_forest(n_trees=937, spacing=7.0,
+                               points_per_tree=12_000,
+                               ground_points=15_000_000 - 937 * 12_000, seed=0)
+    cc_in, ms_in = [], []
+    cc_kernel, ms_kernel = kernels.cc_sweep, kernels.match_scan
+
+    def cc_recorded(lbl, sweeps):
+        cc_in.append((lbl.clone(), sweeps))
+        return cc_kernel(lbl, sweeps)
+
+    def ms_recorded(*a):
+        ms_in.append(tuple(x.clone() if torch.is_tensor(x) else x for x in a))
+        return ms_kernel(*a)
+
+    kernels.cc_sweep, kernels.match_scan = cc_recorded, ms_recorded
+    try:
+        pipeline.Session.from_points(pts, device="cuda").segment(0.75)
+    finally:
+        kernels.cc_sweep, kernels.match_scan = cc_kernel, ms_kernel
+    torch.cuda.synchronize()
+    for i, (lbl, sweeps) in enumerate(cc_in, start=1):
+        cc(f"cc_sweep, main-path body {i}", lbl, sweeps)
+    for a in ms_in:
+        compare("match_scan, main path", libs, match_call, a,
+                kernels.match_scan_plain(*a), args.reps, card)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

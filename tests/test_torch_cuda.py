@@ -1,10 +1,14 @@
 """The port's CUDA kernels against their plain versions, on a CUDA card.
 
-Edge shapes that the main path's own shapes do not reach: grids that are no
-multiple of the CC tile, sweep counts that are no multiple of the temporal
-block, match capacities that are no multiple of the block's threads, exact
-distance ties, cummax lengths, widths and runs across the scan's block
-and level boundaries, key images that are no multiple of the dilation tile,
+Edge shapes that the main path's own shapes do not reach: CC grids ragged
+over the cluster's 8 CTAs, grids beyond G=480 whose rows the kernel sweeps in
+device memory, more bands than the card holds clusters at once, bands at
+their fixpoint, still changing at the last sweep, empty or full; match
+capacities that are no multiple of the cluster's CTAs or threads, exact
+distance ties between slots in different CTAs, no active slot, one cluster,
+more new clusters than free slots; gathers at the Mosaic probe's shapes and
+from tables larger than shared memory; cummax lengths, widths and runs
+across the scan's block and level boundaries, key images that are no multiple of the dilation tile,
 dilation radii across the kernel's pass groups, splats on the image edges
 and empty images, cumsum lengths around the block size, runs across many
 blocks and both block sizes, jump-flood grids of 1 to 384 cells a side with
@@ -56,7 +60,11 @@ def _same(got, ref):
 
 @pytest.mark.parametrize("b,g,sweeps,fill", [
     (3, 64, 8, 0.3), (2, 100, 13, 0.5), (1, 7, 1, 0.9), (4, 130, 64, 0.2),
-    (2, 384, 17, 1.0),
+    (2, 384, 17, 1.0), (2, 1, 1, 1.0), (3, 7, 13, 0.7), (2, 100, 64, 0.6),
+    (2, 383, 1, 0.6), (2, 383, 64, 0.6), (3, 384, 13, 0.55),
+    (200, 384, 64, 0.6), (2, 480, 64, 0.6), (2, 481, 13, 0.6),
+    (1, 675, 5, 0.6), (2, 676, 64, 0.6), (3, 1024, 13, 1.0),
+    (40, 768, 64, 0.6),
 ])
 def test_cc_sweep_kernel_equals_plain(dev, b, g, sweeps, fill):
     rng = np.random.default_rng(g + sweeps)
@@ -67,9 +75,34 @@ def test_cc_sweep_kernel_equals_plain(dev, b, g, sweeps, fill):
     assert kernels.cc_sweep.launches == 1
 
 
+@pytest.mark.parametrize("g,sweeps", [(7, 1), (100, 13), (384, 64),
+                                     (700, 64)])
+def test_cc_sweep_kernel_stops_exactly(dev, g, sweeps):
+    """Bands at their fixpoint from the start, still changing at the last
+    sweep (a corridor longer than the sweeps), empty and full: the early
+    exit must give exactly the output of `sweeps` sweeps."""
+    occ = torch.zeros((4, g, g), dtype=torch.bool)
+    occ[1, ::4] = True
+    for k, row in enumerate(range(0, g - 4, 4)):
+        occ[1, row:row + 5, 0 if k % 2 == 0 else g - 1] = True
+    occ[3] = True
+    idx = torch.arange(g * g, dtype=torch.int32).view(g, g)
+    lbl = torch.where(occ, g * g - 1 - idx, IBIG).to(torch.int32)
+    rng = np.random.default_rng(g)
+    blobs = torch.from_numpy(rng.random((g, g)) < 0.3)  # no percolation
+    lbl[0] = kernels.cc_sweep_plain(torch.where(blobs, idx, IBIG)[None],
+                                    4 * g)[0]       # a fixpoint already
+    lbl = lbl.to(dev)
+    assert torch.equal(kernels.cc_sweep_plain(lbl[:1], 1), lbl[:1])
+    _same(kernels.cc_sweep(lbl, sweeps), kernels.cc_sweep_plain(lbl, sweeps))
+    assert kernels.cc_sweep.launches == 1
+
+
 @pytest.mark.parametrize("b,c_cap,t_cap,rounds,box", [
     (6, 32, 64, 4, 50.0), (5, 16, 8, 4, 4.0), (64, 256, 2048, 4, 200.0),
-    (3, 300, 1500, 2, 8.0), (2, 1, 1, 0, 1.0),
+    (3, 300, 1500, 2, 8.0), (2, 1, 1, 0, 1.0), (5, 40, 1, 4, 3.0),
+    (5, 40, 7, 4, 3.0), (8, 256, 2049, 4, 60.0), (4, 1, 16, 4, 2.0),
+    (3, 64, 40, 4, 6.0),
 ])
 def test_match_scan_kernel_equals_plain(dev, b, c_cap, t_cap, rounds, box):
     rng = np.random.default_rng(c_cap + t_cap)
@@ -83,6 +116,63 @@ def test_match_scan_kernel_equals_plain(dev, b, c_cap, t_cap, rounds, box):
     _same(kernels.match_scan(cents, cmask, 1.5, rounds, t_cap),
           kernels.match_scan_plain(cents, cmask, 1.5, rounds, t_cap))
     assert kernels.match_scan.launches == 1
+
+
+def test_match_scan_kernel_ties_across_ctas(dev):
+    """Band 0 puts 256 clusters on slots 0-255, among them twins: slot 3 and
+    slot 250 at one point, slot 5 and slot 240 mirrored about another.  The
+    active slots are split over the cluster's CTAs by count, so each twin
+    pair lies in two CTAs.  Band 1's clusters sit at the twins' common point
+    and at the mirror's centre: exact ties in distance, which the lower slot
+    must win.  No active slot in band 0's matching, nothing at all in band
+    2, and band 3 holds more new clusters than there are free slots."""
+    t_cap, c_cap = 300, 256
+    cents = np.zeros((4, c_cap, 2), np.float32)
+    cmask = np.zeros((4, c_cap), bool)
+    cents[0] = np.stack([np.arange(c_cap) * 10.0, np.zeros(c_cap)], -1)
+    cents[0, 250] = cents[0, 3]
+    cents[0, 5] = (1000.0, 500.0)
+    cents[0, 240] = (1002.0, 500.0)
+    cmask[0] = True
+    cents[1, 0] = cents[0, 3] + (0.5, 0.0)
+    cents[1, 1] = (1001.0, 500.0)
+    cmask[1, :2] = True
+    cents[3] = np.stack([np.arange(c_cap) * 10.0 + 5000.0,
+                         np.ones(c_cap)], -1)
+    cmask[3] = True
+    cents, cmask = torch.from_numpy(cents).to(dev), torch.from_numpy(cmask).to(dev)
+    got = kernels.match_scan(cents, cmask, 1.5, 4, t_cap)
+    ref = kernels.match_scan_plain(cents, cmask, 1.5, 4, t_cap)
+    _same(got, ref)
+    pos = got[0][1].cpu()
+    assert tuple(pos[3].tolist()) == (30.5, 0.0)      # slot 3 beat slot 250
+    assert tuple(pos[250].tolist()) == (30.0, 0.0)
+    assert tuple(pos[5].tolist()) == (1001.0, 500.0)  # slot 5 beat slot 240
+    assert int(got[2]) == t_cap and bool(got[1][3].all())
+    assert kernels.match_scan.launches == 1
+
+
+@pytest.mark.parametrize("shape,hi,axis", [
+    ((8, 128), 8, 0), ((256, 128), 256, 0), ((8, 128), 128, 1),
+    ((128,), 128, None),                       # the probe's four shapes
+    ((100_000,), 100_000, None),               # tables beyond 48 KB of
+    ((3, 5000), 5000, 1), ((2000, 50), 2000, 0),   # shared memory
+    ((1, 1), 1, 0), ((1,), 1, None),
+])
+def test_take_along_axis_kernel_equals_plain(dev, shape, hi, axis):
+    gen = torch.Generator(device=dev).manual_seed(hi)
+    tab = torch.rand(shape, device=dev, generator=gen)
+    if axis is None:
+        ishape = (8, 128) if shape == (128,) else (1000, 37)
+    elif axis == 0:
+        ishape = (shape[0] if shape[0] <= 256 else 300, shape[1])
+    else:
+        ishape = (shape[0], 128 if shape[1] == 128 else 700)
+    idx = torch.randint(0, hi, ishape, device=dev, generator=gen,
+                        dtype=torch.int32)
+    _same(kernels.take_along_axis(tab, idx, axis),
+          kernels.take_along_axis_plain(tab, idx, axis))
+    assert kernels.take_along_axis.launches == 1
 
 
 @pytest.mark.parametrize("n,c,n_keys", [

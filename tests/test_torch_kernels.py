@@ -7,6 +7,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from jax.experimental import pallas as pl
 
 from treee_tpu import characteristics as jch
 from treee_tpu import segmentation as jsg
@@ -39,13 +40,57 @@ def _labels(occ):
 
 
 @pytest.mark.parametrize("g,sweeps", [(64, 1), (64, 5), (64, 8), (48, 13),
-                                      (40, 24)])
+                                      (40, 24), (7, 3), (9, 16)])
 def test_cc_sweep_plain_matches_pallas(g, sweeps):
     lbl = _labels(_blob_grid(3, g, 6, seed=g + sweeps))
     ref = np.asarray(pk.cc_sweep_pallas(jnp.asarray(lbl), sweeps,
                                         interpret=True))
     got = kernels.cc_sweep(torch.from_numpy(lbl), sweeps)
     np.testing.assert_array_equal(got.numpy(), ref)
+
+
+def _converging_bands(g):
+    """Four bands that reach the sweeps' fixpoint at different counts:
+    isolated 2x2 squares (one sweep), one long zigzag corridor whose minimum
+    must travel its length, an empty band and a full one (the minimum
+    crosses the diagonal)."""
+    occ = np.zeros((4, g, g), bool)
+    occ[0, 1::4, 1::4] = occ[0, 2::4, 1::4] = True
+    occ[0, 1::4, 2::4] = occ[0, 2::4, 2::4] = True
+    occ[1, ::4, :] = True            # every 4th row, joined at alternate ends
+    for k, row in enumerate(range(0, g - 4, 4)):
+        occ[1, row:row + 5, 0 if k % 2 == 0 else g - 1] = True
+    occ[3] = True
+    lbl = _labels(occ)
+    # labels counting down, so the minimum starts at the corridor's far end
+    lbl[1] = np.where(occ[1], g * g - 1 - lbl[1], IBIG)
+    return lbl
+
+
+@pytest.mark.parametrize("g", [12, 16, 24])
+def test_cc_sweep_fixpoint_is_final(g):
+    """The premise of the kernel's early exit: once one more sweep leaves a
+    band unchanged, every further sweep does too, so stopping there gives
+    the output of any larger sweep count.  The bands converge at different
+    counts."""
+    lbl = torch.from_numpy(_converging_bands(g))
+    n = g * g // 2 + g                 # beyond the corridor's length
+    states = [lbl]
+    for _ in range(n):
+        states.append(kernels.cc_sweep_plain(states[-1], 1))
+    fix = []
+    for b in range(lbl.shape[0]):
+        k = next(k for k in range(n) if torch.equal(states[k][b],
+                                                    states[k + 1][b]))
+        assert all(torch.equal(states[k][b], states[m][b])
+                   for m in range(k, n + 1))
+        fix.append(k)
+    assert fix[0] == 1 and fix[2] == 0, fix     # squares; empty
+    assert g - 1 <= fix[3] < fix[1], fix        # full; corridor
+    # one call of m sweeps is m single sweeps, before and after the fixpoints
+    for m in sorted({1, fix[0] + 1, fix[3] + 1, n}):
+        assert torch.equal(kernels.cc_sweep_plain(lbl, m), states[m])
+    assert torch.equal(states[n] == IBIG, lbl == IBIG)
 
 
 def _match_inputs(case, rng):
@@ -83,6 +128,133 @@ def test_match_scan_plain_matches_pallas(case):
     assert int(gn) == int(nal)
     if case == "ties":
         assert int(gn) == t_cap and ga.numpy()[-1].all()  # slots ran out
+
+
+U64_NONE = np.uint64(0xFFFFFFFFFFFFFFFF)
+
+
+def _match_scan_partitioned(cents, cmask, radius, rounds, t_cap, n_cta):
+    """numpy model of the cluster kernel's partition of the band matching:
+    the active slots (compacted in index order) split by count over n_cta
+    CTAs; per CTA, packed (value bits << 32 | index) keys for each slot's
+    nearest untaken cluster and a partial nearest slot per cluster; the
+    partials reduced over the CTAs, the winning slot's row key read from its
+    owner CTA; the active list rebuilt from the allocation's free-slot
+    ranks."""
+    b, c_cap, _ = cents.shape
+    px = np.zeros(t_cap, np.float32)
+    pz = np.zeros(t_cap, np.float32)
+    act = np.zeros(t_cap, bool)
+    alist = np.zeros(0, np.int64)
+    out_pos = np.empty((b, t_cap, 2), np.float32)
+    out_act = np.empty((b, t_cap), bool)
+    n_alloc = 0
+    r = np.float32(radius)
+    for band in range(b):
+        cx, cz = cents[band, :, 0], cents[band, :, 1]
+        taken = ~cmask[band]
+        ulist = np.flatnonzero(~taken)
+        for _ in range(rounds):
+            n_act, n_un = len(alist), len(ulist)
+            if n_act == 0 or n_un == 0:
+                break
+            chunk = -(-n_act // n_cta)
+            row_keys, col_parts = [], []
+            for k in range(n_cta):
+                ii = np.arange(min(k * chunk, n_act),
+                               min(k * chunk + chunk, n_act))
+                t = alist[ii]
+                dx = px[t][:, None] - cx[ulist][None, :]
+                dz = pz[t][:, None] - cz[ulist][None, :]
+                d = np.sqrt(dx * dx + dz * dz)
+                assert d.dtype == np.float32
+                bits = d.view(np.uint32).astype(np.uint64) << np.uint64(32)
+                row_keys.append((bits | ulist[None, :].astype(np.uint64))
+                                .min(axis=1, initial=U64_NONE))
+                col_parts.append((bits | ii[:, None].astype(np.uint64))
+                                 .min(axis=0, initial=U64_NONE))
+            col = np.minimum.reduce(col_parts)
+            moves = []
+            for u, c in enumerate(ulist):
+                i = int(col[u] & np.uint64(0xFFFFFFFF))
+                owner = i // chunk
+                rk = row_keys[owner][i - owner * chunk]
+                val = np.uint32(rk >> np.uint64(32)).view(np.float32)
+                if int(rk & np.uint64(0xFFFFFFFF)) == c and val <= r:
+                    moves.append((alist[i], c))
+            for t, c in moves:
+                px[t], pz[t], taken[c] = cx[c], cz[c], True
+            ulist = np.flatnonzero(~taken)
+        free = np.flatnonzero(~act)
+        n_ok = min(len(ulist), len(free))
+        frank = np.cumsum(~act) - ~act        # free slots before each slot
+        px[free[:n_ok]], pz[free[:n_ok]] = cx[ulist[:n_ok]], cz[ulist[:n_ok]]
+        act[free[:n_ok]] = True
+        rank = np.arange(t_cap) - np.maximum(0, frank - n_ok)
+        alist = np.zeros(act.sum(), np.int64)
+        alist[rank[act]] = np.flatnonzero(act)
+        assert np.array_equal(alist, np.flatnonzero(act))
+        n_alloc += n_ok
+        out_pos[band] = np.stack([px, pz], -1)
+        out_act[band] = act
+    return out_pos, out_act, n_alloc
+
+
+@pytest.mark.parametrize("n_cta", [1, 3, 8, 16])
+@pytest.mark.parametrize("case", ["recurring", "ties", "crowded"])
+def test_match_scan_partition_model_matches_plain(case, n_cta):
+    """The cluster kernel's partition and tie logic, rehearsed in numpy:
+    splitting the active slots over CTAs and reducing packed keys gives the
+    plain version's outputs bit for bit."""
+    rng = np.random.default_rng(13)
+    if case == "crowded":   # clusters on a coarse lattice, many equal sqrts
+        b, c_cap, t_cap, radius = 8, 40, 96, 3.0
+        cents = (rng.integers(0, 12, (b, c_cap, 2)) * 0.5).astype(np.float32)
+        cmask = rng.random((b, c_cap)) < 0.8
+    else:
+        cents, cmask, t_cap, radius = _match_inputs(case, rng)
+    rounds = 4
+    gp, ga, gn = kernels.match_scan_plain(torch.from_numpy(cents),
+                                          torch.from_numpy(cmask), radius,
+                                          rounds, t_cap)
+    mp, ma, mn = _match_scan_partitioned(cents, cmask, radius, rounds, t_cap,
+                                         n_cta)
+    np.testing.assert_array_equal(ma, ga.numpy())
+    np.testing.assert_array_equal(mp.view(np.int32), gp.numpy().view(np.int32))
+    assert mn == int(gn)
+
+
+# the Mosaic gather probe's kernel bodies, as tools/probe_extract.py:109-131
+# writes them
+def _k_taa0(tab_ref, idx_ref, out_ref):
+    out_ref[:] = jnp.take_along_axis(tab_ref[:], idx_ref[:], axis=0)
+
+
+def _k_taa1(tab_ref, idx_ref, out_ref):
+    out_ref[:] = jnp.take_along_axis(tab_ref[:], idx_ref[:], axis=1)
+
+
+def _k_take(tab_ref, idx_ref, out_ref):
+    out_ref[:] = tab_ref[0, idx_ref[:]]
+
+
+@pytest.mark.parametrize("body,rows,hi,axis", [
+    (_k_taa0, 8, 8, 0), (_k_taa0, 256, 256, 0), (_k_taa1, 8, 128, 1),
+    (_k_take, 8, 128, None)])
+def test_take_along_axis_plain_matches_pallas(body, rows, hi, axis):
+    """At the probe's four shapes, through pl.pallas_call in interpret mode;
+    the 1-D form takes row 0 of the table, as ``tab_ref[0, idx]`` does."""
+    rng = np.random.default_rng(rows + hi)
+    tab = rng.random((rows, 128)).astype(np.float32)
+    idx = rng.integers(0, hi, (rows, 128)).astype(np.int32)
+    ref = np.asarray(pl.pallas_call(
+        body, out_shape=jax.ShapeDtypeStruct(idx.shape, jnp.float32),
+        interpret=True)(jnp.asarray(tab), jnp.asarray(idx)))
+    t = torch.from_numpy(tab[0] if axis is None else tab)
+    got = kernels.take_along_axis(t, torch.from_numpy(idx), axis)
+    assert got.dtype == torch.float32 and got.shape == idx.shape
+    np.testing.assert_array_equal(got.numpy().view(np.int32),
+                                  ref.view(np.int32))
 
 
 @pytest.mark.parametrize("n,c,block", [
@@ -270,10 +442,19 @@ def test_wrappers_take_plain_path_on_cpu_and_count_no_launch():
                      _flood_case("g16", np.random.default_rng(0)))
     assert torch.equal(kernels.jump_flood(slot, pos, cc),
                        kernels.jump_flood_plain(slot, pos, cc))
+    cols = key[:, None] % 4                                  # i32[100,1]
+    assert torch.equal(kernels.take_along_axis(val, cols, 1),
+                       kernels.take_along_axis_plain(val, cols, 1))
+    rows = (key[:8, None] % 9).expand(8, 4).contiguous()     # i32[8,4]
+    assert torch.equal(kernels.take_along_axis(val, rows, 0),
+                       kernels.take_along_axis_plain(val, rows, 0))
+    flat = val[:, 0].contiguous()
+    assert torch.equal(kernels.take_along_axis(flat, key, None),
+                       flat[key.long()])
     assert kernels.launches() == {"cc_sweep": 0, "match_scan": 0,
                                   "segmented_cummax": 0, "dilate": 0,
                                   "eye_dome": 0, "segmented_cumsum": 0,
-                                  "jump_flood": 0}
+                                  "jump_flood": 0, "take_along_axis": 0}
 
 
 def test_wrappers_refuse_devices_without_a_kernel():
@@ -293,6 +474,8 @@ def test_wrappers_refuse_devices_without_a_kernel():
                      _flood_case("g16", np.random.default_rng(0)))
     with pytest.raises(ValueError, match="device"):
         kernels.jump_flood(slot, pos, cc)
+    with pytest.raises(ValueError, match="device"):
+        kernels.take_along_axis(meta[4], meta[3][:, None] % 4, 1)
     assert sum(kernels.launches().values()) == 0
 
 
@@ -304,6 +487,10 @@ def test_wrappers_check_their_inputs():
         kernels.cc_sweep(lbl, 0)
     with pytest.raises(ValueError):
         kernels.match_scan(cents, cmask[:, :4], 1.0, 2, 16)
+    with pytest.raises(ValueError, match="radius"):
+        kernels.match_scan(cents, cmask, 3.0e38, 2, 16)
+    with pytest.raises(ValueError, match="radius"):
+        kernels.match_scan(cents, cmask, float("nan"), 2, 16)
     with pytest.raises(ValueError):
         kernels.segmented_cummax(key.long(), val)
     with pytest.raises(ValueError):
@@ -322,6 +509,14 @@ def test_wrappers_check_their_inputs():
         kernels.jump_flood(slot, pos[..., :1], cc)
     with pytest.raises(ValueError):
         kernels.jump_flood(slot.long(), pos, cc)
+    for bad in [(val, key[:, None].long() % 4, 1),     # i64 indices
+                (val.double(), key[:, None] % 4, 1),   # f64 table
+                (val, key[:8, None] % 4, 1),           # rows differ
+                (val, key[:, None] % 4, 0),            # columns differ
+                (val, key[:, None] % 4, 2),            # no such axis
+                (val, key, None)]:                     # 2-D table, no axis
+        with pytest.raises(ValueError):
+            kernels.take_along_axis(*bad)
 
 
 def test_build_targets_hopper_without_fma_contraction(monkeypatch, tmp_path):
@@ -331,7 +526,15 @@ def test_build_targets_hopper_without_fma_contraction(monkeypatch, tmp_path):
     assert not any("fast_math" in f for f in flags)
     names = {p.name for p in build.sources()}
     assert {"cc_sweep.cu", "match_scan.cu", "seg_cummax.cu", "dilate.cu",
-            "eye_dome.cu", "seg_cumsum.cu", "jump_flood.cu"} <= names
+            "eye_dome.cu", "seg_cumsum.cu", "jump_flood.cu",
+            "take_along.cu"} <= names
+    assert "tools/probe_extract.py::try_kernel" in (
+        build.CSRC / "take_along.cu").read_text()
+    # the two step kernels run as one thread-block cluster launch each
+    for src in ("cc_sweep.cu", "match_scan.cu"):
+        text = (build.CSRC / src).read_text()
+        assert "cudaLaunchAttributeClusterDimension" in text
+        assert "map_shared_rank" in text and "cudaLaunchKernelEx" in text
     # every kernel source names the TPU kernel it replaces
     for src, tpu in [("cc_sweep.cu", "_cc_sweep_kernel"),
                      ("match_scan.cu", "_match_kernel"),

@@ -54,7 +54,9 @@ class SegmentationConfig:
     max_bands: int = 64                 # height bands (64 m of canopy)
     max_trees_per_band: int = 256       # clusters kept per band
     max_segments: int = 2048            # tracked segment slots in a scene
-    grid_size: int = 384                # CC occupancy grid cells per axis
+    # CC occupancy grid cells per axis; above 480 the CC kernel's band rows
+    # no longer fit in its cluster's shared memory and it runs slower
+    grid_size: int = 384
     # compacted occupied-cell capacity for the CC pointer jumps, cluster
     # aggregation and the Voronoi; cells beyond it set occupied_overflow
     cc_occupied_cap: int = 1 << 19

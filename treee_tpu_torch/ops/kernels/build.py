@@ -117,6 +117,8 @@ def library() -> ctypes.CDLL:
     lib.treee_seg_cumsum_scratch_bytes.restype = ll
     lib.treee_jump_flood.argtypes = [p, p, p, p, p, p, p, i, i, p]
     lib.treee_jump_flood.restype = i
+    lib.treee_take_along.argtypes = [p, p, p, i, i, i, i, p]
+    lib.treee_take_along.restype = i
     lib.treee_error_string.argtypes = [i]
     lib.treee_error_string.restype = ctypes.c_char_p
     return lib

@@ -45,7 +45,7 @@ def cc_sweep(lbl: torch.Tensor, sweeps: int) -> torch.Tensor:
         return cc_sweep_plain(lbl, sweeps)
     lbl = lbl.contiguous()
     out = torch.empty_like(lbl)
-    tmp = torch.empty_like(lbl)
+    tmp = torch.empty_like(lbl)      # used only where G > 480
     b, g, _ = lbl.shape
     with torch.cuda.device(lbl.device):
         err = build.library().treee_cc_sweep(

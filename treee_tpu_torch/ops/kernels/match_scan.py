@@ -14,8 +14,8 @@ from . import build
 INF = 3.0e38
 
 
-def _check(cents: torch.Tensor, cmask: torch.Tensor, t_cap: int,
-           rounds: int) -> None:
+def _check(cents: torch.Tensor, cmask: torch.Tensor, radius: float,
+           t_cap: int, rounds: int) -> None:
     if cents.dtype != torch.float32 or cents.dim() != 3 or cents.shape[2] != 2:
         raise ValueError(f"match_scan: need f32[B,C,2] centroids, got "
                          f"{cents.dtype}{list(cents.shape)}")
@@ -26,6 +26,9 @@ def _check(cents: torch.Tensor, cmask: torch.Tensor, t_cap: int,
         raise ValueError("match_scan: centroids and mask on different devices")
     if t_cap < 1 or rounds < 0:
         raise ValueError(f"match_scan: bad t_cap={t_cap} or rounds={rounds}")
+    if not radius < INF:
+        raise ValueError(f"match_scan: radius must be below {INF}, got "
+                         f"{radius}")
 
 
 def match_scan_plain(cents: torch.Tensor, cmask: torch.Tensor, radius: float,
@@ -40,7 +43,7 @@ def match_scan_plain(cents: torch.Tensor, cmask: torch.Tensor, radius: float,
     Returns (tracked_pos f32[B,T,2], active bool[B,T], n_alloc i32 scalar):
     the per-band snapshots and the number of slots allocated in all.
     """
-    _check(cents, cmask, t_cap, rounds)
+    _check(cents, cmask, radius, t_cap, rounds)
     b, c_cap, _ = cents.shape
     dev = cents.device
     r = torch.tensor(radius, dtype=torch.float32, device=dev)
@@ -84,7 +87,7 @@ def match_scan(cents: torch.Tensor, cmask: torch.Tensor, radius: float,
                rounds: int, t_cap: int):
     """Band tracking (see :func:`match_scan_plain`): the kernel on CUDA
     tensors, the plain version on CPU tensors."""
-    _check(cents, cmask, t_cap, rounds)
+    _check(cents, cmask, radius, t_cap, rounds)
     if not build.on_cuda(cents, "match_scan"):
         return match_scan_plain(cents, cmask, radius, rounds, t_cap)
     b, c_cap, _ = cents.shape
