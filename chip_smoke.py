@@ -15,7 +15,9 @@ Phases, each of which raises on failure:
    scan; for ``cc_sweep``, each of the step's bodies),
    held bit for bit against its plain PyTorch version on the same inputs,
    with both times from CUDA events and the least time the card could take
-   for the same work (its bound).
+   for the same work (its bound).  The two segmented scans also take, at
+   their widest recorded value, one run that spans all 15M rows and keys
+   that are all distinct.
 8. The main path as a user drives it: ``Session.from_points(...).segment()``
    and ``.table``, then ``octree.build_keys``, on the 15M-point synthetic
    forest that ``bench.py`` times (937 trees of 12,000 points, 7 m apart,
@@ -248,25 +250,33 @@ def max_abs_err(got, ref) -> float:
     return err
 
 
-def check_kernel(name: str, kernels, calls: list, library=None) -> dict:
+def check_kernel(name: str, kernels, calls: list, library=None,
+                 extra=()) -> dict:
     """The kernel against its plain version on every recorded input: bit
     equality, both median times (kernel and plain in turns), and the
     bound, each summed over the recorded shapes.  ``library(*args)``, where
     given, returns a call of one PyTorch function that computes the same
-    thing, timed in the same turns."""
+    thing, timed in the same turns.  ``extra``: (label, args) inputs that no
+    path gives the kernel, checked and timed the same way but kept out of
+    the sums."""
     wrapper, plain = getattr(kernels, name), getattr(kernels, name + "_plain")
     shapes, ms, plain_ms, err, bound, by = [], 0.0, 0.0, 0.0, 0.0, {}
     lib_ms = None if library is None else 0.0
-    for sig, args in calls:
+    n_recorded = len(calls)
+    # the scans' order of signed zeros and their NaN are part of what they
+    # compute; the other kernels are held to torch.equal as before
+    equal = same_bits if name.startswith("segmented_") else torch.equal
+    for i, (sig, args) in enumerate(list(calls) + list(extra)):
         got = as_tuple(wrapper(*args))
         ref = as_tuple(plain(*args))
         torch.cuda.synchronize()
         for g, r in zip(got, ref):
-            if g.dtype != r.dtype or g.shape != r.shape or not torch.equal(g, r):
+            if g.dtype != r.dtype or g.shape != r.shape or not equal(g, r):
                 raise AssertionError(
                     f"{name} at {sig}: kernel output differs from the plain "
                     f"version (max abs err {max_abs_err(got, ref)})")
         err = max(err, max_abs_err(got, ref))
+        del got, ref
         lib_call = None if library is None else library(*args)
         k_t, p_t, l_t = [], [], []
         for _ in range(TIMING_REPS):
@@ -280,9 +290,12 @@ def check_kernel(name: str, kernels, calls: list, library=None) -> dict:
         if lib_call is not None:
             lib_ms += statistics.median(l_t)
             lib_txt = f", library {statistics.median(l_t):.4f} ms"
-        log(f"  {name} {list(map(list, sig))}: bit-equal; kernel "
+        what = sig if isinstance(sig, str) else list(map(list, sig))
+        log(f"  {name} {what}: bit-equal; kernel "
             f"{k_ms:.4f} ms, plain {p_ms:.4f} ms{lib_txt} (median of "
             f"{TIMING_REPS}); bound {b_ms:.4f} ms ({b_by})")
+        if i >= n_recorded:
+            continue
         shapes.append([list(s) for s in sig])
         ms += k_ms
         plain_ms += p_ms
@@ -291,6 +304,28 @@ def check_kernel(name: str, kernels, calls: list, library=None) -> dict:
     return {"shapes": shapes, "ms": ms, "plain_ms": plain_ms,
             "library_ms": lib_ms, "max_abs_err": err, "bound_ms": bound,
             "bound_by": max(by, key=by.get)}
+
+
+def same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Equal bit for bit: floats by their bit patterns, so that +0.0 and
+    -0.0 differ and equal NaNs agree."""
+    if a.dtype == torch.float32:
+        a, b = a.view(torch.int32), b.view(torch.int32)
+    return torch.equal(a, b)
+
+
+def synthetic_scans(calls: list, device) -> list:
+    """Two inputs for a scan kernel that the paths' keys do not hold, at the
+    recorded row count and the widest recorded value: one run that spans the
+    whole array, and keys that are all distinct."""
+    key, val = max((a[:2] for _, a in calls),
+                   key=lambda kv: kv[1].numel())
+    rest = next(a[2:] for _, a in calls if a[1] is val)
+    n = key.shape[0]
+    return [(f"{list(val.shape)}, one run over all rows",
+             (torch.zeros(n, dtype=torch.int32, device=device), val, *rest)),
+            (f"{list(val.shape)}, all keys distinct",
+             (torch.arange(n, dtype=torch.int32, device=device), val, *rest))]
 
 
 def sweeps_to_fixpoint(plain, lbl: torch.Tensor, cap: int) -> torch.Tensor:
@@ -618,7 +653,9 @@ def main() -> int:
         log(f"phase {i}: {k}")
         if not calls[k]:
             raise AssertionError(f"the port's paths never called {k}")
-        results[k] = check_kernel(k, kernels, calls[k])
+        extra = (synthetic_scans(calls[k], dev)
+                 if k in ("segmented_cummax", "segmented_cumsum") else ())
+        results[k] = check_kernel(k, kernels, calls[k], extra=extra)
     del calls
 
     # --- phase 8: the main path ---

@@ -1,19 +1,28 @@
 #!/usr/bin/env python3
-"""Time two builds of the ``cc_sweep`` and ``match_scan`` kernels against
-each other on one CUDA card: this tree's sources and those of another
-commit.
+"""Time two builds of the ``cc_sweep``, ``match_scan``, ``segmented_cummax``
+and ``segmented_cumsum`` kernels against each other on one CUDA card: this
+tree's sources and those of another commit.
 
     mkdir -p build/parent
     git archive <commit> treee_tpu_torch/ops/kernels/csrc \\
         | tar -x --strip-components=4 -C build/parent
-    python3 compare_kernels.py build/parent [--reps 7]
+    python3 compare_kernels.py build/parent [--reps 7] [--only scans|cc]
 
-Each build takes ``cc_sweep.cu``, ``match_scan.cu`` and ``common.cu`` from
-its directory and the port's nvcc flags, into ``build/compare_kernels/``.
-Inputs, each held bit for bit against the plain version for both builds:
+Each build takes the four kernels' sources and ``common.cu`` from its
+directory and the port's nvcc flags, into ``build/compare_kernels/``.
+Inputs, each held bit for bit against this tree's plain version for the
+shipped build (and for the other build too, except the scans where the two
+trees' tie rules for signed zeros may differ: there the other build is held
+against this tree's only where no zero is involved):
 
 - every ``cc_sweep`` call and the ``match_scan`` call of one
   ``Session.segment(0.75)`` on bench.py's 15M-point scan;
+- every distinct shape of a ``segmented_cummax`` and ``segmented_cumsum``
+  call of that step and of both inventory forms, and two synthetic key
+  layouts at 15M rows and the widest recorded width: one run over the whole
+  array, and all keys distinct.  The scans' scratch is allocated outside the
+  timed interval.  With the shipped build, the device time of each CUDA
+  launch of one call at each shape (``torch.profiler``);
 - one full 384 x 384 band whose minimum needs 383 sweeps to cross it, at 1,
   2, 16 and 64 sweeps (the per-sweep cost of a band);
 - stacks of 1 to 64 such bands at 64 sweeps: every band busy to the last
@@ -29,6 +38,7 @@ from __future__ import annotations
 
 import argparse
 import ctypes
+import re
 import statistics
 import subprocess
 import sys
@@ -40,7 +50,8 @@ import torch
 
 from treee_tpu_torch.ops.kernels import build
 
-SOURCES = ("cc_sweep.cu", "match_scan.cu", "common.cu")
+SOURCES = ("cc_sweep.cu", "match_scan.cu", "seg_cummax.cu", "seg_cumsum.cu",
+           "common.cu")
 OUT_DIR = build.BUILD_DIR.parent / "compare_kernels"
 
 
@@ -57,9 +68,16 @@ def load(name: str, where: Path) -> ctypes.CDLL:
             if "registers" in line]
     print(f"{name}: built in {time.perf_counter() - t0:.1f} s; {regs}")
     lib = ctypes.CDLL(str(out))
-    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    p, i, f, ll = (ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
+                   ctypes.c_longlong)
     lib.treee_cc_sweep.argtypes = [p, p, p, i, i, i, p]
     lib.treee_match_scan.argtypes = [p, p, i, i, i, i, f, p, p, p, p]
+    lib.treee_seg_cummax.argtypes = [p, p, p, ll, i, p, p]
+    lib.treee_seg_cummax_scratch_bytes.argtypes = [ll, i]
+    lib.treee_seg_cummax_scratch_bytes.restype = ll
+    lib.treee_seg_cumsum.argtypes = [p, p, p, ll, i, i, p, p]
+    lib.treee_seg_cumsum_scratch_bytes.argtypes = [ll, i, i]
+    lib.treee_seg_cumsum_scratch_bytes.restype = ll
     return lib
 
 
@@ -84,6 +102,61 @@ def match_call(lib, cents, cmask, radius, rounds, t_cap):
     return pos, act, n
 
 
+_scratch: dict = {}
+
+
+def _scan_buffers(lib, name: str, val, nbytes: int):
+    """Output and scratch of one build's scan at one shape, made once."""
+    k = (id(lib), name, tuple(val.shape))
+    if k not in _scratch:
+        _scratch[k] = (torch.empty_like(val),
+                       torch.empty(nbytes, dtype=torch.uint8, device=val.device))
+    return _scratch[k]
+
+
+def cummax_call(lib, key, val):
+    n, c = val.shape[0], 1 if val.dim() == 1 else val.shape[1]
+    out, scratch = _scan_buffers(lib, "cummax", val,
+                                 lib.treee_seg_cummax_scratch_bytes(n, c))
+    build.check(lib.treee_seg_cummax(key.data_ptr(), val.data_ptr(),
+                                     out.data_ptr(), n, c, scratch.data_ptr(),
+                                     build.stream(key)), "segmented_cummax")
+    return out
+
+
+def cumsum_call(lib, key, val, block=8192):
+    n, c = val.shape[0], 1 if val.dim() == 1 else val.shape[1]
+    out, scratch = _scan_buffers(
+        lib, "cumsum", val, lib.treee_seg_cumsum_scratch_bytes(n, c, block))
+    build.check(lib.treee_seg_cumsum(key.data_ptr(), val.data_ptr(),
+                                     out.data_ptr(), n, c, block,
+                                     scratch.data_ptr(), build.stream(key)),
+                "segmented_cumsum")
+    return out
+
+
+def launch_times(label: str, fn) -> None:
+    """Device time of each CUDA launch of one call of ``fn``."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    rows = []
+    for e in prof.key_averages():
+        t = getattr(e, "device_time_total", getattr(e, "cuda_time_total", 0.0))
+        if t <= 0 or e.key.startswith(("aten::", "cuda")):
+            continue
+        # "void (anonymous namespace)::scan_tiles<8>(int const*, ...)"
+        m = re.search(r"(\w+(?:<[\d, ]+>)?)\(", e.key.replace(
+            "(anonymous namespace)::", ""))
+        rows.append((m.group(1) if m else e.key[:40], e.count, t))
+    print(f"{label}: launches " + (", ".join(
+        f"{k} x{n} {t / 1e3:.4f} ms" for k, n, t in rows)
+        or "no device time reported"), flush=True)
+
+
 def event_ms(fn) -> float:
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
@@ -96,12 +169,14 @@ def event_ms(fn) -> float:
 
 
 def compare(label: str, libs: dict, call, args, ref, reps: int,
-            card: str) -> None:
-    """Bit equality of both builds, then their median times in turns."""
+            card: str, same=lambda name, a, b: torch.equal(a, b)) -> None:
+    """Bit equality of both builds (``same(build, got, ref)``), then their
+    median times in turns."""
     for name, lib in libs.items():
         got = call(lib, *args)
         got = got if isinstance(got, tuple) else (got,)
-        if not all(torch.equal(a, b) for a, b in zip(got, ref)):
+        torch.cuda.synchronize()
+        if not all(same(name, a, b) for a, b in zip(got, ref)):
             raise AssertionError(f"{label}: {name} differs from the plain "
                                  "version")
     times = {name: [] for name in libs}
@@ -134,6 +209,9 @@ def main(argv=None) -> int:
     ap.add_argument("parent", type=Path,
                     help="directory with the other commit's kernel sources")
     ap.add_argument("--reps", type=int, default=7)
+    ap.add_argument("--only", choices=("cc", "scans"), default=None,
+                    help="the cc_sweep and match_scan inputs only, or the "
+                         "two scans' only")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("compare_kernels: needs a CUDA card", file=sys.stderr)
@@ -146,10 +224,20 @@ def main(argv=None) -> int:
     card = card_line()
     libs = {"parent": load("parent", args.parent),
             "shipped": load("shipped", build.CSRC)}
+    pts = las.synthetic_forest(n_trees=937, spacing=7.0,
+                               points_per_tree=12_000,
+                               ground_points=15_000_000 - 937 * 12_000, seed=0)
+    if args.only != "scans":
+        compare_cc_and_match(libs, pts, pipeline, kernels, args.reps, card)
+    if args.only != "cc":
+        compare_scans(libs, pts, pipeline, kernels, args.reps, card)
+    return 0
 
+
+def compare_cc_and_match(libs, pts, pipeline, kernels, reps, card) -> None:
     def cc(label, lbl, sweeps):
         compare(label, libs, cc_call, (lbl, sweeps),
-                (kernels.cc_sweep_plain(lbl, sweeps),), args.reps, card)
+                (kernels.cc_sweep_plain(lbl, sweeps),), reps, card)
 
     for sweeps in (1, 2, 16, 64):
         cc(f"cc_sweep, one full 384 band, {sweeps} sweeps", full_band(384, 1),
@@ -160,9 +248,6 @@ def main(argv=None) -> int:
         cc(f"cc_sweep, 64 bands of G={g} at 60% random fill, 64 sweeps",
            random_fill(g, 64, 0.6, g), 64)
 
-    pts = las.synthetic_forest(n_trees=937, spacing=7.0,
-                               points_per_tree=12_000,
-                               ground_points=15_000_000 - 937 * 12_000, seed=0)
     cc_in, ms_in = [], []
     cc_kernel, ms_kernel = kernels.cc_sweep, kernels.match_scan
 
@@ -184,8 +269,66 @@ def main(argv=None) -> int:
         cc(f"cc_sweep, main-path body {i}", lbl, sweeps)
     for a in ms_in:
         compare("match_scan, main path", libs, match_call, a,
-                kernels.match_scan_plain(*a), args.reps, card)
-    return 0
+                kernels.match_scan_plain(*a), reps, card)
+
+
+def compare_scans(libs, pts, pipeline, kernels, reps, card) -> None:
+    """The two scans at every distinct shape of the step and both inventory
+    forms, and at two synthetic key layouts."""
+    calls = {"segmented_cummax": [], "segmented_cumsum": []}
+    wrappers = {k: getattr(kernels, k) for k in calls}
+
+    def recording(name):
+        def record(key, val, *rest):
+            if all(v.shape != val.shape for _, v in calls[name]):
+                calls[name].append((key.clone(), val.clone()))
+            return wrappers[name](key, val, *rest)
+        return record
+
+    for name in calls:
+        setattr(kernels, name, recording(name))
+    try:
+        forest = pipeline.Session.from_points(pts, device="cuda")
+        forest.segment(0.75)
+        forest.inventory()
+        forest.inventory(axis_algo="lowhigh", method="mean", symmetric=True)
+    finally:
+        for name, fn in wrappers.items():
+            setattr(kernels, name, fn)
+    del forest
+    torch.cuda.synchronize()
+
+    n = 15_000_000
+    one_run = torch.zeros(n, dtype=torch.int32, device="cuda")
+    distinct = torch.arange(n, dtype=torch.int32, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    for name, call, plain in (
+            ("segmented_cummax", cummax_call, kernels.segmented_cummax_plain),
+            ("segmented_cumsum", cumsum_call, kernels.segmented_cumsum_plain)):
+        width = max(v.shape[1] for _, v in calls[name] if v.dim() == 2)
+        wide = torch.randn((n, width), device="cuda", generator=gen)
+        cases = [(f"{name} {list(v.shape)}, recorded", k, v)
+                 for k, v in calls[name]]
+        cases += [(f"{name} {list(wide.shape)}, one run", one_run, wide),
+                  (f"{name} {list(wide.shape)}, all keys distinct", distinct,
+                   wide)]
+        for label, key, val in cases:
+            ref = plain(key, val)
+
+            def same(build_name, got, ref=ref):
+                if build_name == "shipped" or name == "segmented_cumsum":
+                    return torch.equal(got.view(torch.int32),
+                                       ref.view(torch.int32))
+                # another tree's max may order +0.0 and -0.0 its own way
+                return torch.equal(got, ref)
+
+            compare(label, libs, call, (key, val), (ref,), reps, card, same)
+            nbytes = 4 * key.numel() + 8 * val.numel()
+            print(f"    bound {nbytes / 3.35e12 * 1e3:.4f} ms (bytes at "
+                  "3.35 TB/s)")
+            launch_times("    shipped", lambda: call(libs["shipped"], key, val))
+            del ref
+        del wide
 
 
 if __name__ == "__main__":

@@ -7,11 +7,12 @@ their fixpoint, still changing at the last sweep, empty or full; match
 capacities that are no multiple of the cluster's CTAs or threads, exact
 distance ties between slots in different CTAs, no active slot, one cluster,
 more new clusters than free slots; gathers at the Mosaic probe's shapes and
-from tables larger than shared memory; cummax lengths, widths and runs
-across the scan's block and level boundaries, key images that are no multiple of the dilation tile,
+from tables larger than shared memory; cummax lengths around its
+tile sizes, every width, runs over hundreds of tiles and runs that end on tile
+edges, signed zeros and NaNs, repeated calls, a side stream and unaligned views, key images that are no multiple of the dilation tile,
 dilation radii across the kernel's pass groups, splats on the image edges
-and empty images, cumsum lengths around the block size, runs across many
-blocks and both block sizes, jump-flood grids of 1 to 384 cells a side with
+and empty images, cumsum lengths around the block size, runs across hundreds
+of blocks, every block size class and widths beyond shared memory, jump-flood grids of 1 to 384 cells a side with
 no seed or a seed in every cell.  Each output must equal the plain
 version's bit for bit, and each call must count the launches its design
 makes: one, or ceil(radius / passes per launch) for the dilation.  The
@@ -175,14 +176,50 @@ def test_take_along_axis_kernel_equals_plain(dev, shape, hi, axis):
     assert kernels.take_along_axis.launches == 1
 
 
-@pytest.mark.parametrize("n,c,n_keys", [
+def _cummax_rows(c):
+    """Rows of one tile of the cummax kernel at width c."""
+    return 256 * (16 if c <= 2 else 8 if c <= 4 else 4)
+
+
+def _scan_keys(kind, n, period, dev, gen):
+    """Sorted i32[n] keys: ``kind`` an int (that many random keys, from -5
+    up), "one_run", "distinct", "edges" (runs of exactly ``period`` rows, so
+    every run ends on a tile or block edge) or "long" (a run over the middle
+    80% of the rows between short ones)."""
+    if kind == "one_run":
+        return torch.full((n,), 7, device=dev, dtype=torch.int32)
+    i = torch.arange(n, device=dev, dtype=torch.int32)
+    if kind == "distinct":
+        return i - 5
+    if kind == "edges":
+        return torch.div(i, period, rounding_mode="floor").to(torch.int32)
+    if kind == "long":
+        return torch.where(i < n // 10, i // 3,
+                           torch.where(i < n - n // 10, n, n + i // 5)
+                           ).to(torch.int32)
+    return torch.sort(torch.randint(-5, kind - 5, (n,), device=dev,
+                                    generator=gen, dtype=torch.int32)).values
+
+
+@pytest.mark.parametrize("n,c,kind", [
     (1, 1, 1), (4095, 8, 3), (4097, 1, 4097), (100_000, 12, 37),
     (5_000_000, 3, 1), (3_000_000, 16, 200_000), (20_000_000, 1, 9),
+    (1023, 5, 2), (1024, 8, "one_run"), (1025, 8, "distinct"),
+    (2047, 3, 4), (2048, 4, "edges"), (2049, 4, 7), (4096, 2, "edges"),
+    (8191, 1, "distinct"), (8193, 2, "one_run"), (3, 7, 2), (5, 16, "distinct"),
+    (40_960, 6, "edges"), (40_961, 9, "edges"), (1_000_001, 7, 1000),
+    (1_000_003, 10, "long"), (1_000_000, 11, 50), (999_999, 13, 3),
+    (500_000, 14, "distinct"), (500_001, 15, "one_run"),
+    (400 * 1024 + 17, 8, "one_run"), (400 * 1024 + 17, 12, "long"),
+    (400 * 4096 + 5, 1, "long"), (350 * 2048, 4, "one_run"),
+    (2_000_000, 8, "distinct"), (2_000_000, 2, "distinct"),
 ])
-def test_segmented_cummax_kernel_equals_plain(dev, n, c, n_keys):
+def test_segmented_cummax_kernel_equals_plain(dev, n, c, kind):
+    """Lengths around the tile size (1024, 2048 or 4096 rows by width),
+    every width, one run over everything and over 300 tiles and more, all
+    keys distinct, runs that end exactly on tile edges."""
     gen = torch.Generator(device=dev).manual_seed(n + c)
-    key = torch.sort(torch.randint(-5, n_keys - 5, (n,), device=dev,
-                                   generator=gen, dtype=torch.int32)).values
+    key = _scan_keys(kind, n, _cummax_rows(c), dev, gen)
     shape = (n,) if c == 1 else (n, c)
     val = torch.randn(shape, device=dev, generator=gen) * 100
     _same(kernels.segmented_cummax(key, val),
@@ -190,16 +227,93 @@ def test_segmented_cummax_kernel_equals_plain(dev, n, c, n_keys):
     assert kernels.segmented_cummax.launches == 1
 
 
-@pytest.mark.parametrize("n,c,block,n_keys", [
+@pytest.mark.parametrize("c", [1, 3, 8])
+def test_segmented_cummax_kernel_zeros_and_nans(dev, c):
+    """Mixed +0.0, -0.0, NaNs of several payloads and infinities: the bits
+    must be the plain version's, whose max does not depend on the order of
+    combination (+0.0 over -0.0; the NaN 0x7FC00000 from a run's first NaN
+    on)."""
+    n = 300_000
+    gen = torch.Generator(device=dev).manual_seed(c)
+    key = _scan_keys(2000, n, 0, dev, gen)
+    pick = torch.randint(0, 8, (n, c), device=dev, generator=gen)
+    bits = torch.tensor([0, -0x80000000, 0x7FC00000, -0x400000 + 2,
+                         0x7F800001, -0x800000, 0x7F800000, 0x3F800000],
+                        dtype=torch.int32, device=dev)
+    special = bits[pick].view(torch.float32)
+    below = -1.0 - torch.rand((n, c), device=dev, generator=gen)
+    val = torch.where(torch.rand((n, c), device=dev, generator=gen) < 0.02,
+                      special, below)
+    if c == 1:
+        val = val[:, 0].contiguous()
+    got = kernels.segmented_cummax(key, val)
+    ref = kernels.segmented_cummax_plain(key, val)
+    torch.cuda.synchronize()
+    assert torch.equal(got.view(torch.int32), ref.view(torch.int32))
+    g = got.view(torch.int32)
+    assert bool((g == 0).any()) and bool((g == 0x7FC00000).any())
+    assert bool((g == -0x80000000).any())
+    # a NaN comes out as 0x7FC00000 and nothing else
+    assert bool((g[torch.isnan(got)] == 0x7FC00000).all())
+
+
+def test_scans_repeat_on_any_stream_and_view(dev):
+    """Two calls in a row on one stream (each must clear its own tile
+    counter and statuses), a non-default stream, and inputs that are views
+    starting off a 16-byte boundary."""
+    gen = torch.Generator(device=dev).manual_seed(5)
+    n = 1_500_000
+    key = _scan_keys("long", n + 1, 0, dev, gen)
+    val = torch.randn((n + 1, 6), device=dev, generator=gen)
+    ref_max = kernels.segmented_cummax_plain(key, val)
+    ref_sum = kernels.segmented_cumsum_plain(key, val)
+    for _ in range(3):
+        got = (kernels.segmented_cummax(key, val),
+               kernels.segmented_cumsum(key, val))
+    _same(got, (ref_max, ref_sum))
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        got = [(kernels.segmented_cummax(key, val),
+                kernels.segmented_cumsum(key, val)) for _ in range(2)][-1]
+    side.synchronize()
+    _same(got, (ref_max, ref_sum))
+    k1, v1 = key[1:], val[1:, 0]                 # 4 bytes past a boundary
+    assert k1.data_ptr() % 16 and k1.is_contiguous()
+    _same(kernels.segmented_cummax(k1, v1),
+          kernels.segmented_cummax_plain(k1, v1))
+    _same(kernels.segmented_cumsum(k1, v1),
+          kernels.segmented_cumsum_plain(k1, v1))
+    assert kernels.segmented_cummax.launches == 6
+    assert kernels.segmented_cumsum.launches == 6
+
+
+@pytest.mark.parametrize("n,c,block,kind", [
     (0, 3, 8192, 1), (1, 1, 8192, 1), (8191, 3, 8192, 4), (8192, 2, 8192, 4),
     (8193, 3, 8192, 4), (255, 1, 256, 3), (257, 2, 256, 3),
     (3_000_000, 3, 8192, 1), (1_000_000, 1, 256, 1), (500_000, 2, 256, 9000),
     (2_000_000, 6, 8192, 300), (1_000_000, 16, 8192, 50),
+    (8192, 6, 8192, "one_run"), (8193, 6, 8192, "distinct"),
+    (16_384, 3, 8192, "edges"), (16_385, 2, 8192, "edges"),
+    (24_577, 6, 8192, "one_run"), (100_000, 4, 8192, "distinct"),
+    (100_000, 5, 8192, 11), (100_001, 7, 8192, "long"),
+    (100_000, 8, 8192, "one_run"), (50_000, 12, 8192, 20),
+    (310 * 8192 + 3, 3, 8192, "one_run"), (310 * 8192 + 3, 6, 8192, "long"),
+    (3_000_000, 2, 8192, "long"), (1_000_000, 3, 8192, "distinct"),
+    (200_000, 3, 1024, "long"), (200_001, 6, 2048, "edges"),
+    (300_000, 2, 4096, "one_run"), (65_537, 3, 512, "long"),
+    (10_000, 16, 64, 30), (5_000, 3, 16, "long"), (1_000, 2, 4, "one_run"),
+    (1_000, 3, 2, 40), (777, 5, 1, 40), (4_000, 1, 32, "edges"),
 ])
-def test_segmented_cumsum_kernel_equals_plain(dev, n, c, block, n_keys):
+def test_segmented_cumsum_kernel_equals_plain(dev, n, c, block, kind):
+    """Lengths around the block size, every block size class (one row a
+    thread, several, fewer rows than a warp), widths that fit shared memory
+    whole and widths that go in windows, one run over 300 blocks and more,
+    all keys distinct, runs that end exactly on block edges."""
     gen = torch.Generator(device=dev).manual_seed(n + c + block)
-    key = torch.sort(torch.randint(0, n_keys, (n,), device=dev, generator=gen,
-                                   dtype=torch.int32)).values
+    key = _scan_keys(kind, n, block, dev, gen)
+    if isinstance(kind, int):
+        key = key + 5
     shape = (n,) if c == 1 else (n, c)
     val = torch.randn(shape, device=dev, generator=gen) * 100
     val[::7] = -0.0

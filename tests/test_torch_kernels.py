@@ -300,6 +300,332 @@ def test_segmented_cummax_plain_run_edges(kind):
     np.testing.assert_array_equal(got.numpy(), ref)
 
 
+def _scan_keys(kind, n, period, rng):
+    """Sorted i32[n] keys of one layout; ``edges``: runs of exactly ``period``
+    rows, so that every run ends on a tile (or block) edge."""
+    if kind == "one_run":
+        return np.full(n, 3, np.int32)
+    if kind == "distinct":
+        return np.arange(n, dtype=np.int32)
+    if kind == "edges":
+        return (np.arange(n) // period).astype(np.int32)
+    if kind == "long":      # a run over many tiles between short ones
+        i = np.arange(n)
+        return np.where(i < n // 10, i // 3,
+                        np.where(i < n - n // 10, n, n + i // 5)).astype(np.int32)
+    return np.sort(rng.integers(0, max(2, n // 9), n)).astype(np.int32)
+
+
+def _order(bits):
+    """csrc/seg_cummax.cu's order(): i32 bits of a float -> i32 in the
+    floats' order, -0.0 below +0.0, every NaN at 0x7FC00000."""
+    bits = bits.astype(np.int32)
+    nan = (bits & 0x7FFFFFFF) > 0x7F800000
+    return np.where(nan, np.int32(0x7FC00000),
+                    bits ^ ((bits >> 31) & 0x7FFFFFFF)).astype(np.int32)
+
+
+NONE = np.int32(-2 ** 31)
+
+
+def _cummax_tiles_model(key, val, threads, warp, k_rows, rng):
+    """numpy model of csrc/seg_cummax.cu's decomposition: tiles of
+    ``threads * k_rows`` rows; per thread a serial scan of its rows from
+    head flags and the max of its trailing run; a segmented scan of those
+    over the lanes of a warp (segment start from the head lanes), warp
+    totals combined in order; per tile a descriptor (AGGREGATE while the
+    whole tile continues its predecessor's run, else INCLUSIVE) and a
+    look-back over ``warp`` predecessors a step that stops at the nearest
+    INCLUSIVE one.  A predecessor that has finished its own look-back is
+    seen as AGGREGATE or as INCLUSIVE at random, as a running kernel may
+    see it."""
+    n, c = val.shape
+    rows_per_tile = threads * k_rows
+    x = _order(val.view(np.int32))
+    head = np.r_[True, key[1:] != key[:-1]]
+    out = np.empty_like(x)
+    agg, incl, status = {}, {}, {}
+    for tile in range(-(-n // rows_per_tile)):
+        lo = tile * rows_per_tile
+        rows = min(rows_per_tile, n - lo)
+        v = np.full((threads, c), NONE)          # trailing-run max per thread
+        has = np.zeros(threads, bool)
+        local = np.empty((rows, c), np.int32)
+        lead = np.full(threads, k_rows)
+        for t in range(threads):
+            for i in range(max(0, min(k_rows, rows - t * k_rows))):
+                r = t * k_rows + i
+                if head[lo + r]:
+                    v[t] = x[lo + r]
+                    if not has[t]:
+                        lead[t] = i
+                    has[t] = True
+                else:
+                    v[t] = np.maximum(v[t], x[lo + r])
+                local[r] = v[t]
+        # inclusive segmented scan over the lanes of each warp
+        inc = v.copy()
+        for w0 in range(0, threads, warp):
+            # the doubling steps, as the kernel takes them: lane l joins
+            # lane l - d while that is not before its segment's start
+            cur = inc[w0:w0 + warp].copy()
+            d = 1
+            while d < warp:
+                nxt = cur.copy()
+                for lane in range(warp):
+                    heads_le = [l for l in range(lane + 1) if has[w0 + l]]
+                    seg_start = heads_le[-1] if heads_le else 0
+                    if lane >= d and lane - d >= seg_start:
+                        nxt[lane] = np.maximum(cur[lane], cur[lane - d])
+                cur = nxt
+                d *= 2
+            inc[w0:w0 + warp] = cur
+        e = np.full((threads, c), NONE)          # carried into each thread
+        e_head = np.zeros(threads, bool)
+        p, p_head = np.full(c, NONE), False
+        for w0 in range(0, threads, warp):
+            for lane in range(warp):
+                t = w0 + lane
+                before = has[w0:t].any()
+                if lane == 0:
+                    e[t] = p
+                else:
+                    e[t] = inc[t - 1] if before else np.maximum(p, inc[t - 1])
+                e_head[t] = before or p_head
+            wf = has[w0:w0 + warp].any()
+            last = inc[w0 + warp - 1]
+            p = last if wf else np.maximum(p, last)
+            p_head = p_head or wf
+        tile_agg, tile_has_head = p, p_head
+        continues = not head[lo]
+        # publish, look back, publish again
+        if tile_has_head:
+            incl[tile], status[tile] = tile_agg, "I"
+        else:
+            agg[tile], status[tile] = tile_agg, "A"
+        carry = np.full(c, NONE)
+        if continues:
+            base, done = tile - 1, False
+            while not done:
+                seen = []
+                for lane in range(warp):
+                    q = base - lane
+                    if q < 0:
+                        seen.append("I")
+                    elif status[q] == "A" or (q in agg and rng.random() < 0.5):
+                        seen.append("A")
+                    else:
+                        seen.append("I")
+                first = seen.index("I") if "I" in seen else warp
+                for lane in range(min(first + 1, warp)):
+                    q = base - lane
+                    assert q >= 0
+                    carry = np.maximum(carry, agg[q] if lane < first
+                                       else incl[q])
+                done = first < warp
+                base -= warp
+        if not tile_has_head:
+            incl[tile] = np.maximum(tile_agg, carry)
+            status[tile] = "I"
+        for t in range(threads):
+            cv = e[t] if e_head[t] else np.maximum(e[t], carry)
+            for i in range(max(0, min(k_rows, rows - t * k_rows))):
+                r = t * k_rows + i
+                out[lo + r] = (np.maximum(local[r], cv) if i < lead[t]
+                               else local[r])
+    return (out ^ ((out >> 31) & 0x7FFFFFFF)).astype(np.int32)
+
+
+@pytest.mark.parametrize("kind", ["random", "one_run", "distinct", "edges",
+                                  "long"])
+@pytest.mark.parametrize("c", [1, 2, 3, 6, 8, 12, 16])
+def test_segmented_cummax_tile_model_matches_plain(c, kind):
+    """The CUDA kernel's decomposition (tiles, per-thread and per-warp
+    aggregates, descriptors and the look-back's stopping rule), rehearsed in
+    numpy at a small geometry, gives the plain version's bits: for N just
+    below, at and above a tile and over many tiles, each width's rows per
+    thread, one run over everything, all keys distinct, runs that end
+    exactly on tile edges, signed zeros and NaNs among the values."""
+    rng = np.random.default_rng(c * 7 + len(kind))
+    threads, warp = 8, 4
+    k_rows = 16 if c <= 2 else 8 if c <= 4 else 4     # the kernel's K
+    tile = threads * k_rows
+    for n in (tile - 1, tile, tile + 1, 9 * tile + 5):
+        key = _scan_keys(kind, n, tile, rng)
+        val = (rng.normal(size=(n, c)) * 10).astype(np.float32)
+        special = np.array([0.0, -0.0, np.nan, np.inf, -np.inf], np.float32)
+        pick = rng.random((n, c))
+        val = np.where(pick < 0.1, special[rng.integers(0, 2, (n, c))], val)
+        val = np.where(pick > 0.995, special[rng.integers(2, 5, (n, c))], val)
+        val = val.astype(np.float32)
+        ref = kernels.segmented_cummax_plain(torch.from_numpy(key),
+                                             torch.from_numpy(val)).numpy()
+        got = _cummax_tiles_model(key, val, threads, warp, k_rows, rng)
+        np.testing.assert_array_equal(got, ref.view(np.int32))
+
+
+@pytest.mark.parametrize("c", [1, 2, 8])
+def test_segmented_cummax_zero_and_nan_rule_matches_pallas(c):
+    """The stated tie rule against the Pallas kernel in interpret mode, bit
+    for bit: the max of +0.0 and -0.0 is +0.0 whichever comes first, and from
+    a run's first NaN on the result is the NaN 0x7FC00000.  (No -inf: the
+    Pallas kernel's neutral element is -3e38, which a lone -inf turns into.)"""
+    rng = np.random.default_rng(c)
+    n, block = 1500, 256
+    key = np.sort(rng.integers(0, 60, n)).astype(np.int32)
+    special = np.array([0.0, -0.0, 0.0, -0.0, np.nan, np.inf], np.float32)
+    val = np.where(rng.random((n, c)) < 0.7,
+                   -1.0 - rng.random((n, c)),
+                   special[rng.integers(0, 5, (n, c))]).astype(np.float32)
+    val[rng.random((n, c)) < 0.003] = np.inf
+    v = val[:, 0] if c == 1 else val
+    ref = np.asarray(pk.segmented_cummax_pallas(
+        jnp.asarray(key), jnp.asarray(v), block=block, interpret=True))
+    got = kernels.segmented_cummax(torch.from_numpy(key),
+                                   torch.from_numpy(v)).numpy()
+    np.testing.assert_array_equal(got.view(np.int32), ref.view(np.int32))
+    bits = got.view(np.int32)
+    assert (bits == 0).any() and (bits == np.int32(-2 ** 31)).any()
+    assert (bits == 0x7FC00000).any()
+
+
+def _cumsum_groups(w):
+    """csrc/seg_cumsum.cu's scan_from<>: the register groups (first channel,
+    size, floats an access) that cover a tile of w floats a row."""
+    vw = 4 if w % 4 == 0 else 2 if w % 2 == 0 else 1
+    g0, plan = 0, []
+    while g0 < w:
+        left = w - g0
+        g = (4 if vw == 4 else (4 if left >= 4 else 2) if vw == 2
+             else 2 if left == 4 else 3 if left >= 3 else left)
+        plan.append((g0, g, vw))
+        g0 += g
+    return plan
+
+
+def _cumsum_blocks_model(key, val, threads, items, rng, warp=4, in_flight=5):
+    """numpy model of csrc/seg_cumsum.cu's decomposition: blocks of
+    ``threads * items`` rows loaded as one flat span; thread t owns rows t,
+    t + T, ...; start(r) from the rows' head flags, inside a warp's rows
+    and across the (item, warp) segments before them (rows past the end
+    keyed INT32_MAX); steps s < T through the shared tile, steps
+    s >= T pairing a thread's own rows from the last down; channels in the
+    register groups of ``_cumsum_groups``.  The carry of a block that
+    continues a run: walk back to the nearest block whose inc is known (one
+    that holds a run start, or one that has published its inc; of the
+    ``in_flight`` blocks just before, an open one has published it or not,
+    at random, as a running kernel may find it), then forward again adding
+    each last row in the chain's order; folded into the leading run before
+    the block's one write."""
+    n, c = val.shape
+    block = threads * items
+    nb = -(-n // block)
+    out = np.empty((n, c), np.float32)
+    last_val = np.empty((nb, c), np.float32)
+    inc_val = {}
+    zero = np.float32(0.0)
+
+    def last_key(q):
+        return key[min(n, (q + 1) * block) - 1]
+
+    def closed(q):
+        return q == 0 or key[q * block - 1] != last_key(q)
+
+    for b in range(nb):
+        lo = b * block
+        rows = min(block, n - lo)
+        flat = np.zeros(block * c, np.float32)
+        flat[:rows * c] = val[lo:lo + rows].reshape(-1)       # one flat copy
+        tile = flat.reshape(block, c)
+        keys = np.full(block, np.iinfo(np.int32).max, np.int32)
+        keys[:rows] = key[lo:lo + rows]
+        # start(r): the last head at or before r inside its warp's rows,
+        # else the last head of the (item, warp) segments before
+        head = np.r_[True, keys[1:] != keys[:-1]]
+        dist = np.empty((items, threads), np.int64)
+        seg_last, before = [], -1
+        for j in range(items):
+            for w0 in range(0, threads, warp):
+                r0 = j * threads + w0
+                for lane in range(warp):
+                    at = np.flatnonzero(head[r0:r0 + lane + 1])
+                    start = r0 + at[-1] if len(at) else before
+                    dist[j, w0 + lane] = r0 + lane - start
+                at = np.flatnonzero(head[r0:r0 + warp])
+                seg_last.append(r0 + at[-1] if len(at) else -1)
+                before = max(before, seg_last[-1])
+        assert (dist >= 0).all()
+        covered = []
+        for g0, g, vw in _cumsum_groups(c):
+            assert g0 % vw == 0 and g % vw == 0
+            covered += list(range(g0, g0 + g))
+            v = np.stack([tile[j * threads:(j + 1) * threads, g0:g0 + g]
+                          for j in range(items)]).copy()       # [items, T, g]
+            s = 1
+            while s < min(threads, block):
+                for j in range(items):
+                    for t in range(threads):
+                        r = j * threads + t
+                        p = tile[r - s, g0:g0 + g] if dist[j, t] >= s else zero
+                        v[j, t] = v[j, t] + p
+                for j in range(items):
+                    tile[j * threads:(j + 1) * threads, g0:g0 + g] = v[j]
+                s *= 2
+            q = 1
+            while q < items:
+                for j in range(items - 1, -1, -1):
+                    ok = (dist[j] >= q * threads) & (j >= q)
+                    v[j] = v[j] + np.where(ok[:, None], v[max(j - q, 0)], zero)
+                q *= 2
+            for j in range(items):
+                tile[j * threads:(j + 1) * threads, g0:g0 + g] = v[j]
+        assert covered == list(range(c))
+        last_val[b] = tile[rows - 1]
+        if b > 0 and key[lo - 1] == keys[0]:
+            anchor = b - 1
+            while not (closed(anchor) or (
+                    anchor in inc_val
+                    and (b - anchor > in_flight or rng.random() < 0.5))):
+                anchor -= 1
+            inc = last_val[anchor] if closed(anchor) else inc_val[anchor]
+            for k in range(anchor + 1, b):
+                assert not closed(k)
+                inc = last_val[k] + inc
+            if keys[rows - 1] == keys[0]:        # no run start in this block
+                assert not closed(b)
+                inc_val[b] = last_val[b] + inc
+            lead = int(np.searchsorted(keys[:rows], keys[0], side="right"))
+            tile[:lead] = tile[:lead] + inc
+        else:
+            assert closed(b)
+        out[lo:lo + rows] = tile[:rows]
+    return out
+
+
+@pytest.mark.parametrize("kind", ["random", "one_run", "distinct", "edges",
+                                  "long"])
+@pytest.mark.parametrize("c", [1, 2, 3, 6, 8, 12, 16])
+def test_segmented_cumsum_block_model_matches_plain(c, kind):
+    """The CUDA kernel's decomposition (flat tile, row ownership, run-start
+    index, shared and in-thread steps, register groups, the carry's walk back
+    to a known inc and forward in the chain's order), rehearsed in numpy at
+    a small geometry, gives the plain version's bits, signs of zeros
+    included."""
+    rng = np.random.default_rng(c * 11 + len(kind))
+    for threads, items in ((8, 1), (4, 8)):
+        block = threads * items
+        for n in (block - 1, block, block + 1, 7 * block + 3):
+            key = _scan_keys(kind, n, block, rng)
+            val = (rng.normal(size=(n, c)) * 100).astype(np.float32)
+            val[rng.random((n, c)) < 0.2] = -0.0
+            ref = kernels.segmented_cumsum_plain(
+                torch.from_numpy(key), torch.from_numpy(val),
+                block=block).numpy()
+            got = _cumsum_blocks_model(key, val, threads, items, rng)
+            np.testing.assert_array_equal(got.view(np.int32),
+                                          ref.view(np.int32))
+
+
 def _cumsum_case(kind, rng):
     """(keys, values, block) of one segmented-cumsum case."""
     block = 256

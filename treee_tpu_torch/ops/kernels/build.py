@@ -32,6 +32,7 @@ NVCC_FLAGS = (
     "-O3",
     "-fmad=false",
     "-Xptxas=-v",
+    "--threads=0",
     "-shared",
     "-Xcompiler", "-fPIC",
 )
@@ -132,6 +133,13 @@ def on_cuda(t: torch.Tensor, name: str) -> bool:
     if t.device.type == "cpu":
         return False
     raise ValueError(f"{name}: no kernel or plain version for device {t.device}")
+
+
+def aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t`` contiguous and starting on a 16-byte boundary (a view into a
+    larger tensor may not), as kernels that move 16 bytes an access need."""
+    t = t.contiguous()
+    return t.clone() if t.data_ptr() % 16 else t
 
 
 def stream(t: torch.Tensor) -> int:

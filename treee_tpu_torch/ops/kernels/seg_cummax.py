@@ -30,14 +30,36 @@ def _check(key: torch.Tensor, val: torch.Tensor) -> None:
         raise ValueError("segmented_cummax: keys and values on different devices")
 
 
+NAN_ORDER = 0x7FC00000
+
+
+def _order(val: torch.Tensor) -> torch.Tensor:
+    """f32 -> i32 whose signed order is the floats' order, with -0.0 just
+    below +0.0 and every NaN at one place above +inf.  An integer max over
+    these picks the same bits in any grouping."""
+    bits = val.contiguous().view(torch.int32)
+    key = bits ^ ((bits >> 31) & 0x7FFFFFFF)
+    return torch.where(torch.isnan(val), NAN_ORDER, key)
+
+
+def _unorder(key: torch.Tensor) -> torch.Tensor:
+    """Inverse of :func:`_order` (a NaN comes back as 0x7FC00000)."""
+    return (key ^ ((key >> 31) & 0x7FFFFFFF)).view(torch.float32)
+
+
 def segmented_cummax_plain(key: torch.Tensor, val: torch.Tensor) -> torch.Tensor:
     """Forward inclusive cumulative max of ``val`` (f32[N] or f32[N,C])
     within runs of equal ``key`` (i32[N], sorted ascending): shifted-doubling
     passes, each combining an element with the one ``s`` rows back when both
-    lie in the same run."""
+    lie in the same run.
+
+    The max is taken over :func:`_order` of the values, so its result does
+    not depend on the order of combination: of +0.0 and -0.0 it is +0.0 (as
+    XLA's maximum gives), and from the first NaN of a run on it is the NaN
+    0x7FC00000."""
     _check(key, val)
     n = key.shape[0]
-    out = val
+    out = _order(val)
     s = 1
     while s < n:
         same = key[s:] == key[:-s]
@@ -46,7 +68,7 @@ def segmented_cummax_plain(key: torch.Tensor, val: torch.Tensor) -> torch.Tensor
         tail = torch.where(same, torch.maximum(out[s:], out[:-s]), out[s:])
         out = torch.cat([out[:s], tail])
         s *= 2
-    return out.clone() if out is val else out
+    return _unorder(out)
 
 
 def segmented_cummax(key: torch.Tensor, val: torch.Tensor) -> torch.Tensor:
@@ -60,8 +82,8 @@ def segmented_cummax(key: torch.Tensor, val: torch.Tensor) -> torch.Tensor:
     out = torch.empty_like(val, memory_format=torch.contiguous_format)
     if n == 0:
         return out
-    key = key.contiguous()
-    val = val.contiguous()
+    key = build.aligned(key)
+    val = build.aligned(val)
     lib = build.library()
     scratch = torch.empty(lib.treee_seg_cummax_scratch_bytes(n, c),
                           dtype=torch.uint8, device=key.device)

@@ -105,8 +105,8 @@ def segmented_cumsum(key: torch.Tensor, val: torch.Tensor,
     out = torch.empty_like(val, memory_format=torch.contiguous_format)
     if n == 0:
         return out
-    key = key.contiguous()
-    val = val.contiguous()
+    key = build.aligned(key)
+    val = build.aligned(val)
     lib = build.library()
     scratch = torch.empty(lib.treee_seg_cumsum_scratch_bytes(n, c, block),
                           dtype=torch.uint8, device=key.device)
