@@ -41,13 +41,15 @@ Phases, each of which raises on failure:
 11. The flood-fill Voronoi: ``Session.from_points(...,
    config=<use_bruteforce_voronoi=False, use_packed_jfa=False>)
    .segment(0.75)``; the ``jump_flood`` kernel must run, and the plain run
-   must give the same ids.  The packed flood runs once.
+   must give the same ids.  Its route, the clusters the card holds at once
+   and the bands that hold a seed are logged.  The packed flood runs once.
 12. A small scene on the card against the port's CPU run: ids, Morton keys,
    a frame, and the inventory's columns wherever the ids agree.
 13. The gather probe, on no path of the system: the four gathers of
    ``treee_tpu_torch.tools.probe_extract`` (the Mosaic probe's shapes) through
    ``take_along_axis``, with the counters zeroed before and read after; then
-   the kernel against its plain version and ``torch.take_along_dim``.
+   the kernel against its plain version and ``torch.take_along_dim`` /
+   ``tab[idx]``, and at how many shapes the kernel was no slower.
 
 The last lines are the card's name and power limit, a JSON object of
 per-kernel results and the JSON result line ``{"ok": true, "device":
@@ -78,6 +80,9 @@ MAX_DISTANCE = 0.75
 # centroids within an ulp may go either way
 MIN_CPU_AGREEMENT = 0.999
 TIMING_REPS = 5
+# the gather probe's calls take tens of microseconds, mostly host work whose
+# spread is of the same size: more turns for their medians
+PROBE_TIMING_REPS = 51
 MAIN_PATH_REPS = 3
 N_FRAMES = 8
 ORBIT_DISTANCE = 120.0
@@ -199,7 +204,8 @@ def work(name: str, args: tuple, kernels) -> tuple[int, int]:
     and see it, at most ``sweeps``; match_scan 5 per centroid-slot distance
     per round;
     the scans one per value; dilate ~12 per pixel, direction and pass;
-    eye_dome ~40 per pixel; jump_flood 8 per cell and direction;
+    eye_dome ~40 per pixel; jump_flood 8 per cell and direction in the
+    bands that hold a seed (a band without one is its input copied);
     take_along_axis one per output)."""
     if name == "cc_sweep":
         lbl, sweeps = args[:2]
@@ -223,8 +229,9 @@ def work(name: str, args: tuple, kernels) -> tuple[int, int]:
     if name == "jump_flood":
         slot, pos, cc = args[:3]
         n_dirs = 8 * len(kernels.jump_flood_steps(slot.shape[-1]))
+        seeded = int((slot >= 0).flatten(1).any(1).sum())
         return (4 * (2 * slot.numel() + pos.numel() + cc.numel()),
-                8 * n_dirs * slot.numel())
+                8 * n_dirs * seeded * slot[0].numel())
     if name == "take_along_axis":
         tab, idx = args[:2]
         return 4 * (tab.numel() + 2 * idx.numel()), idx.numel()
@@ -251,7 +258,7 @@ def max_abs_err(got, ref) -> float:
 
 
 def check_kernel(name: str, kernels, calls: list, library=None,
-                 extra=()) -> dict:
+                 extra=(), reps: int = TIMING_REPS) -> dict:
     """The kernel against its plain version on every recorded input: bit
     equality, both median times (kernel and plain in turns), and the
     bound, each summed over the recorded shapes.  ``library(*args)``, where
@@ -261,6 +268,7 @@ def check_kernel(name: str, kernels, calls: list, library=None,
     the sums."""
     wrapper, plain = getattr(kernels, name), getattr(kernels, name + "_plain")
     shapes, ms, plain_ms, err, bound, by = [], 0.0, 0.0, 0.0, 0.0, {}
+    per_shape = []          # (kernel ms, library ms) of each recorded input
     lib_ms = None if library is None else 0.0
     n_recorded = len(calls)
     # the scans' order of signed zeros and their NaN are part of what they
@@ -279,11 +287,15 @@ def check_kernel(name: str, kernels, calls: list, library=None,
         del got, ref
         lib_call = None if library is None else library(*args)
         k_t, p_t, l_t = [], [], []
-        for _ in range(TIMING_REPS):
-            k_t += cuda_ms(lambda: wrapper(*args), 1)
-            p_t += cuda_ms(lambda: plain(*args), 1)
-            if lib_call is not None:
-                l_t += cuda_ms(lib_call, 1)
+        turns = [(k_t, lambda: wrapper(*args)), (p_t, lambda: plain(*args))]
+        if lib_call is not None:
+            turns.append((l_t, lib_call))
+        for rep in range(reps):
+            # every other rep in reverse, so that no call always runs right
+            # after the same other one (the plain gather warms the library's
+            # host path)
+            for times, fn in (turns if rep % 2 == 0 else turns[::-1]):
+                times += cuda_ms(fn, 1)
         k_ms, p_ms = statistics.median(k_t), statistics.median(p_t)
         b_ms, b_by = bound_ms(name, args, kernels)
         lib_txt = ""
@@ -293,9 +305,10 @@ def check_kernel(name: str, kernels, calls: list, library=None,
         what = sig if isinstance(sig, str) else list(map(list, sig))
         log(f"  {name} {what}: bit-equal; kernel "
             f"{k_ms:.4f} ms, plain {p_ms:.4f} ms{lib_txt} (median of "
-            f"{TIMING_REPS}); bound {b_ms:.4f} ms ({b_by})")
+            f"{reps}); bound {b_ms:.4f} ms ({b_by})")
         if i >= n_recorded:
             continue
+        per_shape.append((k_ms, statistics.median(l_t) if l_t else None))
         shapes.append([list(s) for s in sig])
         ms += k_ms
         plain_ms += p_ms
@@ -303,7 +316,7 @@ def check_kernel(name: str, kernels, calls: list, library=None,
         by[b_by] = by.get(b_by, 0.0) + b_ms
     return {"shapes": shapes, "ms": ms, "plain_ms": plain_ms,
             "library_ms": lib_ms, "max_abs_err": err, "bound_ms": bound,
-            "bound_by": max(by, key=by.get)}
+            "bound_by": max(by, key=by.get), "per_shape": per_shape}
 
 
 def same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
@@ -836,11 +849,23 @@ def main() -> int:
     bf_ms, _ = timed_ms(lambda: brute.segment(MAX_DISTANCE), MAIN_PATH_REPS)
     del brute
     flood = pipeline.Session.from_points(pts, flood_cfg, device=dev)
+    flood_calls = []
     kernels.reset_launches()
-    res = flood.segment(MAX_DISTANCE)
+    with swapped(kernels, jump_flood=recorder(kernels.jump_flood,
+                                              flood_calls)):
+        res = flood.segment(MAX_DISTANCE)
     torch.cuda.synchronize()
     got = kernels.launches()
     log(f"  launches: {got}")
+    for _, (slot, _, _) in flood_calls:
+        g = slot.shape[-1]
+        log(f"  jump_flood i32[{', '.join(map(str, slot.shape))}]: route "
+            f"{kernels.jump_flood_route(g)}, "
+            f"{kernels.jump_flood_clusters(g)} clusters of "
+            f"{kernels.JUMP_FLOOD_CLUSTER_CTAS} CTAs resident, "
+            f"{int((slot >= 0).flatten(1).any(1).sum())} of {slot.shape[0]} "
+            "bands hold a seed")
+    del flood_calls
     for k in FLOOD_KERNELS:
         if got[k] <= 0:
             raise AssertionError(f"the flood-fill step launched no {k} kernel")
@@ -965,7 +990,13 @@ def main() -> int:
         return lambda: torch.take_along_dim(tab, idx, dim=axis)
 
     results["take_along_axis"] = check_kernel(
-        "take_along_axis", kernels, probe_calls, library=take_along_library)
+        "take_along_axis", kernels, probe_calls, library=take_along_library,
+        reps=PROBE_TIMING_REPS)
+    per_shape = results["take_along_axis"]["per_shape"]
+    log(f"  kernel no slower than the library at "
+        f"{sum(k <= lib for k, lib in per_shape)} of {len(per_shape)} shapes "
+        f"(kernel / library ms: "
+        f"{'; '.join(f'{k:.4f} / {lib:.4f}' for k, lib in per_shape)})")
 
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(card_line())

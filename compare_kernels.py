@@ -1,14 +1,16 @@
 #!/usr/bin/env python3
-"""Time two builds of the ``cc_sweep``, ``match_scan``, ``segmented_cummax``
-and ``segmented_cumsum`` kernels against each other on one CUDA card: this
-tree's sources and those of another commit.
+"""Time two builds of the ``cc_sweep``, ``match_scan``, ``segmented_cummax``,
+``segmented_cumsum``, ``jump_flood`` and ``take_along_axis`` kernels against
+each other on one CUDA card: this tree's sources and those of another
+commit.
 
     mkdir -p build/parent
     git archive <commit> treee_tpu_torch/ops/kernels/csrc \\
         | tar -x --strip-components=4 -C build/parent
-    python3 compare_kernels.py build/parent [--reps 7] [--only scans|cc]
+    python3 compare_kernels.py build/parent [--reps 7] \\
+        [--only cc|scans|flood|gather]
 
-Each build takes the four kernels' sources and ``common.cu`` from its
+Each build takes the chosen kernels' sources and ``common.cu`` from its
 directory and the port's nvcc flags, into ``build/compare_kernels/``.
 Inputs, each held bit for bit against this tree's plain version for the
 shipped build (and for the other build too, except the scans where the two
@@ -28,7 +30,17 @@ against this tree's only where no zero is involved):
 - stacks of 1 to 64 such bands at 64 sweeps: every band busy to the last
   sweep, the case where the cluster design's waves of resident clusters
   cost the most;
-- 64 bands of a random 60% fill at 64 sweeps, at G = 384, 512 and 1024.
+- 64 bands of a random 60% fill at 64 sweeps, at G = 384, 512 and 1024;
+- ``--only flood``: the ``jump_flood`` call of one flood-fill
+  ``Session.segment(0.75)`` (``use_bruteforce_voronoi=False,
+  use_packed_jfa=False``) on that scan, with its seeded bands, route and
+  resident clusters, and 64 bands with a seed in every band at G = 384
+  (shared-memory route) and 512 (device-memory route); each launch's device
+  time;
+- ``--only gather``: the gather probe's four shapes and three tables beyond
+  48 KB; the wrapper and ``torch.take_along_dim`` / ``tab[idx]`` beside the
+  two builds, each part of the wrapper's host work over 1000 calls, and
+  the device time of each kernel and of torch's (``torch.profiler``).
 
 Times are medians of ``--reps`` CUDA-event intervals around one call of the
 C entry point (no wrapper), the builds in turns.
@@ -50,16 +62,18 @@ import torch
 
 from treee_tpu_torch.ops.kernels import build
 
-SOURCES = ("cc_sweep.cu", "match_scan.cu", "seg_cummax.cu", "seg_cumsum.cu",
-           "common.cu")
+SOURCES = {"cc": ("cc_sweep.cu", "match_scan.cu"),
+           "scans": ("seg_cummax.cu", "seg_cumsum.cu"),
+           "flood": ("jump_flood.cu",), "gather": ("take_along.cu",)}
 OUT_DIR = build.BUILD_DIR.parent / "compare_kernels"
 
 
-def load(name: str, where: Path) -> ctypes.CDLL:
+def load(name: str, where: Path, groups) -> ctypes.CDLL:
     OUT_DIR.mkdir(parents=True, exist_ok=True)
     out = OUT_DIR / f"lib_{name}.so"
+    files = [f for k in groups for f in SOURCES[k]] + ["common.cu"]
     cmd = [build.nvcc_path(), *build.NVCC_FLAGS, "-o", str(out),
-           *(str(where / f) for f in SOURCES)]
+           *(str(where / f) for f in files)]
     t0 = time.perf_counter()
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode:
@@ -70,14 +84,24 @@ def load(name: str, where: Path) -> ctypes.CDLL:
     lib = ctypes.CDLL(str(out))
     p, i, f, ll = (ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
                    ctypes.c_longlong)
-    lib.treee_cc_sweep.argtypes = [p, p, p, i, i, i, p]
-    lib.treee_match_scan.argtypes = [p, p, i, i, i, i, f, p, p, p, p]
-    lib.treee_seg_cummax.argtypes = [p, p, p, ll, i, p, p]
-    lib.treee_seg_cummax_scratch_bytes.argtypes = [ll, i]
-    lib.treee_seg_cummax_scratch_bytes.restype = ll
-    lib.treee_seg_cumsum.argtypes = [p, p, p, ll, i, i, p, p]
-    lib.treee_seg_cumsum_scratch_bytes.argtypes = [ll, i, i]
-    lib.treee_seg_cumsum_scratch_bytes.restype = ll
+    if "cc" in groups:
+        lib.treee_cc_sweep.argtypes = [p, p, p, i, i, i, p]
+        lib.treee_match_scan.argtypes = [p, p, i, i, i, i, f, p, p, p, p]
+    if "scans" in groups:
+        lib.treee_seg_cummax.argtypes = [p, p, p, ll, i, p, p]
+        lib.treee_seg_cummax_scratch_bytes.argtypes = [ll, i]
+        lib.treee_seg_cummax_scratch_bytes.restype = ll
+        lib.treee_seg_cumsum.argtypes = [p, p, p, ll, i, i, p, p]
+        lib.treee_seg_cumsum_scratch_bytes.argtypes = [ll, i, i]
+        lib.treee_seg_cumsum_scratch_bytes.restype = ll
+    if "flood" in groups:
+        # the cluster design (this tree) or the earlier one launch a direction
+        lib.cluster_flood = hasattr(lib, "treee_jump_flood_clusters")
+        lib.treee_jump_flood.argtypes = (
+            [p, p, p, p, p, i, i, i, p] if lib.cluster_flood
+            else [p, p, p, p, p, p, p, i, i, p])
+    if "gather" in groups:
+        lib.treee_take_along.argtypes = [p, p, p, i, i, i, i, p]
     return lib
 
 
@@ -132,6 +156,35 @@ def cumsum_call(lib, key, val, block=8192):
                                      out.data_ptr(), n, c, block,
                                      scratch.data_ptr(), build.stream(key)),
                 "segmented_cumsum")
+    return out
+
+
+def flood_call(lib, slot, pos, cc):
+    b, g, _ = slot.shape
+    out, tmp = torch.empty_like(slot), torch.empty_like(slot)
+    if lib.cluster_flood:
+        from treee_tpu_torch.ops import kernels
+        args = (b, g, int(kernels.jump_flood_route(g) == "shared"))
+    else:
+        xy = torch.empty((2, b, g, g, 2), dtype=torch.float32,
+                         device=slot.device)
+        args = (xy[0].data_ptr(), xy[1].data_ptr(), b, g)
+    build.check(lib.treee_jump_flood(slot.data_ptr(), pos.data_ptr(),
+                                     cc.data_ptr(), out.data_ptr(),
+                                     tmp.data_ptr(), *args,
+                                     build.stream(slot)), "jump_flood")
+    return out
+
+
+def gather_call(lib, tab, idx, axis):
+    out = torch.empty(idx.shape, dtype=torch.float32, device=tab.device)
+    if axis is None:
+        rows, cols, m, ax = 1, tab.shape[0], idx.numel(), -1
+    else:
+        (rows, cols), m, ax = tab.shape, idx.shape[axis], axis
+    build.check(lib.treee_take_along(tab.data_ptr(), idx.data_ptr(),
+                                     out.data_ptr(), rows, cols, m, ax,
+                                     build.stream(tab)), "take_along_axis")
     return out
 
 
@@ -209,9 +262,9 @@ def main(argv=None) -> int:
     ap.add_argument("parent", type=Path,
                     help="directory with the other commit's kernel sources")
     ap.add_argument("--reps", type=int, default=7)
-    ap.add_argument("--only", choices=("cc", "scans"), default=None,
-                    help="the cc_sweep and match_scan inputs only, or the "
-                         "two scans' only")
+    ap.add_argument("--only", choices=tuple(SOURCES), default=None,
+                    help="one group's kernels only: cc_sweep and match_scan, "
+                         "the two scans, jump_flood, or take_along_axis")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("compare_kernels: needs a CUDA card", file=sys.stderr)
@@ -222,15 +275,22 @@ def main(argv=None) -> int:
     from treee_tpu_torch.tools.probe_extract import card as card_line
 
     card = card_line()
-    libs = {"parent": load("parent", args.parent),
-            "shipped": load("shipped", build.CSRC)}
+    groups = tuple(SOURCES) if args.only is None else (args.only,)
+    libs = {"parent": load("parent", args.parent, groups),
+            "shipped": load("shipped", build.CSRC, groups)}
+    if "gather" in groups:
+        compare_gather(libs, kernels, args.reps, card)
+    if groups == ("gather",):
+        return 0
     pts = las.synthetic_forest(n_trees=937, spacing=7.0,
                                points_per_tree=12_000,
                                ground_points=15_000_000 - 937 * 12_000, seed=0)
-    if args.only != "scans":
+    if "cc" in groups:
         compare_cc_and_match(libs, pts, pipeline, kernels, args.reps, card)
-    if args.only != "cc":
+    if "scans" in groups:
         compare_scans(libs, pts, pipeline, kernels, args.reps, card)
+    if "flood" in groups:
+        compare_flood(libs, pts, pipeline, kernels, args.reps, card)
     return 0
 
 
@@ -329,6 +389,174 @@ def compare_scans(libs, pts, pipeline, kernels, reps, card) -> None:
             launch_times("    shipped", lambda: call(libs["shipped"], key, val))
             del ref
         del wide
+
+
+def compare_flood(libs, pts, pipeline, kernels, reps, card) -> None:
+    """The flood-fill step's jump_flood call, and 64 bands with a seed in
+    every band at G = 384 and 512."""
+    from treee_tpu_torch import config as tconfig
+
+    calls, wrapper = [], kernels.jump_flood
+
+    def record(slot, pos, cc):
+        calls.append((slot.clone(), pos.clone(), cc.clone()))
+        return wrapper(slot, pos, cc)
+
+    cfg = tconfig.Config(segmentation=tconfig.SegmentationConfig(
+        use_bruteforce_voronoi=False, use_packed_jfa=False))
+    kernels.jump_flood = record
+    try:
+        pipeline.Session.from_points(pts, cfg, device="cuda").segment(0.75)
+    finally:
+        kernels.jump_flood = wrapper
+    torch.cuda.synchronize()
+    cases = [("flood-fill step, recorded", *a) for a in calls]
+    rng = np.random.default_rng(0)
+    for g in (384, 512):
+        slot = np.full((64, g, g), -1, np.int32)
+        pos = np.zeros((64, g, g, 2), np.float32)
+        for bi in range(64):
+            cells = rng.choice(g * g, 100, replace=False)
+            i, j = np.divmod(cells, g)
+            slot[bi, i, j] = np.arange(100)
+            pos[bi, i, j] = (np.stack([i, j], -1) + rng.random((100, 2))) * 0.75
+        centre = (np.arange(g, dtype=np.float32) + 0.5) * np.float32(0.75)
+        cc = np.stack(np.meshgrid(centre, centre, indexing="ij"), -1)
+        cases.append((f"64 bands of G={g}, 100 seeds in each",
+                      *(torch.from_numpy(a).cuda() for a in
+                        (slot, pos, cc.astype(np.float32)))))
+    for label, slot, pos, cc in cases:
+        b, g, _ = slot.shape
+        seeded = int((slot >= 0).flatten(1).any(1).sum())
+        print(f"jump_flood {label}: i32/f32[{b},{g},{g}], {seeded} of {b} "
+              f"bands with a seed; route {kernels.jump_flood_route(g)}, "
+              f"{kernels.jump_flood_clusters(g)} clusters resident",
+              flush=True)
+        compare(f"jump_flood {label}", libs, flood_call, (slot, pos, cc),
+                (kernels.jump_flood_plain(slot, pos, cc),), reps, card)
+        for name, lib in libs.items():
+            launch_times(f"    {name}", lambda: flood_call(lib, slot, pos, cc))
+
+
+def host_us(fn, n: int = 1000) -> float:
+    """Mean host-clock microseconds of ``n`` calls of ``fn`` (no
+    synchronize: the host's own work)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter_ns()
+    for _ in range(n):
+        fn()
+    t = (time.perf_counter_ns() - t0) / n / 1e3
+    torch.cuda.synchronize()
+    return t
+
+
+def compare_gather(libs, kernels, reps, card) -> None:
+    """The gather at the probe's four shapes and three larger tables: both
+    builds' C entry points, then the wrapper against the library call in
+    turns, the wrapper's host work part by part, and device times."""
+    from treee_tpu_torch.ops.kernels import take_along as ta
+    from treee_tpu_torch.tools import probe_extract
+
+    dev = "cuda"
+    gen = torch.Generator(device=dev).manual_seed(0)
+    cases = [(name, torch.from_numpy(t).to(dev), torch.from_numpy(i).to(dev),
+              ax) for name, t, i, ax in probe_extract.gather_cases(
+                  probe_extract.probe_inputs())]
+    for shape, hi, axis, ishape in (((100_000,), 100_000, None, (1000, 37)),
+                                    ((3, 5000), 5000, 1, (3, 700)),
+                                    ((2000, 50), 2000, 0, (300, 50))):
+        cases.append((f"table {list(shape)} by {list(ishape)}, axis {axis}",
+                      torch.rand(shape, device=dev, generator=gen),
+                      torch.randint(0, hi, ishape, device=dev, generator=gen,
+                                    dtype=torch.int32), axis))
+    for label, tab, idx, axis in cases:
+        ref = ta.take_along_axis_plain(tab, idx, axis)
+        compare(f"take_along_axis {label}", libs, gather_call,
+                (tab, idx, axis), (ref,), reps, card)
+        lidx = idx.long()
+        library = ((lambda: tab[lidx]) if axis is None else
+                   (lambda: torch.take_along_dim(tab, lidx, dim=axis)))
+        wrapper = lambda: kernels.take_along_axis(tab, idx, axis)  # noqa: E731
+        if not torch.equal(wrapper(), ref):
+            raise AssertionError(f"take_along_axis {label}: the wrapper "
+                                 "differs from the plain version")
+        times = {"wrapper": [], "library": []}
+        for _ in range(reps):
+            for name, fn in (("wrapper", wrapper), ("library", library),
+                             ("library", library), ("wrapper", wrapper)):
+                times[name].append(event_ms(fn))
+        print(f"    wrapper {statistics.median(times['wrapper']):.4f} ms, "
+              f"library {statistics.median(times['library']):.4f} ms "
+              f"(CUDA events around one call, median of {2 * reps}, in "
+              "turns)", flush=True)
+        for name, lib in libs.items():
+            launch_times(f"    {name}",
+                         lambda: gather_call(lib, tab, idx, axis))
+        launch_times("    library", library)
+
+    # the wrapper's host work, part by part, at the probe's first shape
+    _, tab, idx, axis = cases[0]
+    lib = build.library()
+    packed, pack = lib.treee_take_along.packed
+    out = torch.empty(idx.shape, dtype=torch.float32, device=dev)
+    rows, cols = tab.shape
+    m = idx.shape[axis]
+    raw = torch._C._cuda_getCurrentRawStream
+    parts = {
+        "_check": lambda: ta._check(tab, idx, axis),
+        "on_cuda": lambda: build.on_cuda(tab, "take_along_axis"),
+        "two .contiguous()": lambda: (tab.contiguous(), idx.contiguous()),
+        "torch.empty(shape, dtype, device)": lambda: torch.empty(
+            idx.shape, dtype=torch.float32, device=tab.device),
+        "idx.new_empty(shape, dtype)": lambda: idx.new_empty(
+            idx.shape, dtype=torch.float32),
+        "torch.empty_like(idx, dtype)": lambda: torch.empty_like(
+            idx, dtype=torch.float32),
+        "torch.cuda.device(t.device) context": _device_context(tab),
+        "Stream object: current_stream(dev).cuda_stream": lambda: (
+            torch.cuda.current_stream(tab.device).cuda_stream),
+        "raw stream: _cuda_getCurrentRawStream": lambda: raw(
+            tab.get_device()),
+        "current_device() == get_device()": lambda: (
+            torch.cuda.current_device() == tab.get_device()),
+        "_cuda_getDevice() == get_device()": lambda: (
+            torch._C._cuda_getDevice() == tab.get_device()),
+        "ctypes call, each argument converted (the launch)": lambda: (
+            lib.treee_take_along(tab.data_ptr(), idx.data_ptr(),
+                                 out.data_ptr(), rows, cols, m, axis,
+                                 raw(tab.get_device()))),
+        "ctypes call, the arguments packed (the launch)": lambda: (
+            packed(pack(tab.data_ptr(), idx.data_ptr(), out.data_ptr(), rows,
+                        cols, m, axis, raw(tab.get_device())))),
+        "build.launch (helper, with the launch)": lambda: build.launch(
+            lib.treee_take_along, "take_along_axis", tab, tab.data_ptr(),
+            idx.data_ptr(), out.data_ptr(), rows, cols, m, axis),
+        "build.check(0)": lambda: build.check(0, "take_along_axis"),
+        "whole wrapper": lambda: kernels.take_along_axis(tab, idx, axis),
+        "library: torch.take_along_dim": lambda: torch.take_along_dim(
+            tab, idx.long(), dim=axis),
+    }
+    lidx = idx.long()
+    parts["library, i64 indices made beforehand"] = (
+        lambda: torch.take_along_dim(tab, lidx, dim=axis))
+    _, tab1, idx1, _ = cases[3]                 # the probe's 1-D gather
+    lidx1 = idx1.long()
+    parts["whole wrapper, 1-D [128] by [8, 128]"] = (
+        lambda: kernels.take_along_axis(tab1, idx1, None))
+    parts["library, 1-D: tab[i64 indices made beforehand]"] = (
+        lambda: tab1[lidx1])
+    print(f"host work a call at {list(tab.shape)} axis {axis}, mean of 1000 "
+          f"calls   [{card}]", flush=True)
+    for name, fn in parts.items():
+        print(f"    {name}: {host_us(fn):.2f} us", flush=True)
+
+
+def _device_context(t):
+    def enter():
+        with torch.cuda.device(t.device):
+            pass
+    return enter
 
 
 if __name__ == "__main__":

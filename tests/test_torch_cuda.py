@@ -13,7 +13,9 @@ edges, signed zeros and NaNs, repeated calls, a side stream and unaligned views,
 dilation radii across the kernel's pass groups, splats on the image edges
 and empty images, cumsum lengths around the block size, runs across hundreds
 of blocks, every block size class and widths beyond shared memory, jump-flood grids of 1 to 384 cells a side with
-no seed or a seed in every cell.  Each output must equal the plain
+no seed or a seed in every cell, and 64 busy bands on both sides of its
+shared-memory route's edge with duplicate slots and exact ties; a launch
+that CUDA refuses.  Each output must equal the plain
 version's bit for bit, and each call must count the launches its design
 makes: one, or ceil(radius / passes per launch) for the dilation.  The
 segmentation and the inventory must repeat bit for bit on the card, and
@@ -350,6 +352,47 @@ def test_jump_flood_kernel_equals_plain(dev, b, g, fill):
         assert bool((got == -1).all())
 
 
+def _busy_flood(b, g, kind, dev):
+    """b bands of G=g, every band seeded: ``dups`` puts few slot ids on many
+    seeds at positions anywhere in the grid; ``ties`` puts each seed on its
+    cell's centre, so that distances tie exactly; ``scattered`` moves every
+    cell's centre off the grid (no row shares an x), which the kernel reads
+    from device memory instead of keeping a column's z."""
+    rng = np.random.default_rng(g)
+    n = g * g // 500
+    slot = np.full((b, g, g), -1, np.int32)
+    pos = np.zeros((b, g, g, 2), np.float32)
+    for bi in range(b):
+        cells = rng.choice(g * g, n, replace=False)
+        i, j = np.divmod(cells, g)
+        if kind == "dups":
+            slot[bi, i, j] = rng.integers(0, 5, n)
+            pos[bi, i, j] = rng.uniform(0, g * 0.75, (n, 2))
+        else:
+            slot[bi, i, j] = rng.permutation(2048)[:n]
+            pos[bi, i, j] = np.stack([i, j], -1) * 0.75 + 0.375
+    centre = (np.arange(g, dtype=np.float32) + 0.5) * np.float32(0.75)
+    cc = np.stack(np.meshgrid(centre, centre, indexing="ij"), -1)
+    if kind == "scattered":
+        cc = cc + rng.uniform(-0.3, 0.3, cc.shape)
+    return (torch.from_numpy(slot).to(dev), torch.from_numpy(pos).to(dev),
+            torch.from_numpy(cc.astype(np.float32)).to(dev))
+
+
+@pytest.mark.parametrize("g", [383, 384, 385, 480, 481, 512, 640])
+@pytest.mark.parametrize("kind", ["dups", "ties", "scattered"])
+def test_jump_flood_kernel_busy_bands_both_routes(dev, g, kind):
+    """64 busy bands on either side of the shared-memory route's edge
+    (G=480): one launch a call, the plain version's slots bit for bit."""
+    slot, pos, cc = _busy_flood(64, g, kind, dev)
+    got = kernels.jump_flood(slot, pos, cc)
+    _same(got, kernels.jump_flood_plain(slot, pos, cc))
+    assert kernels.jump_flood.launches == 1
+    assert bool((got >= 0).all())
+    assert kernels.jump_flood_route(g) == ("shared" if g <= 480 else "device")
+    assert kernels.jump_flood_clusters(g) > 0
+
+
 def test_wrappers_raise_on_bad_input_on_the_card(dev):
     lbl = torch.zeros(1, 8, 8, dtype=torch.int32, device=dev)
     with pytest.raises(ValueError):
@@ -364,6 +407,27 @@ def test_wrappers_raise_on_bad_input_on_the_card(dev):
         kernels.jump_flood(lbl, torch.zeros(1, 8, 8, 2, device=dev),
                            torch.zeros(8, 8, 1, device=dev))
     assert sum(kernels.launches().values()) == 0
+
+
+def test_launch_helper_raises_on_a_refused_launch(dev):
+    """``build.launch`` raises where CUDA refuses a launch (the flood's
+    shared-memory route asked for at G=1024, which needs more shared memory
+    than a block may have), and the next launch runs as usual."""
+    g = 1024
+    slot = torch.full((1, g, g), -1, dtype=torch.int32, device=dev)
+    pos = torch.zeros((1, g, g, 2), device=dev)
+    out = torch.empty_like(slot)
+    with pytest.raises(RuntimeError, match="jump_flood: CUDA error"):
+        build.launch(build.library().treee_jump_flood, "jump_flood", slot,
+                     slot.data_ptr(), pos.data_ptr(), pos[0].data_ptr(),
+                     out.data_ptr(), 0, 1, g, 1)
+    slot, pos, cc = _busy_flood(2, 96, "ties", dev)
+    _same(kernels.jump_flood(slot, pos, cc),
+          kernels.jump_flood_plain(slot, pos, cc))
+    tab = torch.rand(8, 128, device=dev)
+    idx = torch.randint(0, 8, (8, 128), dtype=torch.int32, device=dev)
+    _same(kernels.take_along_axis(tab, idx, 0),
+          kernels.take_along_axis_plain(tab, idx, 0))
 
 
 # the dilation's constants at 720p with the default camera and point size:

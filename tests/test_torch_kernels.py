@@ -2,6 +2,11 @@
 the JAX package's Pallas kernels in interpret mode, bit for bit, and the
 dispatch rules (plain path only for CPU tensors, no launches counted)."""
 
+import ctypes
+import re
+import shutil
+import subprocess
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -14,6 +19,7 @@ from treee_tpu import segmentation as jsg
 from treee_tpu.ops import pallas_kernels as pk
 from treee_tpu_torch.ops import kernels
 from treee_tpu_torch.ops.kernels import build
+from treee_tpu_torch.ops.kernels.jump_flood import CLUSTER_CTAS, INF
 
 IBIG = 0x7FFFFFFF
 
@@ -737,6 +743,133 @@ def test_jump_flood_plain_matches_pallas(kind):
         assert any(wrapped)
 
 
+def _flood_cluster_model(slot, pos, cc):
+    """The cluster kernel's flood in plain torch: one origin (the seed's
+    cell index in its band, or -1) per cell, the rows split over
+    ``CLUSTER_CTAS`` blocks as the kernel's CTAs hold them, each block's
+    origins double-buffered, a candidate's row read from whichever block
+    holds it (wrapped), its distance recomputed from ``seed_pos`` only where
+    it differs from the cell's own origin, strict <, and every block
+    swapping its buffers after each direction.  Output: the origin's slot,
+    or the cell's own seed slot where no seed reached it."""
+    b, g, _ = slot.shape
+    ctas = CLUSTER_CTAS
+    rows_per = -(-g // ctas)
+    r0s = [min(r * rows_per, g) for r in range(ctas)]
+    hs = [min(r0 + rows_per, g) - r0 for r0 in r0s]
+    cxz = cc.reshape(-1, 2)
+    out = torch.empty_like(slot)
+
+    def dist(p, c):
+        ex = p[..., 0] - c[..., 0]
+        ez = p[..., 1] - c[..., 1]
+        return ex * ex + ez * ez
+
+    for bi in range(b):
+        s_b, p_b = slot[bi].reshape(-1), pos[bi].reshape(-1, 2)
+        cur = torch.full((ctas, rows_per, g), -7, dtype=torch.int32)
+        for r, (r0, h) in enumerate(zip(r0s, hs)):
+            cells = torch.arange(r0 * g, (r0 + h) * g, dtype=torch.int32)
+            cur[r, :h] = torch.where(s_b[cells.long()] >= 0, cells,
+                                     -1).view(h, g)
+        if not any(bool((cur[r, :h] >= 0).any()) for r, h in enumerate(hs)):
+            out[bi] = slot[bi]          # a band without a seed
+            continue
+        for s in kernels.jump_flood_steps(g):
+            for dy in (-s, 0, s):
+                for dx in (-s, 0, s):
+                    if dy == 0 and dx == 0:
+                        continue
+                    nxt = torch.full_like(cur, -7)
+                    for r, (r0, h) in enumerate(zip(r0s, hs)):
+                        if h == 0:
+                            continue
+                        si = torch.arange(r0, r0 + h) - dy
+                        si = torch.where(si < 0, si + g,
+                                         torch.where(si >= g, si - g, si))
+                        owner = si // rows_per
+                        assert bool((torch.tensor(hs)[owner]
+                                     > si - torch.tensor(r0s)[owner]).all())
+                        sj = torch.arange(g) - dx
+                        sj = torch.where(sj < 0, sj + g,
+                                         torch.where(sj >= g, sj - g, sj))
+                        co = cur[owner, si - owner * rows_per][:, sj]
+                        o = cur[r, :h]
+                        c = cxz[r0 * g:(r0 + h) * g].view(h, g, 2)
+                        need = (co >= 0) & (co != o)
+                        cd = dist(p_b[co.clamp(min=0).long()], c)
+                        d = torch.where(o >= 0,
+                                        dist(p_b[o.clamp(min=0).long()], c),
+                                        INF)
+                        nxt[r, :h] = torch.where(need & (cd < d), co, o)
+                    cur = nxt               # cluster.sync(), then swap
+        for r, (r0, h) in enumerate(zip(r0s, hs)):
+            o = cur[r, :h].reshape(-1)
+            own = torch.arange(r0 * g, (r0 + h) * g)
+            out[bi].view(-1)[r0 * g:(r0 + h) * g] = s_b[
+                torch.where(o >= 0, o.long(), own)]
+    return out
+
+
+def _flood_model_case(g, kind, rng):
+    """Two bands of one jump-flood case: band 0 seeded as ``kind`` says,
+    band 1 without a seed.  ``dups``: few slot ids, each on several seeds
+    at positions anywhere in the grid (not in their cells), and unseeded
+    cells of -1 and -5; ``ties``: positions on cell centres, so that many
+    distances tie exactly; ``wrap``: seeds on the border rows and
+    columns."""
+    slot = np.full((2, g, g), -1, np.int32)
+    pos = np.zeros((2, g, g, 2), np.float32)
+    n = min(g * g, max(3, g * g // 40))
+    cells = rng.choice(g * g, n, replace=False)
+    ij = np.stack(np.divmod(cells, g), -1)
+    if kind == "wrap":
+        ij[::2, 0] = rng.choice([0, g - 1], len(ij[::2]))
+        ij[1::2, 1] = rng.choice([0, g - 1], len(ij[1::2]))
+    if kind == "dups":
+        slot[0, ij[:, 0], ij[:, 1]] = rng.integers(0, 3, len(ij))
+        pos[0, ij[:, 0], ij[:, 1]] = rng.uniform(0, g, (len(ij), 2))
+        slot[1, ::3, ::2] = -5
+    else:
+        slot[0, ij[:, 0], ij[:, 1]] = np.arange(len(ij))
+        off = 0.5 if kind == "ties" else rng.random((len(ij), 2))
+        pos[0, ij[:, 0], ij[:, 1]] = ij + off
+    centre = np.arange(g, dtype=np.float32) + 0.5
+    cc = np.stack(np.meshgrid(centre, centre, indexing="ij"), -1)
+    return (torch.from_numpy(slot), torch.from_numpy(pos),
+            torch.from_numpy(cc.astype(np.float32)))
+
+
+@pytest.mark.parametrize("g,kind", [
+    (1, "dups"), (3, "ties"), (4, "ties"), (17, "dups"), (17, "ties"),
+    (17, "wrap"), (383, "dups"), (385, "ties"), (385, "wrap")])
+def test_jump_flood_cluster_model_matches_plain(g, kind):
+    """The cluster kernel's design (origins in place of (slot, x, z),
+    ragged row blocks, wrapped sources in other blocks, the skip where a
+    candidate is the cell's own origin) gives the plain flood's slots bit
+    for bit, a band without a seed included."""
+    slot, pos, cc = _flood_model_case(g, kind, np.random.default_rng(g))
+    got = _flood_cluster_model(slot, pos, cc)
+    np.testing.assert_array_equal(got.numpy(),
+                                  kernels.jump_flood_plain(slot, pos,
+                                                           cc).numpy())
+    assert torch.equal(got[1], slot[1])
+    if g == 4:                          # and the Pallas kernel, once
+        ref = pk.jump_flood_pallas(jnp.asarray(slot[0].numpy()),
+                                   jnp.asarray(pos[0].numpy()),
+                                   jnp.asarray(cc.numpy()), interpret=True)
+        np.testing.assert_array_equal(got[0].numpy(), np.asarray(ref))
+
+
+def test_jump_flood_route_by_grid_size():
+    """Up to G=480 a band's origins fit its cluster's shared memory,
+    double-buffered; above, the kernel keeps them in device memory."""
+    assert CLUSTER_CTAS == 8
+    route = kernels.jump_flood_route
+    assert [route(g) for g in (1, 383, 384, 385, 480)] == ["shared"] * 5
+    assert [route(g) for g in (481, 512, 640, 1024)] == ["device"] * 4
+
+
 def test_jump_flood_steps():
     assert kernels.jump_flood_steps(384) == [192, 96, 48, 24, 12, 6, 3, 1]
     assert kernels.jump_flood_steps(1) == []
@@ -856,8 +989,9 @@ def test_build_targets_hopper_without_fma_contraction(monkeypatch, tmp_path):
             "take_along.cu"} <= names
     assert "tools/probe_extract.py::try_kernel" in (
         build.CSRC / "take_along.cu").read_text()
-    # the two step kernels run as one thread-block cluster launch each
-    for src in ("cc_sweep.cu", "match_scan.cu"):
+    # the two step kernels and the flood run as one thread-block cluster
+    # launch each
+    for src in ("cc_sweep.cu", "match_scan.cu", "jump_flood.cu"):
         text = (build.CSRC / src).read_text()
         assert "cudaLaunchAttributeClusterDimension" in text
         assert "map_shared_rank" in text and "cudaLaunchKernelEx" in text
@@ -878,3 +1012,67 @@ def test_build_targets_hopper_without_fma_contraction(monkeypatch, tmp_path):
     monkeypatch.setattr(build.os, "access", lambda p, m: False)
     with pytest.raises(RuntimeError, match="nvcc"):
         build.nvcc_path()
+
+
+def _c_entry_points():
+    """``{name: [parameter type, ...]}`` of every ``extern "C" int treee_*``
+    function in the kernel sources."""
+    out = {}
+    for src in build.sources():
+        for name, params in re.findall(r'extern "C" int (treee_\w+)\(([^)]*)\)',
+                                       src.read_text()):
+            out[name] = [" ".join(p.split()[:-1]) for p in params.split(",")
+                         if p.strip()]
+    return out
+
+
+def test_packed_launchers_match_their_c_signatures():
+    """``build.launch`` packs each launching entry point's arguments by the
+    ctypes types of ``build.LAUNCHERS``; those must be the C parameters' in
+    order, every entry point that takes a stream must be listed, and each
+    must have its ``_packed`` twin."""
+    codes = {"int": "i", "float": "f", "long long": "q"}
+    entries = {n: t for n, t in _c_entry_points().items()
+               if t and t[-1] == "cudaStream_t"}
+    assert set(entries) == set(build.LAUNCHERS)
+    text = "".join(s.read_text() for s in build.sources())
+    for name, types in entries.items():
+        want = "".join("P" if "*" in t or t == "cudaStream_t" else codes[t]
+                       for t in types)
+        got = "".join(build._STRUCT_CODES[t] for t in build.LAUNCHERS[name])
+        assert got == want, name
+        assert f"TREEE_PACKED({name})" in text, name
+
+
+@pytest.mark.skipif(shutil.which("g++") is None, reason="needs g++")
+def test_packed_call_reads_what_launch_packs(tmp_path):
+    """``csrc/packed.cuh`` unpacks a buffer from ``build.packer`` into the
+    typed call, across the alignment gaps between 4- and 8-byte members."""
+    src = tmp_path / "probe.cc"
+    src.write_text(f'#include "{build.CSRC / "packed.cuh"}"\n' + r"""
+#include <cstdint>
+#include <cstring>
+extern "C" int treee_probe(long long* out, const uint8_t* p, int a,
+                           float f, long long n, void* q) {
+  out[0] = reinterpret_cast<long long>(p);
+  out[1] = a;
+  std::memcpy(out + 2, &f, sizeof f);
+  out[3] = n;
+  out[4] = reinterpret_cast<long long>(q);
+  return a + 1;
+}
+TREEE_PACKED(treee_probe)
+""")
+    lib_path = tmp_path / "libprobe.so"
+    subprocess.run(["g++", "-std=c++17", "-shared", "-fPIC", "-o",
+                    str(lib_path), str(src)], check=True)
+    lib = ctypes.CDLL(str(lib_path))
+    p, i, f, ll = (ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
+                   ctypes.c_longlong)
+    out = np.zeros(5, np.int64)
+    args = (out.ctypes.data, 0x7F00_1234_5678, -7, 0.1, 15_000_576_123,
+            0x7F00_0000_0010)
+    assert lib.treee_probe_packed(build.packer([p, p, i, f, ll, p])(*args)) == -6
+    assert out[0] == args[1] and out[1] == -7 and out[3] == args[4]
+    assert out[2:3].view(np.float32)[0] == np.float32(0.1)
+    assert out[4] == args[5]

@@ -66,15 +66,33 @@ RENAMED = {"cc_sweeps": "cc_pallas_sweeps"}
 
 
 @pytest.mark.parametrize("cls", ["SegmentationConfig", "CharacteristicsConfig",
-                                 "RenderConfig"])
+                                 "RenderConfig", "NeighborConfig",
+                                 "InteractiveConfig"])
 def test_config_defaults_match_jax(cls):
     port = {f.name: f.default for f in dataclasses.fields(getattr(tconfig, cls))}
     ref = {f.name: f.default for f in dataclasses.fields(getattr(jconfig, cls))}
     for name, default in port.items():
         assert default == ref[RENAMED.get(name, name)], name
     kept = {RENAMED.get(n, n) for n in port}
-    assert set(ref) - kept == DROPPED[cls]
+    assert set(ref) - kept == DROPPED.get(cls, set())
     assert not hasattr(tconfig, "resolve_use_pallas")
+
+
+def test_config_has_the_jax_fields_in_order():
+    """``Config`` takes the JAX package's sections, in its order and with
+    its defaults, so that ``Config(neighbors=...)`` works in both."""
+    port = [f.name for f in dataclasses.fields(tconfig.Config)]
+    assert port == [f.name for f in dataclasses.fields(jconfig.Config)]
+    cfg = tconfig.Config()
+    for name in port:
+        got, ref = getattr(cfg, name), getattr(jconfig.Config(), name)
+        assert type(got).__name__ == type(ref).__name__
+        if name in ("neighbors", "interactive"):
+            assert dataclasses.asdict(got) == dataclasses.asdict(ref)
+    cfg = tconfig.Config(neighbors=tconfig.NeighborConfig(k=8))
+    assert cfg.neighbors.k == 8 and cfg.replace(
+        interactive=tconfig.InteractiveConfig(draw_radius=1.0)
+    ).interactive.draw_radius == 1.0
 
 
 def _device_defaults():
@@ -188,7 +206,8 @@ def test_point_cloud_round_trip_matches_jax():
     for f in ("pos", "segment", "classification", "valid"):
         np.testing.assert_array_equal(getattr(got, f).numpy(),
                                       np.asarray(getattr(ref, f)))
-    assert got.count() == 1500
+    assert got.count == 1500 and type(got.count) is int
+    assert got.count == int(ref.count) == int(got.valid.sum())
     back = got.to_numpy()
     np.testing.assert_array_equal(back["pos"], pts)
     np.testing.assert_array_equal(back["segment"], seg)

@@ -37,8 +37,9 @@ class PointCloud:
     def capacity(self) -> int:
         return self.pos.shape[0]
 
+    @property
     def count(self) -> int:
-        """Number of valid points."""
+        """Number of valid points (a property, as in the JAX package)."""
         return int(self.valid.sum())
 
     def replace(self, **kw) -> "PointCloud":

@@ -33,6 +33,9 @@ Fields left out, and why:
 - ``RenderConfig.raster_tile``: nothing in the JAX package reads it.
 
 ``cc_pallas_sweeps`` is called ``cc_sweeps`` here, with the same meaning.
+``NeighborConfig`` and ``InteractiveConfig`` are carried with the JAX
+package's defaults so that ``Config`` takes the same fields; nothing in the
+port reads them yet.
 """
 
 from __future__ import annotations
@@ -82,6 +85,19 @@ class CharacteristicsConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class NeighborConfig:
+    """Grid-hash k-NN parameters (replaces the k-nearest KD-tree crate)."""
+
+    k: int = 31
+    # candidate cap per neighboring cell; 27 cells * cap = candidate pool
+    cell_capacity: int = 16
+    # brute-force threshold: segments smaller than this use exact tiled
+    # brute force (the JAX package's value, tuned on its TPU)
+    brute_force_max: int = 131072
+    query_tile: int = 1024              # queries per brute-force tile
+
+
+@dataclasses.dataclass(frozen=True)
 class RenderConfig:
     """Splat renderer parameters (render/src/*.wgsl semantics)."""
 
@@ -103,6 +119,15 @@ class RenderConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class InteractiveConfig:
+    """Interactive editing parameters (treee/src/interactive/mod.rs)."""
+
+    draw_radius: float = 0.5            # mod.rs:259
+    # default proj string (UTM zone 32, Europe) mod.rs:53
+    source_location: str = "+proj=utm\n+ellps=GRS80\n+zone=32"
+
+
+@dataclasses.dataclass(frozen=True)
 class Config:
     """Top-level configuration of the port."""
 
@@ -110,7 +135,11 @@ class Config:
         default_factory=SegmentationConfig)
     characteristics: CharacteristicsConfig = dataclasses.field(
         default_factory=CharacteristicsConfig)
+    neighbors: NeighborConfig = dataclasses.field(
+        default_factory=NeighborConfig)
     render: RenderConfig = dataclasses.field(default_factory=RenderConfig)
+    interactive: InteractiveConfig = dataclasses.field(
+        default_factory=InteractiveConfig)
 
     def replace(self, **kw) -> "Config":
         return dataclasses.replace(self, **kw)

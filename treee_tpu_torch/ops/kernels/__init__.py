@@ -10,6 +10,9 @@ from .cc_sweep import cc_sweep, cc_sweep_plain
 from .dilate import dilate, dilate_plain
 from .eye_dome import eye_dome, eye_dome_plain
 from .jump_flood import jump_flood, jump_flood_plain
+from .jump_flood import CLUSTER_CTAS as JUMP_FLOOD_CLUSTER_CTAS
+from .jump_flood import resident_clusters as jump_flood_clusters
+from .jump_flood import route as jump_flood_route
 from .jump_flood import steps as jump_flood_steps
 from .match_scan import match_scan, match_scan_plain
 from .seg_cummax import segmented_cummax, segmented_cummax_plain

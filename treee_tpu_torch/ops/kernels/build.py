@@ -18,6 +18,7 @@ import functools
 import hashlib
 import os
 import shutil
+import struct
 import subprocess
 import time
 from pathlib import Path
@@ -62,7 +63,7 @@ def nvcc_command(out: Path, nvcc: str = "nvcc") -> list[str]:
 
 def _library_path() -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources():
+    for src in sources() + sorted(CSRC.glob("*.cuh")):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_DIR / f"libtreee_kernels_{h.hexdigest()[:16]}.so"
@@ -92,35 +93,55 @@ def build() -> tuple[Path, float]:
     return path, seconds
 
 
+_P, _I, _F, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
+# the entry points that launch kernels: their arguments, the stream last
+LAUNCHERS = {
+    "treee_cc_sweep": [_P, _P, _P, _I, _I, _I, _P],
+    "treee_match_scan": [_P, _P, _I, _I, _I, _I, _F, _P, _P, _P, _P],
+    "treee_seg_cummax": [_P, _P, _P, _LL, _I, _P, _P],
+    "treee_dilate": [_P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _F, _F, _P],
+    "treee_eye_dome": [_P, _P, _P, _I, _I, _F, _F, _F, _F, _F, _F, _F, _P],
+    "treee_seg_cumsum": [_P, _P, _P, _LL, _I, _I, _P, _P],
+    "treee_jump_flood": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
+    "treee_take_along": [_P, _P, _P, _I, _I, _I, _I, _P],
+}
+_STRUCT_CODES = {_P: "P", _I: "i", _F: "f", _LL: "q"}
+_one_device = False     # one CUDA device: a tensor there is on the current one
+
+
+def packer(argtypes):
+    """``pack(*args) -> bytes``: the arguments laid out as a C struct of
+    these ctypes types, the layout ``csrc/packed.cuh`` reads."""
+    return struct.Struct("@" + "".join(map(_STRUCT_CODES.get, argtypes))).pack
+
+
 @functools.cache
 def library() -> ctypes.CDLL:
-    """The loaded kernel library, built at the first call."""
+    """The loaded kernel library, built at the first call.
+
+    Each launching entry point ``treee_x`` carries ``.packed``: its twin
+    ``treee_x_packed`` (``csrc/packed.cuh``) and the ``struct`` packer of
+    its arguments, which :func:`launch` calls instead.  The twins keep the
+    GIL (``PyDLL``): a launch returns within microseconds, and giving the
+    GIL up and taking it back would cost a tenth of that."""
+    global _one_device
     path, _ = build()
     lib = ctypes.CDLL(str(path))
-    p, i, f, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
-    lib.treee_cc_sweep.argtypes = [p, p, p, i, i, i, p]
-    lib.treee_cc_sweep.restype = i
-    lib.treee_match_scan.argtypes = [p, p, i, i, i, i, f, p, p, p, p]
-    lib.treee_match_scan.restype = i
-    lib.treee_seg_cummax.argtypes = [p, p, p, ll, i, p, p]
-    lib.treee_seg_cummax.restype = i
-    lib.treee_seg_cummax_scratch_bytes.argtypes = [ll, i]
-    lib.treee_seg_cummax_scratch_bytes.restype = ll
-    lib.treee_dilate.argtypes = [p, p, p, p, p, i, i, i, f, f, f, f, p]
-    lib.treee_dilate.restype = i
+    held = ctypes.PyDLL(str(path))
+    for name, argtypes in LAUNCHERS.items():
+        fn = getattr(lib, name)
+        fn.argtypes, fn.restype = argtypes, _I
+        fn.packed = (getattr(held, name + "_packed"), packer(argtypes))
+    _one_device = torch.cuda.device_count() == 1
+    lib.treee_seg_cummax_scratch_bytes.argtypes = [_LL, _I]
+    lib.treee_seg_cummax_scratch_bytes.restype = _LL
     lib.treee_dilate_passes_per_launch.argtypes = []
-    lib.treee_dilate_passes_per_launch.restype = i
-    lib.treee_eye_dome.argtypes = [p, p, p, i, i, f, f, f, f, f, f, f, p]
-    lib.treee_eye_dome.restype = i
-    lib.treee_seg_cumsum.argtypes = [p, p, p, ll, i, i, p, p]
-    lib.treee_seg_cumsum.restype = i
-    lib.treee_seg_cumsum_scratch_bytes.argtypes = [ll, i, i]
-    lib.treee_seg_cumsum_scratch_bytes.restype = ll
-    lib.treee_jump_flood.argtypes = [p, p, p, p, p, p, p, i, i, p]
-    lib.treee_jump_flood.restype = i
-    lib.treee_take_along.argtypes = [p, p, p, i, i, i, i, p]
-    lib.treee_take_along.restype = i
-    lib.treee_error_string.argtypes = [i]
+    lib.treee_dilate_passes_per_launch.restype = _I
+    lib.treee_seg_cumsum_scratch_bytes.argtypes = [_LL, _I, _I]
+    lib.treee_seg_cumsum_scratch_bytes.restype = _LL
+    lib.treee_jump_flood_clusters.argtypes = [_I, _I]
+    lib.treee_jump_flood_clusters.restype = _I
+    lib.treee_error_string.argtypes = [_I]
     lib.treee_error_string.restype = ctypes.c_char_p
     return lib
 
@@ -128,7 +149,7 @@ def library() -> ctypes.CDLL:
 def on_cuda(t: torch.Tensor, name: str) -> bool:
     """True for a CUDA tensor (launch the kernel), False for a CPU tensor
     (take the plain version); any other device raises."""
-    if t.device.type == "cuda":
+    if t.is_cuda:
         return True
     if t.device.type == "cpu":
         return False
@@ -143,8 +164,27 @@ def aligned(t: torch.Tensor) -> torch.Tensor:
 
 
 def stream(t: torch.Tensor) -> int:
-    """Handle of PyTorch's current stream on ``t``'s device."""
-    return torch.cuda.current_stream(t.device).cuda_stream
+    """Raw handle of PyTorch's current stream on ``t``'s device (no
+    ``Stream`` object is made)."""
+    return torch._C._cuda_getCurrentRawStream(t.get_device())
+
+
+def launch(fn, name: str, t: torch.Tensor, *args) -> None:
+    """Call the C entry point ``fn(*args, stream)`` of :data:`LAUNCHERS`
+    on PyTorch's current stream of CUDA tensor ``t``'s device, made the
+    current device for the call where it is not, and raise on the CUDA
+    error it returns.  The arguments go packed in one buffer (``fn.packed``):
+    one pointer crosses ctypes instead of a conversion per argument."""
+    packed, pack = fn.packed
+    index = t.get_device()
+    if _one_device or index == torch._C._cuda_getDevice():
+        err = packed(pack(*args, torch._C._cuda_getCurrentRawStream(index)))
+    else:
+        with torch.cuda.device(index):
+            err = packed(pack(*args,
+                              torch._C._cuda_getCurrentRawStream(index)))
+    if err:
+        check(err, name)
 
 
 def check(err: int, name: str) -> None:

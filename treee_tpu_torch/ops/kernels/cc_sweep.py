@@ -47,11 +47,8 @@ def cc_sweep(lbl: torch.Tensor, sweeps: int) -> torch.Tensor:
     out = torch.empty_like(lbl)
     tmp = torch.empty_like(lbl)      # used only where G > 480
     b, g, _ = lbl.shape
-    with torch.cuda.device(lbl.device):
-        err = build.library().treee_cc_sweep(
-            lbl.data_ptr(), out.data_ptr(), tmp.data_ptr(), b, g, sweeps,
-            build.stream(lbl))
-    build.check(err, "cc_sweep")
+    build.launch(build.library().treee_cc_sweep, "cc_sweep", lbl,
+                 lbl.data_ptr(), out.data_ptr(), tmp.data_ptr(), b, g, sweeps)
     cc_sweep.launches += 1
     return out
 

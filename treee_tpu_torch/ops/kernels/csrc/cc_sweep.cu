@@ -50,6 +50,8 @@
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
+#include "packed.cuh"
+
 namespace cg = cooperative_groups;
 
 namespace {
@@ -225,3 +227,5 @@ extern "C" int treee_cc_sweep(const int* lbl, int* out, int* tmp, int b,
   return launch<false>(lbl, out, tmp, b, g, sweeps, sizeof(int) * kFlags,
                        stream);
 }
+
+TREEE_PACKED(treee_cc_sweep)

@@ -29,6 +29,8 @@
 // edge masks test image coordinates, never tile coordinates.
 #include <cuda_runtime.h>
 
+#include "packed.cuh"
+
 namespace {
 
 constexpr int kIBig = 0x7FFFFFFF;
@@ -175,3 +177,5 @@ extern "C" int treee_dilate(const int* kimg, int* out, int* tmp, int* off_a,
   }
   return cudaSuccess;
 }
+
+TREEE_PACKED(treee_dilate)

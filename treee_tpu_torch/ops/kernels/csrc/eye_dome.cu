@@ -20,6 +20,8 @@
 // neighbour depths read through the read-only cache.
 #include <cuda_runtime.h>
 
+#include "packed.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
@@ -78,3 +80,5 @@ extern "C" int treee_eye_dome(const float* color, const float* z01,
   eye_dome_px<<<blocks, kThreads, 0, stream>>>(color, z01, out, h, w, p);
   return cudaGetLastError();
 }
+
+TREEE_PACKED(treee_eye_dome)

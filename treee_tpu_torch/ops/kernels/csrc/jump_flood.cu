@@ -3,119 +3,361 @@
 // Replaces treee_tpu/ops/pallas_kernels.py::_jfa_kernel (called through
 // jump_flood_pallas, one band per call; here all bands at once, as
 // treee_tpu/segmentation.py::_jump_flood batches them).  Contract: seed_slot
-// i32[B,G,G] (-1 where no seed), seed_pos f32[B,G,G,2] (the seeds' absolute
-// x, z), cell_center f32[G,G,2]; out i32[B,G,G].  For each step s = G/2,
-// G/4, ..., 1 and each direction (dy, dx), dy in (-s, 0, s) outer and dx
-// in (-s, 0, s) inner, skipping (0, 0), every cell (i, j) looks at the cell
-// ((i - dy) mod G, (j - dx) mod G) (the roll wraps, and a wrapped seed is a
-// real candidate) and takes its seed when that seed's squared distance
-// (sx - cx)^2 + (sz - cz)^2 is strictly smaller than its own.  Each
-// direction reads the state the previous direction left.  The distance is
-// recomputed from the carried (sx, sz) rather than carried: it is the same
-// f32 value (__fmul_rn/__fadd_rn, -fmad=false, as the plain version's
-// separate torch ops round), so the output equals the plain PyTorch version
-// bit for bit.
+// i32[B,G,G] (negative where no seed), seed_pos f32[B,G,G,2] (the seeds'
+// absolute x, z), cell_center f32[G,G,2]; out i32[B,G,G].  For each step
+// s = G/2, G/4, ..., 1 and each direction (dy, dx), dy in (-s, 0, s) outer
+// and dx in (-s, 0, s) inner, skipping (0, 0), every cell (i, j) looks at
+// the cell ((i - dy) mod G, (j - dx) mod G) (the roll wraps, and a wrapped
+// seed is a real candidate) and takes its seed when that seed's squared
+// distance (sx - cx)^2 + (sz - cz)^2 is strictly smaller than its own.  Each
+// direction reads the state the previous direction left.  The output equals
+// the plain PyTorch version bit for bit (__fsub_rn/__fmul_rn/__fadd_rn under
+// -fmad=false round as its separate torch ops do).
+//
+// The state is one i32 a cell, its origin: every update copies a
+// neighbour's whole (slot, sx, sz), so at every moment a cell holds the seed
+// of one seed cell o of its band, (seed_slot[o], seed_pos[o]), or its own
+// unseeded start.  Carrying o (or -1) in place of the triple is exact for any
+// input (duplicate slots, ties, positions that do not follow from the slot)
+// and moves 4 bytes a cell instead of 12.  The distances are recomputed from
+// seed_pos[o] where a candidate differs from the cell's own origin; where it
+// is the same origin or none, the strict < cannot take it and nothing is
+// read.  The output is seed_slot[o], or the cell's own seed_slot where no
+// seed reached it.
 //
 // What bounds it on the H100: the TPU kernel keeps one band's whole state in
-// VMEM for all 8 log2(G) directions.  At G = 384 one band's state (slot,
-// sx, sz) is 1.77 MB, far above a CTA's 227 KB of shared memory, and each
-// direction needs the whole band updated before the next reads it.  So the
-// simple right design is one launch per direction over all bands, one
-// thread per cell, with ping-pong state buffers: 64 launches at G = 384.
-// Each launch reads the state twice (own cell and candidate, the latter
-// mostly from L2) and writes it once, so it is bound by device memory at
-// ~64x the 152 MB the function must move.  A cluster or cooperative design
-// that keeps bands on chip across directions is later work.
+// VMEM for all 8 log2(G) directions; done one direction per launch (the
+// earlier design here, 64 launches at G = 384) every direction reads and
+// writes the whole state in device memory, ~64x the bytes the function must
+// move.  Design: one thread-block cluster of 8 CTAs (the portable size) per
+// band, one launch per call, as cc_sweep.cu.  The CTAs split the band's rows
+// (48 each at G = 384; a ragged G leaves the last CTAs fewer, or none) and,
+// up to G = 480, keep their rows' origins in shared memory, double-buffered
+// (144 KB a CTA at G = 384).  Each direction a warp walks a contiguous run
+// of (row, 32-column chunk) units; a cell's candidate origin comes from
+// whichever CTA holds the source row (DSMEM: ld.shared::cluster at a 32-bit
+// address from mapa, which keeps a cell's address arithmetic short), the
+// candidate's and its own seed position through the read-only path
+// (seed_pos, 1.18 MB a band, stays in L2; the few seeds' lines in L1).
+// Cell centres are read once: where a CTA's rows hold them as a grid (x
+// constant along a row, z along a column, bit for bit, as the segmentation
+// builds them) it keeps one z a column in shared memory and reads a row's x
+// once a row; any other centre plane is read from L2 wherever a distance is
+// needed, with the same values.
+// Chunks go in batches of kBatch so that their loads are in flight together.
+// One cluster.sync() a direction (release/acquire at cluster scope) keeps the
+// directions in order: a CTA writes only its next plane while the others
+// read its current one.  A band without a seed copies seed_slot and returns
+// after one barrier.  There is no early exit on an unchanged direction: it
+// says nothing about the next offset.  A larger G keeps the origins in `out`
+// and `tmp` in device memory instead, read through ld.global.cg so that no
+// SM's L1 serves a stale row; the wrapper picks the route by G.
+//
+// Occupancy and what bounds it now (H100 80GB HBM3, compare_kernels.py):
+// 15 clusters resident at G = 384 (one CTA an SM), ptxas 55-60 registers,
+// no spills.  One band alone takes ~0.4 ms, ~6 us a direction, the same as
+// one wave of 15, so the bands do not compete for L2; a stack of 64 seeded
+// bands takes 5 waves.  Of a direction, the compared candidates' distances
+// are about a quarter, the cluster barrier about a seventh and the remote
+// (DSMEM) reads about a ninth; halving the index and address work a cell
+// (two columns a lane) did not move the time.  The own distance is
+// recomputed each direction: keeping it in a third shared plane (which fits
+// only up to G = 392) was 2-4% faster, not worth a third route.
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
+
+#include <cstdint>
+
+#include "packed.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kCtas = 8;                    // CTAs a cluster (portable size)
+constexpr int kThreads = 1024;
+constexpr int kWarps = kThreads / 32;
+constexpr int kBatch = 3;                   // chunks a warp loads at once
+constexpr int kFlags = 4;                   // the seed flag (+3 pad)
+constexpr unsigned kFull = 0xFFFFFFFFu;
 constexpr float kInf = 3.0e38f;
 
-__device__ __forceinline__ float sq_dist(float sx, float sz, float cx,
-                                         float cz) {
-  const float ex = __fsub_rn(sx, cx);
-  const float ez = __fsub_rn(sz, cz);
+__host__ __device__ int rows_per_cta(int g) {
+  return (g + kCtas - 1) / kCtas;
+}
+
+// Shared memory a CTA needs for its rows' origins, double-buffered, the
+// flag and one centre z a column; the wrapper keeps the rows there where
+// this fits a block.
+size_t shared_plane_bytes(int g) {
+  return sizeof(int) *
+         (2 * static_cast<size_t>(rows_per_cta(g)) * g + kFlags + g);
+}
+
+__device__ __forceinline__ float sq_dist(float2 p, float2 c) {
+  const float ex = __fsub_rn(p.x, c.x);
+  const float ez = __fsub_rn(p.y, c.y);
   return __fadd_rn(__fmul_rn(ex, ex), __fmul_rn(ez, ez));
 }
 
-__global__ void __launch_bounds__(kThreads)
-flood_direction(const int* __restrict__ slot_in,
-                const float2* __restrict__ pos_in,
-                const float2* __restrict__ center, int* __restrict__ slot_out,
-                float2* __restrict__ pos_out, int b, int g, int dy, int dx) {
-  const long long gg = static_cast<long long>(g) * g;
-  const long long idx =
-      static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
-  if (idx >= gg * b) return;
-  const long long band = idx / gg;
-  const int cell = static_cast<int>(idx - band * gg);
-  const int i = cell / g;
-  const int j = cell - i * g;
-  int si = (i - dy) % g;
-  if (si < 0) si += g;
-  int sj = (j - dx) % g;
-  if (sj < 0) sj += g;
-  const long long src = band * gg + static_cast<long long>(si) * g + sj;
+template <bool kShared>
+__device__ __forceinline__ int load(const int* p) {
+  return kShared ? *p : __ldcg(p);
+}
 
-  const float2 c = center[cell];
-  int s = slot_in[idx];
-  float2 p = pos_in[idx];
-  const float d = s >= 0 ? sq_dist(p.x, p.y, c.x, c.y) : kInf;
-  const int cs = slot_in[src];
-  if (cs >= 0) {
-    const float2 cp = pos_in[src];
-    if (sq_dist(cp.x, cp.y, c.x, c.y) < d) {
-      s = cs;
-      p = cp;
+__device__ __forceinline__ uint32_t shared_address(const int* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// The address in the shared::cluster window of CTA `rank`'s copy of this
+// CTA's shared address `addr`.
+__device__ __forceinline__ uint32_t cluster_address(uint32_t addr, int rank) {
+  uint32_t out;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;"
+               : "=r"(out)
+               : "r"(addr), "r"(rank));
+  return out;
+}
+
+__device__ __forceinline__ int load_cluster(uint32_t addr) {
+  int v;
+  asm volatile("ld.shared::cluster.b32 %0, [%1];"
+               : "=r"(v)
+               : "r"(addr)
+               : "memory");
+  return v;
+}
+
+// kShared: the band's origins in the CTAs' shared memory; otherwise in `out`
+// and `tmp`, alternately, in device memory.
+template <bool kShared>
+__global__ void __launch_bounds__(kThreads, 1)
+jump_flood_cluster(const int* __restrict__ seed_slot,
+                   const float2* __restrict__ seed_pos,
+                   const float2* __restrict__ center, int* out, int* tmp,
+                   int g) {
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int rows_per = rows_per_cta(g);
+  const int r0 = min(rank * rows_per, g);
+  const int h = min(r0 + rows_per, g) - r0;   // this CTA's rows
+  const int cell0 = r0 * g;                   // its first cell in the band
+  const int n = h * g;
+  const size_t band = static_cast<size_t>(blockIdx.x / kCtas) * g * g;
+  const int* slot_b = seed_slot + band;
+  const float2* pos_b = seed_pos + band;
+
+  extern __shared__ int smem[];
+  int* flag = smem;
+  // this CTA's rows of the origin plane being read and of the one written
+  int* cur = out + band + cell0;
+  int* nxt = tmp + band + cell0;
+  float* col_z = reinterpret_cast<float*>(smem + kFlags);
+  if (kShared) {
+    cur = smem + kFlags;
+    nxt = cur + rows_per * g;
+    col_z = reinterpret_cast<float*>(nxt + rows_per * g);
+  }
+  for (int j = threadIdx.x; j < g && h > 0; j += kThreads)
+    col_z[j] = center[cell0 + j].y;
+  bool any = false;
+  bool grid = true;  // centre x constant along each row, z along each column
+  for (int k = threadIdx.x; k < n; k += kThreads) {
+    const int o = slot_b[cell0 + k] >= 0 ? cell0 + k : -1;
+    cur[k] = o;
+    any |= o >= 0;
+    const int i = k / g;
+    const float2 c = center[cell0 + k];
+    grid &= __float_as_int(c.x) == __float_as_int(center[cell0 + i * g].x) &&
+            __float_as_int(c.y) == __float_as_int(center[cell0 + k - i * g].y);
+  }
+  grid = __syncthreads_and(grid);
+  any = __syncthreads_or(any);
+  if (threadIdx.x == 0) *flag = any;
+  cluster.sync();                             // every CTA's rows are loaded
+  const bool seeded = __any_sync(
+      kFull, lane < kCtas && *cluster.map_shared_rank(flag, lane) != 0);
+  if (!seeded) {                              // the same in every CTA
+    for (int k = threadIdx.x; k < n; k += kThreads)
+      out[band + cell0 + k] = slot_b[cell0 + k];
+    cluster.sync();  // no CTA leaves while another may read its flag
+    return;
+  }
+
+  // this warp's share of the CTA's (row, chunk) units, contiguous in
+  // row-major order
+  const int chunks = (g + 31) / 32;
+  const int units = h * chunks;
+  const int u_lo = warp * units / kWarps;
+  const int u_hi = (warp + 1) * units / kWarps;
+  for (int s = g / 2; s >= 1; s /= 2) {
+    for (int dy = -s; dy <= s; dy += s) {
+      for (int dx = -s; dx <= s; dx += s) {
+        if (dy == 0 && dx == 0) continue;
+        for (int u = u_lo; u < u_hi;) {
+          const int r = u / chunks;
+          const int ch0 = u - r * chunks;
+          const int ch1 = min(chunks, ch0 + (u_hi - u));
+          int si = r0 + r - dy;               // the source row, wrapped
+          if (si < 0) si += g;
+          else if (si >= g) si -= g;
+          // the source row: a 32-bit shared::cluster address in the CTA
+          // that holds it, or a device-memory pointer
+          const int* src = cur + (si - r0) * g;
+          uint32_t src_c = 0;
+          if (kShared) {
+            const int owner = si / rows_per;
+            src_c = cluster_address(
+                shared_address(cur + (si - owner * rows_per) * g), owner);
+          }
+          const int* own = cur + r * g;
+          int* dst = nxt + r * g;
+          const float2* crow = center + static_cast<size_t>(r0 + r) * g;
+          const float row_x = crow[0].x;
+          for (int ch = ch0; ch < ch1; ch += kBatch) {
+            int j[kBatch], o[kBatch], co[kBatch];
+#pragma unroll
+            for (int q = 0; q < kBatch; ++q) {
+              j[q] = (ch + q) * 32 + lane;
+              o[q] = -1;
+              co[q] = -1;
+              if (ch + q < ch1 && j[q] < g) {
+                int sj = j[q] - dx;
+                if (sj < 0) sj += g;
+                else if (sj >= g) sj -= g;
+                co[q] = kShared ? load_cluster(src_c + 4u * sj)
+                                : load<false>(src + sj);
+                o[q] = load<kShared>(own + j[q]);
+              } else {
+                j[q] = -1;
+              }
+            }
+#pragma unroll
+            for (int q = 0; q < kBatch; ++q) {
+              if (co[q] >= 0 && co[q] != o[q]) {
+                const float2 c = grid ? make_float2(row_x, col_z[j[q]])
+                                      : __ldg(crow + j[q]);
+                // origins index the band from 0: unsigned offsets keep
+                // the address arithmetic to one wide multiply-add
+                const float cd =
+                    sq_dist(__ldg(pos_b + static_cast<unsigned>(co[q])), c);
+                const float d =
+                    o[q] >= 0
+                        ? sq_dist(__ldg(pos_b + static_cast<unsigned>(o[q])), c)
+                        : kInf;
+                if (cd < d) o[q] = co[q];
+              }
+            }
+#pragma unroll
+            for (int q = 0; q < kBatch; ++q) {
+              if (j[q] >= 0) dst[j[q]] = o[q];
+            }
+          }
+          u += ch1 - ch0;
+        }
+        cluster.sync();                       // the direction is done
+        int* done = nxt;
+        nxt = cur;
+        cur = done;
+      }
     }
   }
-  slot_out[idx] = s;
-  pos_out[idx] = p;
+  for (int k = threadIdx.x; k < n; k += kThreads) {
+    const int o = load<kShared>(cur + k);
+    out[band + cell0 + k] = slot_b[o >= 0 ? o : cell0 + k];
+  }
+  cluster.sync();  // no CTA leaves while another may read its shared memory
+}
+
+cudaLaunchConfig_t config(int b, size_t smem, cudaStream_t stream,
+                          cudaLaunchAttribute* attr) {
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = kCtas;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(b * kCtas);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
+}
+
+template <bool kShared>
+cudaError_t prepare(size_t smem) {
+  return cudaFuncSetAttribute(jump_flood_cluster<kShared>,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(smem));
+}
+
+size_t route_bytes(int shared, int g) {
+  return shared ? shared_plane_bytes(g) : sizeof(int) * (kFlags + g);
+}
+
+// A refused call leaves no error behind for the next launch to report.
+int failed(cudaError_t err) {
+  cudaGetLastError();
+  return err;
 }
 
 }  // namespace
 
 // seed_slot i32[b,g,g], seed_pos f32[b,g,g,2], cell_center f32[g,g,2], read
-// only; out and tmp i32[b,g,g], pos_a and pos_b f32[b,g,g,2] scratch; all on
-// the device.  Runs 8 launches per step on `stream`, alternating between
-// (out, pos_a) and (tmp, pos_b) so that the last one writes `out` (a copy of
-// seed_slot when g < 2 makes no step).  Returns the first CUDA error, or 0.
+// only; out i32[b,g,g]; tmp i32[b,g,g] scratch for the device-memory route
+// (shared == 0), unused otherwise.  `shared` nonzero keeps each band's
+// origins in its cluster's shared memory, which CUDA refuses above the
+// block's 227 KB (g > 480); the caller chooses by g.  One cluster launch on
+// `stream`.  Returns its CUDA error, or 0.
 extern "C" int treee_jump_flood(const int* seed_slot, const float* seed_pos,
                                 const float* cell_center, int* out, int* tmp,
-                                float* pos_a, float* pos_b, int b, int g,
-                                cudaStream_t stream) {
-  if (b <= 0 || g <= 0) return cudaErrorInvalidValue;
-  int n_steps = 0;
-  for (int s = g / 2; s >= 1; s /= 2) ++n_steps;
-  const long long cells = static_cast<long long>(b) * g * g;
-  if (n_steps == 0) {
-    return cudaMemcpyAsync(out, seed_slot, sizeof(int) * cells,
-                           cudaMemcpyDeviceToDevice, stream);
+                                int b, int g, int shared, cudaStream_t stream) {
+  if (b <= 0 || g <= 0 || (!shared && tmp == nullptr))
+    return cudaErrorInvalidValue;
+  const size_t smem = route_bytes(shared, g);
+  const auto pos = reinterpret_cast<const float2*>(seed_pos);
+  const auto cc = reinterpret_cast<const float2*>(cell_center);
+  cudaLaunchAttribute attr;
+  cudaError_t err;
+  if (shared) {
+    err = prepare<true>(smem);
+    if (err != cudaSuccess) return failed(err);
+    const cudaLaunchConfig_t cfg = config(b, smem, stream, &attr);
+    err = cudaLaunchKernelEx(&cfg, jump_flood_cluster<true>, seed_slot, pos,
+                             cc, out, tmp, g);
+  } else {
+    err = prepare<false>(smem);
+    if (err != cudaSuccess) return failed(err);
+    const cudaLaunchConfig_t cfg = config(b, smem, stream, &attr);
+    err = cudaLaunchKernelEx(&cfg, jump_flood_cluster<false>, seed_slot, pos,
+                             cc, out, tmp, g);
   }
-  const unsigned blocks = static_cast<unsigned>((cells + kThreads - 1) / kThreads);
-  const int launches = 8 * n_steps;
-  const int* slot_src = seed_slot;
-  const float2* pos_src = reinterpret_cast<const float2*>(seed_pos);
-  const float2* center = reinterpret_cast<const float2*>(cell_center);
-  int i = 0;
-  for (int s = g / 2; s >= 1; s /= 2) {
-    for (int dy = -s; dy <= s; dy += s) {
-      for (int dx = -s; dx <= s; dx += s) {
-        if (dy == 0 && dx == 0) continue;
-        const bool last_parity = (launches - 1 - i) % 2 == 0;
-        int* slot_dst = last_parity ? out : tmp;
-        float2* pos_dst = reinterpret_cast<float2*>(last_parity ? pos_a : pos_b);
-        flood_direction<<<blocks, kThreads, 0, stream>>>(
-            slot_src, pos_src, center, slot_dst, pos_dst, b, g, dy, dx);
-        cudaError_t err = cudaGetLastError();
-        if (err != cudaSuccess) return err;
-        slot_src = slot_dst;
-        pos_src = pos_dst;
-        ++i;
-      }
-    }
-  }
-  return cudaSuccess;
+  if (err != cudaSuccess) return failed(err);
+  return cudaGetLastError();
 }
+
+// How many of the route's 8-CTA clusters the card holds at once at grid g
+// (cudaOccupancyMaxActiveClusters), or minus the CUDA error.
+extern "C" int treee_jump_flood_clusters(int g, int shared) {
+  const size_t smem = route_bytes(shared, g);
+  cudaLaunchAttribute attr;
+  int n = 0;
+  cudaError_t err;
+  if (shared) {
+    err = prepare<true>(smem);
+    const cudaLaunchConfig_t cfg = config(1, smem, nullptr, &attr);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveClusters(&n, jump_flood_cluster<true>, &cfg);
+  } else {
+    err = prepare<false>(smem);
+    const cudaLaunchConfig_t cfg = config(1, smem, nullptr, &attr);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveClusters(&n, jump_flood_cluster<false>, &cfg);
+  }
+  return err == cudaSuccess ? n : -failed(err);
+}
+
+TREEE_PACKED(treee_jump_flood)

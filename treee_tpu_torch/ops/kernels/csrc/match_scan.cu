@@ -56,6 +56,8 @@
 
 #include <cstdint>
 
+#include "packed.cuh"
+
 namespace cg = cooperative_groups;
 
 namespace {
@@ -369,3 +371,5 @@ extern "C" int treee_match_scan(const float* cents, const uint8_t* cmask,
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
+
+TREEE_PACKED(treee_match_scan)

@@ -61,6 +61,8 @@
 
 #include <cstdint>
 
+#include "packed.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
@@ -418,3 +420,5 @@ extern "C" int treee_seg_cummax(const int* key, const float* val, float* out,
       return cudaErrorInvalidValue;
   }
 }
+
+TREEE_PACKED(treee_seg_cummax)

@@ -58,6 +58,8 @@
 
 #include <cstdint>
 
+#include "packed.cuh"
+
 namespace {
 
 constexpr int kMaxThreads = 1024;
@@ -562,3 +564,5 @@ extern "C" int treee_seg_cumsum(const int* key, const float* val, float* out,
 #undef TREEE_LAUNCH
   return cudaSuccess;
 }
+
+TREEE_PACKED(treee_seg_cumsum)

@@ -117,13 +117,10 @@ def dilate(kimg: torch.Tensor, radius: int, p22: float, p23: float,
     out = torch.empty_like(kimg)
     tmp = torch.empty_like(kimg)
     off = torch.empty((2, h, w), dtype=torch.int32, device=kimg.device)
-    lib = build.library()
-    with torch.cuda.device(kimg.device):
-        err = lib.treee_dilate(kimg.data_ptr(), out.data_ptr(), tmp.data_ptr(),
-                               off[0].data_ptr(), off[1].data_ptr(), h, w,
-                               radius, p22, p23, coef, ZSCALE,
-                               build.stream(kimg))
-    build.check(err, "dilate")
+    build.launch(build.library().treee_dilate, "dilate", kimg,
+                 kimg.data_ptr(), out.data_ptr(), tmp.data_ptr(),
+                 off[0].data_ptr(), off[1].data_ptr(), h, w, radius, p22, p23,
+                 coef, ZSCALE)
     dilate.launches += launches_for(radius)
     return out
 

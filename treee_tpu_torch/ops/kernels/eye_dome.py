@@ -71,11 +71,9 @@ def eye_dome(color: torch.Tensor, z01: torch.Tensor, near: float, far: float,
     out = torch.empty_like(color)
     n2, fpn, fmn, s = _constants(near, far, strength)
     e0, e1, e2 = (float(np.float32(c)) for c in ed_color)
-    with torch.cuda.device(z01.device):
-        err = build.library().treee_eye_dome(
-            color.data_ptr(), z01.data_ptr(), out.data_ptr(), h, w, n2, fpn,
-            fmn, s, e0, e1, e2, build.stream(z01))
-    build.check(err, "eye_dome")
+    build.launch(build.library().treee_eye_dome, "eye_dome", z01,
+                 color.data_ptr(), z01.data_ptr(), out.data_ptr(), h, w, n2,
+                 fpn, fmn, s, e0, e1, e2)
     eye_dome.launches += 1
     return out
 

@@ -13,6 +13,8 @@ import torch
 from . import build
 
 INF = 3.0e38
+CLUSTER_CTAS = 8                 # CTAs of one band's thread-block cluster
+BLOCK_SHARED_BYTES = 232_448     # shared memory one block may opt into (H100)
 
 
 def _check(seed_slot: torch.Tensor, seed_pos: torch.Tensor,
@@ -82,11 +84,20 @@ def jump_flood_plain(seed_slot: torch.Tensor, seed_pos: torch.Tensor,
     return slot.clone() if slot is seed_slot else slot
 
 
+def route(g: int) -> str:
+    """Where the kernel keeps a band's origins at grid size ``g``:
+    ``"shared"`` (its cluster's shared memory, double-buffered, up to
+    G=480) or ``"device"`` (device memory)."""
+    rows = -(-g // CLUSTER_CTAS)
+    nbytes = 4 * (2 * rows * g + 4 + g)    # two planes, a flag, column z
+    return "shared" if nbytes <= BLOCK_SHARED_BYTES else "device"
+
+
 def jump_flood(seed_slot: torch.Tensor, seed_pos: torch.Tensor,
                cell_center: torch.Tensor) -> torch.Tensor:
     """Jump-flood Voronoi (see :func:`jump_flood_plain`): the kernel on CUDA
-    tensors, the plain version on CPU tensors.  Counts one launch per call;
-    the kernel itself runs 8 grid launches per step."""
+    tensors, the plain version on CPU tensors.  One cluster launch a call,
+    on the route :func:`route` picks by G."""
     _check(seed_slot, seed_pos, cell_center)
     if not build.on_cuda(seed_slot, "jump_flood"):
         return jump_flood_plain(seed_slot, seed_pos, cell_center)
@@ -94,22 +105,27 @@ def jump_flood(seed_slot: torch.Tensor, seed_pos: torch.Tensor,
     out = torch.empty_like(seed_slot, memory_format=torch.contiguous_format)
     if b == 0 or g == 0:
         return out
+    shared = route(g) == "shared"
+    tmp = None if shared else torch.empty_like(out)
     seed_slot = seed_slot.contiguous()
-    seed_pos = seed_pos.contiguous()
-    cell_center = cell_center.contiguous()
-    tmp = torch.empty_like(out)
-    pos = torch.empty((2, b, g, g, 2), dtype=torch.float32,
-                      device=seed_slot.device)
+    seed_pos = build.aligned(seed_pos)
+    cell_center = build.aligned(cell_center)
     lib = build.library()
-    with torch.cuda.device(seed_slot.device):
-        err = lib.treee_jump_flood(seed_slot.data_ptr(), seed_pos.data_ptr(),
-                                   cell_center.data_ptr(), out.data_ptr(),
-                                   tmp.data_ptr(), pos[0].data_ptr(),
-                                   pos[1].data_ptr(), b, g,
-                                   build.stream(seed_slot))
-    build.check(err, "jump_flood")
+    build.launch(lib.treee_jump_flood, "jump_flood", seed_slot,
+                 seed_slot.data_ptr(), seed_pos.data_ptr(),
+                 cell_center.data_ptr(), out.data_ptr(),
+                 0 if tmp is None else tmp.data_ptr(), b, g, int(shared))
     jump_flood.launches += 1
     return out
+
+
+def resident_clusters(g: int) -> int:
+    """How many of the kernel's 8-CTA clusters the current card holds at
+    once at grid size ``g`` (card only)."""
+    n = build.library().treee_jump_flood_clusters(g, int(route(g) == "shared"))
+    if n < 0:
+        build.check(-n, "jump_flood")
+    return n
 
 
 jump_flood.launches = 0

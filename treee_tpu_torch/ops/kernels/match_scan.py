@@ -97,12 +97,10 @@ def match_scan(cents: torch.Tensor, cmask: torch.Tensor, radius: float,
     out_pos = torch.empty(b, t_cap, 2, dtype=torch.float32, device=dev)
     out_act = torch.empty(b, t_cap, dtype=torch.bool, device=dev)
     n_alloc = torch.empty((), dtype=torch.int32, device=dev)
-    with torch.cuda.device(dev):
-        err = build.library().treee_match_scan(
-            cents.data_ptr(), cmask.data_ptr(), b, c_cap, t_cap, rounds,
-            float(radius), out_pos.data_ptr(), out_act.data_ptr(),
-            n_alloc.data_ptr(), build.stream(cents))
-    build.check(err, "match_scan")
+    build.launch(build.library().treee_match_scan, "match_scan", cents,
+                 cents.data_ptr(), cmask.data_ptr(), b, c_cap, t_cap, rounds,
+                 float(radius), out_pos.data_ptr(), out_act.data_ptr(),
+                 n_alloc.data_ptr())
     match_scan.launches += 1
     return out_pos, out_act, n_alloc
 

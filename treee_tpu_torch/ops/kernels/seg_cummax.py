@@ -87,11 +87,9 @@ def segmented_cummax(key: torch.Tensor, val: torch.Tensor) -> torch.Tensor:
     lib = build.library()
     scratch = torch.empty(lib.treee_seg_cummax_scratch_bytes(n, c),
                           dtype=torch.uint8, device=key.device)
-    with torch.cuda.device(key.device):
-        err = lib.treee_seg_cummax(key.data_ptr(), val.data_ptr(),
-                                   out.data_ptr(), n, c, scratch.data_ptr(),
-                                   build.stream(key))
-    build.check(err, "segmented_cummax")
+    build.launch(lib.treee_seg_cummax, "segmented_cummax", key,
+                 key.data_ptr(), val.data_ptr(), out.data_ptr(), n, c,
+                 scratch.data_ptr())
     segmented_cummax.launches += 1
     return out
 

@@ -110,11 +110,9 @@ def segmented_cumsum(key: torch.Tensor, val: torch.Tensor,
     lib = build.library()
     scratch = torch.empty(lib.treee_seg_cumsum_scratch_bytes(n, c, block),
                           dtype=torch.uint8, device=key.device)
-    with torch.cuda.device(key.device):
-        err = lib.treee_seg_cumsum(key.data_ptr(), val.data_ptr(),
-                                   out.data_ptr(), n, c, block,
-                                   scratch.data_ptr(), build.stream(key))
-    build.check(err, "segmented_cumsum")
+    build.launch(lib.treee_seg_cumsum, "segmented_cumsum", key,
+                 key.data_ptr(), val.data_ptr(), out.data_ptr(), n, c, block,
+                 scratch.data_ptr())
     segmented_cumsum.launches += 1
     return out
 

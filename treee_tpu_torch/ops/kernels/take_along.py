@@ -1,4 +1,4 @@
-"""Gather from a staged table: the CUDA kernel ``csrc/take_along.cu`` and its
+"""Gather from a table: the CUDA kernel ``csrc/take_along.cu`` and its
 plain version.
 
 Counterpart of the Mosaic gather probe ``tools/probe_extract.py`` (the
@@ -62,7 +62,7 @@ def take_along_axis(tab: torch.Tensor, idx: torch.Tensor,
         return take_along_axis_plain(tab, idx, axis)
     tab = tab.contiguous()
     idx = idx.contiguous()
-    out = torch.empty(idx.shape, dtype=torch.float32, device=tab.device)
+    out = torch.empty_like(idx, dtype=torch.float32)  # idx is contiguous
     if axis is None:
         rows, cols, m, ax = 1, tab.shape[0], idx.numel(), -1
     else:
@@ -70,11 +70,9 @@ def take_along_axis(tab: torch.Tensor, idx: torch.Tensor,
         m, ax = idx.shape[axis], axis
     if m == 0:
         return out
-    with torch.cuda.device(tab.device):
-        err = build.library().treee_take_along(
-            tab.data_ptr(), idx.data_ptr(), out.data_ptr(), rows, cols, m, ax,
-            build.stream(tab))
-    build.check(err, "take_along_axis")
+    build.launch(build.library().treee_take_along, "take_along_axis", tab,
+                 tab.data_ptr(), idx.data_ptr(), out.data_ptr(), rows, cols, m,
+                 ax)
     take_along_axis.launches += 1
     return out
 
