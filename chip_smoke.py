@@ -17,7 +17,11 @@ Phases, each of which raises on failure:
    with both times from CUDA events and the least time the card could take
    for the same work (its bound).  The two segmented scans also take, at
    their widest recorded value, one run that spans all 15M rows and keys
-   that are all distinct.
+   that are all distinct.  The frame's two kernels (phases 4, 5) also give
+   their device time a call (``torch.profiler``) beside the CUDA-event time
+   through the wrapper; the dilation also takes a 720p key image with a
+   splat on every pixel at r=3 and r=8 (three launches), and logs the share
+   of its tiles that each exact shortcut took.
 8. The main path as a user drives it: ``Session.from_points(...).segment()``
    and ``.table``, then ``octree.build_keys``, on the 15M-point synthetic
    forest that ``bench.py`` times (937 trees of 12,000 points, 7 m apart,
@@ -258,16 +262,19 @@ def max_abs_err(got, ref) -> float:
 
 
 def check_kernel(name: str, kernels, calls: list, library=None,
-                 extra=(), reps: int = TIMING_REPS) -> dict:
+                 extra=(), reps: int = TIMING_REPS,
+                 device: bool = False) -> dict:
     """The kernel against its plain version on every recorded input: bit
     equality, both median times (kernel and plain in turns), and the
     bound, each summed over the recorded shapes.  ``library(*args)``, where
     given, returns a call of one PyTorch function that computes the same
     thing, timed in the same turns.  ``extra``: (label, args) inputs that no
     path gives the kernel, checked and timed the same way but kept out of
-    the sums."""
+    the sums.  With ``device``, also the device time of the wrapper's
+    launches (``torch.profiler``), summed as ``device_ms``."""
     wrapper, plain = getattr(kernels, name), getattr(kernels, name + "_plain")
     shapes, ms, plain_ms, err, bound, by = [], 0.0, 0.0, 0.0, 0.0, {}
+    dev_ms = 0.0 if device else None
     per_shape = []          # (kernel ms, library ms) of each recorded input
     lib_ms = None if library is None else 0.0
     n_recorded = len(calls)
@@ -303,11 +310,17 @@ def check_kernel(name: str, kernels, calls: list, library=None,
             lib_ms += statistics.median(l_t)
             lib_txt = f", library {statistics.median(l_t):.4f} ms"
         what = sig if isinstance(sig, str) else list(map(list, sig))
+        dev_txt = ""
+        if device:
+            d_ms = device_ms(lambda: wrapper(*args), reps)
+            dev_txt = f"; device {d_ms:.4f} ms a call (torch.profiler)"
         log(f"  {name} {what}: bit-equal; kernel "
             f"{k_ms:.4f} ms, plain {p_ms:.4f} ms{lib_txt} (median of "
-            f"{reps}); bound {b_ms:.4f} ms ({b_by})")
+            f"{reps}); bound {b_ms:.4f} ms ({b_by}){dev_txt}")
         if i >= n_recorded:
             continue
+        if device:
+            dev_ms += d_ms
         per_shape.append((k_ms, statistics.median(l_t) if l_t else None))
         shapes.append([list(s) for s in sig])
         ms += k_ms
@@ -316,7 +329,67 @@ def check_kernel(name: str, kernels, calls: list, library=None,
         by[b_by] = by.get(b_by, 0.0) + b_ms
     return {"shapes": shapes, "ms": ms, "plain_ms": plain_ms,
             "library_ms": lib_ms, "max_abs_err": err, "bound_ms": bound,
-            "bound_by": max(by, key=by.get), "per_shape": per_shape}
+            "bound_by": max(by, key=by.get), "per_shape": per_shape,
+            "device_ms": dev_ms}
+
+
+def device_ms(fn, reps: int = TIMING_REPS) -> float:
+    """Device time of the CUDA kernels ``fn`` launches, ms a call:
+    ``torch.profiler`` over ``reps`` calls after one warm-up.  Raises where
+    the profiler reports no device time."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    total = 0.0
+    for e in prof.key_averages():
+        t = getattr(e, "device_time_total", getattr(e, "cuda_time_total", 0.0))
+        # the kernels themselves, not the aten ops or runtime calls that
+        # launched them
+        if t > 0 and not e.key.startswith(("aten::", "cuda")):
+            total += t
+    if total <= 0:
+        raise AssertionError("torch.profiler reported no device time")
+    return total / reps / 1e3
+
+
+def dense_keys(h: int, w: int, seed: int, device) -> torch.Tensor:
+    """An i32[h,w] key image with a splat on every pixel, made on the
+    device: one in ten near (3-10 m, 9-29 px at the render defaults), the
+    rest far (60-150 m, 0.6-1.5 px), random palette bytes."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    u = torch.rand((3, h, w), device=device, generator=gen,
+                   dtype=torch.float64)
+    depth = torch.where(u[0] < 0.1, 3.0 + 7.0 * u[1], 60.0 + 90.0 * u[1])
+    zq = ((1.00001 - 0.1 / depth) * ((1 << 23) - 1)).to(torch.int64)
+    return ((zq << 8) | (u[2] * 256).to(torch.int64)).to(torch.int32)
+
+
+def frame_extras(calls: list, device) -> list:
+    """Inputs for the dilation that the frame does not give it: the dense
+    720p key image at r=3 and r=8 (three launches), with the recorded
+    call's camera constants."""
+    kimg, _, *params = calls[0][1]
+    dense = dense_keys(*kimg.shape, 0, device)
+    return [(f"dense {list(kimg.shape)}, r={r}", (dense, r, *params))
+            for r in (3, 8)]
+
+
+def log_tile_stats(calls: list, extra: list) -> None:
+    """The dilation's exact shortcuts at each input: the share of tiles
+    with no key in their span, and of tiles stopped after a still pass."""
+    from treee_tpu_torch.ops.kernels.dilate import tile_stats
+    for sig, args in list(calls) + list(extra):
+        st = tile_stats(*args)
+        where = sig if isinstance(sig, str) else "the frame input"
+        log(f"  dilate tiles at {where}: {st['tiles']} run, {st['empty']} "
+            f"empty ({st['empty'] / st['tiles']:.3f}), {st['stopped']} "
+            f"stopped after a still pass ({st['stopped'] / st['tiles']:.3f}), "
+            f"{st['passes']} passes run")
 
 
 def same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
@@ -667,8 +740,12 @@ def main() -> int:
         if not calls[k]:
             raise AssertionError(f"the port's paths never called {k}")
         extra = (synthetic_scans(calls[k], dev)
-                 if k in ("segmented_cummax", "segmented_cumsum") else ())
-        results[k] = check_kernel(k, kernels, calls[k], extra=extra)
+                 if k in ("segmented_cummax", "segmented_cumsum") else
+                 frame_extras(calls[k], dev) if k == "dilate" else ())
+        results[k] = check_kernel(k, kernels, calls[k], extra=extra,
+                                  device=k in FRAME_KERNELS)
+        if k == "dilate":
+            log_tile_stats(calls[k], extra)
     del calls
 
     # --- phase 8: the main path ---
@@ -1007,6 +1084,7 @@ def main() -> int:
          "bound_ms": results[k]["bound_ms"],
          "bound_by": results[k]["bound_by"],
          "library_ms": results[k]["library_ms"],
+         "device_ms": results[k]["device_ms"],
          "shapes": results[k]["shapes"]}
         for k, src, tpu in KERNELS]}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -8,7 +8,7 @@ commit.
     git archive <commit> treee_tpu_torch/ops/kernels/csrc \\
         | tar -x --strip-components=4 -C build/parent
     python3 compare_kernels.py build/parent [--reps 7] \\
-        [--only cc|scans|flood|gather]
+        [--only cc|scans|flood|gather|frame]
 
 Each build takes the chosen kernels' sources and ``common.cu`` from its
 directory and the port's nvcc flags, into ``build/compare_kernels/``.
@@ -40,7 +40,15 @@ against this tree's only where no zero is involved):
 - ``--only gather``: the gather probe's four shapes and three tables beyond
   48 KB; the wrapper and ``torch.take_along_dim`` / ``tab[idx]`` beside the
   two builds, each part of the wrapper's host work over 1000 calls, and
-  the device time of each kernel and of torch's (``torch.profiler``).
+  the device time of each kernel and of torch's (``torch.profiler``);
+- ``--only frame``: ``dilate`` and ``eye_dome`` at the inputs of bench.py's
+  8 orbit frames of the segmented 15M scan, and ``dilate`` at a 720p key
+  image with a splat on every pixel at r=3 and r=8; beside the two
+  builds' eye-dome a third, ``variants/eye_dome_tile.cu`` (a 2-D tile of
+  linearized depths in shared memory); each build's device time a call,
+  this tree's wrappers against the first design's (allocations and
+  constants as it made them) in turns, the dilation's skipped tiles, and
+  the eye-dome wrapper's host work by part.
 
 Times are medians of ``--reps`` CUDA-event intervals around one call of the
 C entry point (no wrapper), the builds in turns.
@@ -51,6 +59,7 @@ from __future__ import annotations
 import argparse
 import ctypes
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -64,8 +73,23 @@ from treee_tpu_torch.ops.kernels import build
 
 SOURCES = {"cc": ("cc_sweep.cu", "match_scan.cu"),
            "scans": ("seg_cummax.cu", "seg_cumsum.cu"),
-           "flood": ("jump_flood.cu",), "gather": ("take_along.cu",)}
+           "flood": ("jump_flood.cu",), "gather": ("take_along.cu",),
+           "frame": ("dilate.cu", "eye_dome.cu")}
+# the eye-dome design that linearizes each depth once, timed beside the
+# shipped one
+EYE_DOME_TILE = (Path(__file__).resolve().parent / "variants"
+                 / "eye_dome_tile.cu")
 OUT_DIR = build.BUILD_DIR.parent / "compare_kernels"
+
+
+def with_eye_dome(source: Path) -> Path:
+    """This tree's kernel sources with ``eye_dome.cu`` taken from
+    ``source``, copied into a directory of their own."""
+    where = OUT_DIR / source.stem
+    shutil.rmtree(where, ignore_errors=True)
+    shutil.copytree(build.CSRC, where)
+    shutil.copyfile(source, where / "eye_dome.cu")
+    return where
 
 
 def load(name: str, where: Path, groups) -> ctypes.CDLL:
@@ -102,6 +126,14 @@ def load(name: str, where: Path, groups) -> ctypes.CDLL:
             else [p, p, p, p, p, p, p, i, i, p])
     if "gather" in groups:
         lib.treee_take_along.argtypes = [p, p, p, i, i, i, i, p]
+    if "frame" in groups:
+        # this tree's dilation takes a stats pointer before the stream
+        lib.tile_dilate = hasattr(lib, "treee_dilate_core_cols")
+        lib.treee_dilate.argtypes = ([p, p, p, p, p, i, i, i, f, f, f, f]
+                                     + [p] * (2 if lib.tile_dilate else 1))
+        lib.treee_eye_dome.argtypes = [p, p, p, i, i, f, f, f, f, f, f, f, p]
+        # the packed twins, called as the wrappers call them
+        lib.held = ctypes.PyDLL(str(out))
     return lib
 
 
@@ -264,7 +296,8 @@ def main(argv=None) -> int:
     ap.add_argument("--reps", type=int, default=7)
     ap.add_argument("--only", choices=tuple(SOURCES), default=None,
                     help="one group's kernels only: cc_sweep and match_scan, "
-                         "the two scans, jump_flood, or take_along_axis")
+                         "the two scans, jump_flood, take_along_axis, or "
+                         "the frame's dilate and eye_dome")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("compare_kernels: needs a CUDA card", file=sys.stderr)
@@ -291,6 +324,10 @@ def main(argv=None) -> int:
         compare_scans(libs, pts, pipeline, kernels, args.reps, card)
     if "flood" in groups:
         compare_flood(libs, pts, pipeline, kernels, args.reps, card)
+    if "frame" in groups:
+        tile = load("eye_dome_tile", with_eye_dome(EYE_DOME_TILE), ("frame",))
+        compare_frame(libs, {**libs, "eye-dome tile": tile}, pts, pipeline,
+                      kernels, args.reps, card)
     return 0
 
 
@@ -547,6 +584,199 @@ def compare_gather(libs, kernels, reps, card) -> None:
     parts["library, 1-D: tab[i64 indices made beforehand]"] = (
         lambda: tab1[lidx1])
     print(f"host work a call at {list(tab.shape)} axis {axis}, mean of 1000 "
+          f"calls   [{card}]", flush=True)
+    for name, fn in parts.items():
+        print(f"    {name}: {host_us(fn):.2f} us", flush=True)
+
+
+def dilate_call(lib, kimg, radius, p22, p23, coef, bufs):
+    """One build's dilation C entry point, scratch made beforehand."""
+    from treee_tpu_torch.ops.kernels.dilate import ZSCALE
+    out, tmp, off = bufs
+    h, w = kimg.shape
+    stats = (0,) if lib.tile_dilate else ()
+    build.check(lib.treee_dilate(
+        kimg.data_ptr(), out.data_ptr(), tmp.data_ptr(), off[0].data_ptr(),
+        off[1].data_ptr(), h, w, radius, p22, p23, coef, ZSCALE, *stats,
+        build.stream(kimg)), "dilate")
+    return out
+
+
+def parent_dilate_wrapper(lib, kimg, radius, p22, p23, coef):
+    """The dilation wrapper as the first design had it: output, key scratch
+    and two offset planes allocated every call, then a packed launch."""
+    from treee_tpu_torch.ops.kernels.dilate import ZSCALE
+    kimg = kimg.contiguous()
+    h, w = kimg.shape
+    out, tmp = torch.empty_like(kimg), torch.empty_like(kimg)
+    off = torch.empty((2, h, w), dtype=torch.int32, device=kimg.device)
+    stats = (0,) if lib.tile_dilate else ()
+    err = lib.held.treee_dilate_packed(build.packer(lib.treee_dilate.argtypes)(
+        kimg.data_ptr(), out.data_ptr(), tmp.data_ptr(), off[0].data_ptr(),
+        off[1].data_ptr(), h, w, radius, p22, p23, coef, ZSCALE, *stats,
+        build.stream(kimg)))
+    build.check(err, "dilate")
+    return out
+
+
+def eye_dome_call(lib, color, z01, consts, out):
+    """One build's eye-dome C entry point, output made beforehand."""
+    h, w = z01.shape
+    build.check(lib.treee_eye_dome(color.data_ptr(), z01.data_ptr(),
+                                   out.data_ptr(), h, w, *consts,
+                                   build.stream(z01)), "eye_dome")
+    return out
+
+
+def parent_eye_dome_wrapper(lib, color, z01, near, far, strength, ed):
+    """The eye-dome wrapper as the first design had it: the seven f32
+    constants converted every call, then a packed launch."""
+    from treee_tpu_torch.ops.kernels.eye_dome import _constants
+    color, z01 = color.contiguous(), z01.contiguous()
+    h, w = z01.shape
+    out = torch.empty_like(color)
+    consts = _constants(near, far, strength)
+    e = tuple(float(np.float32(c)) for c in ed)
+    err = lib.held.treee_eye_dome_packed(
+        build.packer(lib.treee_eye_dome.argtypes)(
+            color.data_ptr(), z01.data_ptr(), out.data_ptr(), h, w, *consts,
+            *e, build.stream(z01)))
+    build.check(err, "eye_dome")
+    return out
+
+
+def print_in_turns(fns: dict, reps: int) -> None:
+    """Median CUDA-event ms of each of ``fns`` through the wrappers, one
+    call at a time, the order reversed every other round."""
+    times = {name: [] for name in fns}
+    order = list(fns)
+    for rep in range(reps):
+        for name in (order if rep % 2 == 0 else order[::-1]):
+            times[name].append(event_ms(fns[name]))
+    print(f"    through the wrappers (CUDA events, median of {reps}): "
+          + ", ".join(f"{n} {statistics.median(t):.4f} ms"
+                      for n, t in times.items()), flush=True)
+
+
+def print_device_ms(libs, call, args, reps, device_ms) -> None:
+    """Each build's device time a call (``torch.profiler``)."""
+    for name, lib in libs.items():
+        ms = device_ms(lambda: call(lib, *args), reps)
+        print(f"    {name}: device {ms:.4f} ms a call (torch.profiler)",
+              flush=True)
+
+
+def compare_frame(libs, eye_libs, pts, pipeline, kernels, reps,
+                  card) -> None:
+    """The frame's dilation and eye-dome at the inputs of bench.py's 8
+    orbit frames of the segmented 15M scan, and the dilation at a dense
+    720p key image at r=3 and r=8: each build's C entry point (``libs``
+    for the dilation, ``eye_libs`` for the eye-dome) in turns, its
+    device time a call, the wrappers (this tree's and the first design's)
+    in turns, the dilation's skipped tiles, the eye-dome wrapper's host
+    work by part."""
+    from chip_smoke import dense_keys, device_ms, orbit_cameras
+    from treee_tpu_torch.ops.kernels.dilate import tile_stats
+    from treee_tpu_torch.ops.kernels.eye_dome import (_check, _constants,
+                                                      _launch_constants)
+    from treee_tpu_torch.render import Camera
+
+    session = pipeline.Session.from_points(pts, device="cuda")
+    session.segment(0.75)
+    d_calls, e_calls = [], []
+    d_wrap, e_wrap = kernels.dilate, kernels.eye_dome
+
+    def d_rec(*a):
+        d_calls.append(tuple(x.clone() if torch.is_tensor(x) else x
+                             for x in a))
+        return d_wrap(*a)
+
+    def e_rec(*a):
+        e_calls.append(tuple(x.clone() if torch.is_tensor(x) else x
+                             for x in a))
+        return e_wrap(*a)
+
+    kernels.dilate, kernels.eye_dome = d_rec, e_rec
+    try:
+        for cam in orbit_cameras(Camera, "cuda"):
+            session.render(cam)
+    finally:
+        kernels.dilate, kernels.eye_dome = d_wrap, e_wrap
+    del session
+    torch.cuda.synchronize()
+
+    kimg0, _, *params = d_calls[0]
+    dense = dense_keys(*kimg0.shape, 0, "cuda")
+    cases = [(f"frame {i}", a) for i, a in enumerate(d_calls)]
+    cases += [(f"dense {list(kimg0.shape)}, r={r}", (dense, r, *params))
+              for r in (3, 8)]
+    for label, (kimg, radius, p22, p23, coef) in cases:
+        st = tile_stats(kimg, radius, p22, p23, coef)
+        print(f"dilate {label} (i32{list(kimg.shape)}, r={radius}): "
+              f"{st['tiles']} tiles, {st['empty']} empty, {st['stopped']} "
+              f"stopped after a still pass, {st['passes']} passes",
+              flush=True)
+        ref = kernels.dilate_plain(kimg, radius, p22, p23, coef)
+        h, w = kimg.shape
+        bufs = (torch.empty_like(kimg), torch.empty_like(kimg),
+                torch.empty((2, h, w), dtype=torch.int32, device="cuda"))
+        args = (kimg, radius, p22, p23, coef, bufs)
+        compare(f"dilate {label}, C entry alone", libs, dilate_call, args,
+                (ref,), reps, card)
+        print_device_ms(libs, dilate_call, args, reps, device_ms)
+        parent = libs["parent"]
+        fns = {"wrapper": lambda: kernels.dilate(kimg, radius, p22, p23,
+                                                 coef),
+               "parent's wrapper": lambda: parent_dilate_wrapper(
+                   parent, kimg, radius, p22, p23, coef)}
+        for name, fn in fns.items():
+            if not torch.equal(fn(), ref):
+                raise AssertionError(f"dilate {label}: {name} differs")
+        print_in_turns(fns, 2 * reps)
+
+    for i, (color, z01, near, far, strength, ed) in enumerate(e_calls):
+        label = f"eye_dome frame {i}"
+        ref = kernels.eye_dome_plain(color, z01, near, far, strength, ed)
+        consts = _launch_constants(near, far, strength, tuple(ed))
+        args = (color, z01, consts, torch.empty_like(color))
+        compare(f"{label}, C entry alone", eye_libs, eye_dome_call, args,
+                (ref,), reps, card)
+        print_device_ms(eye_libs, eye_dome_call, args, reps, device_ms)
+        fns = {"wrapper": lambda: kernels.eye_dome(color, z01, near, far,
+                                                   strength, ed),
+               "parent's wrapper": lambda: parent_eye_dome_wrapper(
+                   libs["parent"], color, z01, near, far, strength, ed)}
+        for name, fn in fns.items():
+            if not torch.equal(fn(), ref):
+                raise AssertionError(f"{label}: {name} differs")
+        print_in_turns(fns, 2 * reps)
+
+    # the eye-dome wrapper's host work, part by part, at frame 0
+    color, z01, near, far, strength, ed = e_calls[0]
+    lib = build.library()
+    packed, pack = lib.treee_eye_dome.packed
+    consts = _launch_constants(near, far, strength, tuple(ed))
+    out = torch.empty_like(color)
+    h, w = z01.shape
+    parts = {
+        "_check": lambda: _check(color, z01),
+        "two build.aligned": lambda: (build.aligned(color),
+                                      build.aligned(z01)),
+        "empty_like": lambda: torch.empty_like(color),
+        "the seven constants, converted (first design)": lambda: (
+            _constants(near, far, strength),
+            tuple(float(np.float32(c)) for c in ed)),
+        "the seven constants, cached": lambda: _launch_constants(
+            near, far, strength, tuple(ed)),
+        "the packed launch": lambda: packed(pack(
+            color.data_ptr(), z01.data_ptr(), out.data_ptr(), h, w, *consts,
+            build.stream(z01))),
+        "whole wrapper": lambda: kernels.eye_dome(color, z01, near, far,
+                                                  strength, ed),
+        "the first design's wrapper": lambda: parent_eye_dome_wrapper(
+            libs["parent"], color, z01, near, far, strength, ed),
+    }
+    print(f"eye_dome host work a call at {list(color.shape)}, mean of 1000 "
           f"calls   [{card}]", flush=True)
     for name, fn in parts.items():
         print(f"    {name}: {host_us(fn):.2f} us", flush=True)

@@ -9,9 +9,12 @@ distance ties between slots in different CTAs, no active slot, one cluster,
 more new clusters than free slots; gathers at the Mosaic probe's shapes and
 from tables larger than shared memory; cummax lengths around its
 tile sizes, every width, runs over hundreds of tiles and runs that end on tile
-edges, signed zeros and NaNs, repeated calls, a side stream and unaligned views, key images that are no multiple of the dilation tile,
-dilation radii across the kernel's pass groups, splats on the image edges
-and empty images, cumsum lengths around the block size, runs across hundreds
+edges, signed zeros and NaNs, repeated calls, a side stream and unaligned
+views (for the scans and both frame kernels), key images at and around the
+dilation's 64x64 cores, dense and sparse 720p images, dilation radii across
+the kernel's pass groups and over hundreds of launches, splats on the
+image edges and empty images, the dilation's two shortcuts, eye-dome widths
+that are no multiple of 4, cumsum lengths around the block size, runs across hundreds
 of blocks, every block size class and widths beyond shared memory, jump-flood grids of 1 to 384 cells a side with
 no seed or a seed in every cell, and 64 busy bands on both sides of its
 shared-memory route's edge with duplicate slots and exact ties; a launch
@@ -428,6 +431,18 @@ def test_launch_helper_raises_on_a_refused_launch(dev):
     idx = torch.randint(0, 8, (8, 128), dtype=torch.int32, device=dev)
     _same(kernels.take_along_axis(tab, idx, 0),
           kernels.take_along_axis_plain(tab, idx, 0))
+    # the dilation refuses 2 launches without scratch for their offsets,
+    # the eye-dome a colour off a 16-byte boundary
+    kimg = torch.zeros((8, 8), dtype=torch.int32, device=dev)
+    with pytest.raises(RuntimeError, match="dilate: CUDA error"):
+        build.launch(build.library().treee_dilate, "dilate", kimg,
+                     kimg.data_ptr(), kimg.data_ptr(), 0, 0, 0, 8, 8, 4,
+                     *DILATE_PARAMS, 0.5, 0)
+    z = torch.zeros((8, 9), device=dev)
+    with pytest.raises(RuntimeError, match="eye_dome: CUDA error"):
+        build.launch(build.library().treee_eye_dome, "eye_dome", z,
+                     z.data_ptr() + 4, z.data_ptr(), z.data_ptr(), 2, 2,
+                     1.0, 1.0, 1.0, 1.0, 0.0, 0.0, 0.0)
 
 
 # the dilation's constants at 720p with the default camera and point size:
@@ -439,14 +454,22 @@ DILATE_PARAMS = splat.dilate_params(Camera.orbital(device="cpu"),
 def _key_image(h, w, kind, seed):
     """Raw keys: far points (radius < 1 px) and near ones (up to ~29 px);
     ``edges`` puts the near ones on the image's border rows and columns,
-    ``empty`` has no key at all."""
+    ``dense`` keys every pixel, ``far`` has points 100-150 m away only
+    (under 0.9 px: nothing grows), ``empty`` no key at all."""
     rng = np.random.default_rng(seed)
     kimg = np.full((h, w), IBIG, np.int64)
     if kind == "empty":
         return torch.from_numpy(kimg.astype(np.int32))
+    if kind == "dense":
+        depth = np.where(rng.random((h, w)) < 0.1, rng.uniform(3, 10, (h, w)),
+                         rng.uniform(60, 150, (h, w)))
+        zq = ((1.00001 - 0.1 / depth) * ((1 << 23) - 1)).astype(np.int64)
+        return torch.from_numpy(((zq << 8) | rng.integers(0, 256, (h, w)))
+                                .astype(np.int32))
     n = max(1, h * w // 20)
-    depth = np.where(rng.random(n) < 0.1, rng.uniform(3, 10, n),
-                     rng.uniform(60, 150, n))
+    depth = (rng.uniform(100, 150, n) if kind == "far" else
+             np.where(rng.random(n) < 0.1, rng.uniform(3, 10, n),
+                      rng.uniform(60, 150, n)))
     zq = ((1.00001 - 0.1 / depth) * ((1 << 23) - 1)).astype(np.int64)
     key = (zq << 8) | rng.integers(0, 256, n)
     r, c = rng.integers(0, h, n), rng.integers(0, w, n)
@@ -462,20 +485,96 @@ def _key_image(h, w, kind, seed):
 @pytest.mark.parametrize("h,w,kind", [
     (97, 131, "mixed"), (1, 1, "mixed"), (1, 1, "empty"), (33, 65, "edges"),
     (64, 64, "edges"), (97, 131, "empty"), (720, 1280, "mixed"),
+    (720, 1280, "dense"), (63, 63, "edges"), (65, 65, "edges"),
+    (63, 127, "edges"), (64, 128, "edges"), (65, 129, "edges"),
+    (127, 255, "mixed"), (128, 256, "edges"), (129, 257, "edges"),
+    (82, 82, "mixed"), (82, 146, "mixed"), (719, 1281, "far"),
 ])
 def test_dilate_kernel_equals_plain(dev, h, w, kind, radius):
+    """Sizes at and around the kernel's 64x64 cores (and its 82x82 spans),
+    the frame's 720p sparse and dense; 1 to 5 launches."""
     kimg = _key_image(h, w, kind, seed=h * w + radius).to(dev)
     got = kernels.dilate(kimg, radius, *DILATE_PARAMS)
     _same(got, kernels.dilate_plain(kimg, radius, *DILATE_PARAMS))
     per = build.library().treee_dilate_passes_per_launch()
     assert per == 3
+    assert (build.library().treee_dilate_core_rows(),
+            build.library().treee_dilate_core_cols()) == (64, 64)
     assert kernels.dilate.launches == -(-radius // per)
-    if kind != "empty" and h * w > 1:
+    if kind in ("mixed", "edges") and h * w > 1:
         assert int((got != IBIG).sum()) > int((kimg != IBIG).sum())
 
 
+@pytest.mark.parametrize("radius", [965, 966, 1000])
+def test_dilate_kernel_large_radius(dev, radius):
+    """Hundreds of launches (322 to 334), keys and offsets carried from
+    one to the next long after every splat has stopped growing."""
+    kimg = _key_image(33, 65, "edges", seed=radius).to(dev)
+    _same(kernels.dilate(kimg, radius, *DILATE_PARAMS),
+          kernels.dilate_plain(kimg, radius, *DILATE_PARAMS))
+    assert kernels.dilate.launches == -(-radius // 3)
+
+
+def test_dilate_kernel_shortcuts(dev):
+    """Both exact shortcuts on the card: an empty image's tiles all take
+    the empty-tile exit; far splats (under 1 px: nothing grows) stop every
+    tile after its first pass; a dense image has no empty tile."""
+    from treee_tpu_torch.ops.kernels.dilate import tile_stats
+    for kind, radius in (("empty", 3), ("far", 3), ("far", 8),
+                         ("dense", 3)):
+        kimg = _key_image(720, 1280, kind, seed=1).to(dev)
+        stats = tile_stats(kimg, radius, *DILATE_PARAMS)
+        launches = -(-radius // 3)
+        assert stats["tiles"] == launches * 12 * 20, (kind, stats)
+        if kind == "empty":
+            assert stats["empty"] == stats["tiles"] and stats["passes"] == 0
+        elif kind == "far":
+            assert stats["empty"] == 0 and stats["passes"] == stats["tiles"]
+            assert stats["stopped"] == stats["tiles"]
+        else:
+            assert stats["empty"] == 0
+        _same(kernels.dilate(kimg, radius, *DILATE_PARAMS),
+              kernels.dilate_plain(kimg, radius, *DILATE_PARAMS))
+
+
+def test_frame_kernels_repeat_on_any_stream_and_view(dev):
+    """Both frame kernels: repeated calls, a non-default stream, and
+    inputs that are views starting off a 16-byte boundary (the eye-dome
+    moves 16 bytes an access)."""
+    kimg = _key_image(721, 1283, "mixed", seed=9).to(dev)
+    ref_k = kernels.dilate_plain(kimg, 4, *DILATE_PARAMS)
+    gen = torch.Generator(device=dev).manual_seed(9)
+    z01 = torch.rand((721, 1283), device=dev, generator=gen)
+    color = torch.rand((721, 1283, 3), device=dev, generator=gen)
+    ed_args = (0.1, 1e4, 0.3 ** 6, (0.2, 0.4, 0.9))
+    ref_e = kernels.eye_dome_plain(color, z01, *ed_args)
+    for _ in range(3):
+        got = (kernels.dilate(kimg, 4, *DILATE_PARAMS),
+               kernels.eye_dome(color, z01, *ed_args))
+    _same(got, (ref_k, ref_e))
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        got = [(kernels.dilate(kimg, 4, *DILATE_PARAMS),
+                kernels.eye_dome(color, z01, *ed_args)) for _ in range(2)][-1]
+    side.synchronize()
+    _same(got, (ref_k, ref_e))
+    flat_k = kimg.flatten()[1:][:720 * 1283].view(720, 1283)
+    flat_z = z01.flatten()[1:][:720 * 1283].view(720, 1283)
+    flat_c = color.flatten()[3:][:720 * 1283 * 3].view(720, 1283, 3)
+    assert flat_z.data_ptr() % 16 and flat_c.data_ptr() % 16
+    _same(kernels.dilate(flat_k, 4, *DILATE_PARAMS),
+          kernels.dilate_plain(flat_k, 4, *DILATE_PARAMS))
+    _same(kernels.eye_dome(flat_c, flat_z, *ed_args),
+          kernels.eye_dome_plain(flat_c, flat_z, *ed_args))
+    assert kernels.dilate.launches == 6 * 2
+    assert kernels.eye_dome.launches == 6
+
+
 @pytest.mark.parametrize("h,w", [(1, 1), (2, 1), (1, 7), (97, 131),
-                                 (720, 1280)])
+                                 (720, 1280), (3, 5), (17, 3), (16, 128),
+                                 (17, 129), (33, 257), (720, 1281),
+                                 (719, 1282), (720, 1284)])
 def test_eye_dome_kernel_equals_plain(dev, h, w):
     gen = torch.Generator(device=dev).manual_seed(h * w)
     z01 = torch.rand((h, w), device=dev, generator=gen)

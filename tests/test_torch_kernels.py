@@ -18,8 +18,15 @@ from treee_tpu import characteristics as jch
 from treee_tpu import segmentation as jsg
 from treee_tpu.ops import pallas_kernels as pk
 from treee_tpu_torch.ops import kernels
+from treee_tpu_torch.config import RenderConfig
 from treee_tpu_torch.ops.kernels import build
+from treee_tpu_torch.ops.kernels.dilate import (DIRECTIONS, full,
+                                                radius_from_key)
+from treee_tpu_torch.ops.kernels.eye_dome import (
+    _constants as eye_dome_constants)
 from treee_tpu_torch.ops.kernels.jump_flood import CLUSTER_CTAS, INF
+from treee_tpu_torch.render import Camera
+from treee_tpu_torch.render import splat as tsplat
 
 IBIG = 0x7FFFFFFF
 
@@ -874,6 +881,262 @@ def test_jump_flood_steps():
     assert kernels.jump_flood_steps(384) == [192, 96, 48, 24, 12, 6, 3, 1]
     assert kernels.jump_flood_steps(1) == []
     assert kernels.jump_flood_steps(3) == [1]
+
+
+def _dilate_design():
+    """(core rows, core columns, passes a launch) of ``csrc/dilate.cu``."""
+    text = (build.CSRC / "dilate.cu").read_text()
+
+    def num(name):
+        return int(re.search(rf"constexpr int {name} = (\d+);", text).group(1))
+    return num("kCoreH"), num("kCoreW"), num("kPasses")
+
+
+def _dilate_tile_model(kimg, radius, p22, p23, coef, short=0):
+    """The dilation kernel's design in plain torch: launches of up to
+    kPasses passes; in each, tiles of a core plus a halo of 3 pixels a pass
+    held as one flat span with a row and a pixel of empty keys before and
+    after it, a step reading pixel p's source at p - (dy * span width + dx)
+    (a source beyond the span's side is the next or previous row's pixel,
+    as in the kernel), sources outside the image holding the empty key and
+    targets outside it the least int, r^2 computed once a pixel from its key
+    and carried with it, a tile with no key in its span written empty at
+    once, a tile stopped after a pass that changed nothing; between launches
+    keys and offsets (left unwritten by an empty tile), the last launch keys
+    only.  ``short`` takes that many pixels off the halo, as a broken
+    kernel would.  Returns (keys, {"tiles", "empty", "stopped", "passes"}).
+    """
+    ch, cw, per = _dilate_design()
+    halo = 3 * per - short
+    sh, sw = ch + 2 * halo, cw + 2 * halo
+    area, pad = sh * sw, sw + 1
+    h, w = kimg.shape
+    key, off = kimg.clone(), torch.zeros((2, h, w), dtype=torch.int32)
+    stats = dict.fromkeys(("tiles", "empty", "stopped", "passes"), 0)
+    n_launch = -(-radius // per)
+    for launch in range(n_launch):
+        passes = radius - per * launch if launch == n_launch - 1 else per
+        new_key = torch.full_like(key, -1)
+        # an empty tile leaves its offsets as they were: never read
+        new_off = torch.full_like(off, 0x5A5A5A5A)
+        for r0 in range(-halo, h - halo, ch):
+            for c0 in range(-halo, w - halo, cw):
+                rows = torch.arange(r0, r0 + sh)
+                cols = torch.arange(c0, c0 + sw)
+                live = (((rows >= 0) & (rows < h))[:, None]
+                        & ((cols >= 0) & (cols < w))[None, :]).reshape(-1)
+                rr, cc = rows.clamp(0, h - 1), cols.clamp(0, w - 1)
+
+                def flat(plane, fill):
+                    v = torch.where(live, plane[rr][:, cc].reshape(-1), fill)
+                    return torch.cat([torch.full((pad,), fill, dtype=v.dtype),
+                                      v, torch.full((pad,), fill,
+                                                    dtype=v.dtype)])
+                k, sdx, sdy = flat(key, IBIG), flat(off[0], 0), flat(off[1], 0)
+                rd = radius_from_key(k, p22, p23, coef)
+                r2 = torch.where(k != IBIG, rd * rd, 0.0)
+                span = slice(pad, pad + area)
+                own = torch.where(live, k[span], -IBIG - 1)
+                busy = bool((k != IBIG).any())
+                stats["tiles"] += 1
+                stats["empty"] += not busy
+                for p in range(passes if busy else 0):
+                    changed = False
+                    for dy, dx in DIRECTIONS:
+                        s0 = pad - (dy * sw + dx)
+                        src = slice(s0, s0 + area)
+                        # every source read before any write, as the
+                        # kernel's barrier orders them
+                        ck, cr2 = k[src].clone(), r2[src].clone()
+                        cdx, cdy = sdx[src] + dx, sdy[src] + dy
+                        fx, fy = cdx.float(), cdy.float()
+                        better = (ck < own) & (fx * fx + fy * fy <= cr2)
+                        own = torch.where(better, ck, own)
+                        k[span] = torch.where(better, ck, k[span])
+                        r2[span] = torch.where(better, cr2, r2[span])
+                        sdx[span] = torch.where(better, cdx, sdx[span])
+                        sdy[span] = torch.where(better, cdy, sdy[span])
+                        changed |= bool(better.any())
+                    stats["passes"] += 1
+                    if not changed:
+                        stats["stopped"] += p < passes - 1
+                        break
+                ro, co = r0 + halo, c0 + halo
+                hh, ww = min(ch, h - ro), min(cw, w - co)
+                core = (slice(halo, halo + hh), slice(halo, halo + ww))
+                new_key[ro:ro + hh, co:co + ww] = own.reshape(sh, sw)[core]
+                if busy:
+                    for i, d in enumerate((sdx, sdy)):
+                        new_off[i, ro:ro + hh, co:co + ww] = \
+                            d[span].reshape(sh, sw)[core]
+        assert bool((new_key != -1).all())          # every pixel written
+        key, off = new_key, new_off
+    return key, stats
+
+
+def _tile_edge_keys(h, w, seed):
+    """Raw keys at the render defaults: far points (splat radius under 1
+    px) everywhere, near ones (9-29 px) on the image's border rows and
+    columns and within a halo's width of the dilation tiles' edges."""
+    ch, cw, per = _dilate_design()
+    rng = np.random.default_rng(seed)
+    kimg = np.full((h, w), IBIG, np.int64)
+    band = np.arange(-3 * per - 1, 3 * per + 1)     # a halo either side
+
+    def put(r, c, near):
+        depth = (rng.uniform(3, 10, len(r)) if near
+                 else rng.uniform(60, 150, len(r)))
+        zq = ((1.00001 - 0.1 / depth) * ((1 << 23) - 1)).astype(np.int64)
+        np.minimum.at(kimg, (r, c), (zq << 8) | rng.integers(0, 256, len(r)))
+
+    n = max(1, h * w // 30)
+    put(rng.integers(0, h, n), rng.integers(0, w, n), False)
+    edge_r = np.unique(np.clip(np.r_[0, h - 1, ch + band], 0, h - 1))
+    edge_c = np.unique(np.clip(np.r_[0, w - 1, cw + band], 0, w - 1))
+    m = max(1, n // 8)
+    put(rng.choice(edge_r, m), rng.integers(0, w, m), True)
+    put(rng.integers(0, h, m), rng.choice(edge_c, m), True)
+    return torch.from_numpy(kimg.astype(np.int32))
+
+
+def _dilate_cpu_params():
+    return tsplat.dilate_params(Camera.orbital(device="cpu"), RenderConfig())
+
+
+@pytest.mark.parametrize("radius", [1, 3, 4, 8])
+@pytest.mark.parametrize("h,w", [(1, 1), (37, 53), (63, 63), (64, 64),
+                                 (65, 65), (63, 127), (64, 128), (65, 129),
+                                 (129, 65)])
+def test_dilate_tile_model_matches_plain(h, w, radius):
+    """The tile decomposition (core, halo, carried r^2, both shortcuts, one
+    to three launches) gives the plain dilation's keys bit for bit, with
+    near splats on the image's borders and the tiles' edges."""
+    params = _dilate_cpu_params()
+    kimg = _tile_edge_keys(h, w, seed=h * w + radius)
+    got, stats = _dilate_tile_model(kimg, radius, *params)
+    ref = kernels.dilate_plain(kimg, radius, *params)
+    assert torch.equal(got, ref)
+    ch, cw, per = _dilate_design()
+    assert (ch, cw, per) == (64, 64, 3)
+    assert stats["tiles"] == -(-radius // per) * -(-h // ch) * -(-w // cw)
+    if h * w > 1:
+        assert int((ref != IBIG).sum()) > int((kimg != IBIG).sum())
+
+
+@pytest.mark.parametrize("h,w", [(65, 129), (129, 65)])
+def test_dilate_tile_model_needs_the_whole_halo(h, w):
+    """With a halo one pixel short of 3 a pass, the stale ring (and the
+    wrong reads of sources beyond the span's side) reaches the core, and
+    the model no longer equals the plain dilation: the equality above
+    rests on the halo arithmetic."""
+    params = _dilate_cpu_params()
+    kimg = _tile_edge_keys(h, w, seed=h * w + 3)
+    ref = kernels.dilate_plain(kimg, 3, *params)
+    assert torch.equal(_dilate_tile_model(kimg, 3, *params)[0], ref)
+    assert not torch.equal(_dilate_tile_model(kimg, 3, *params, short=1)[0],
+                           ref)
+
+
+def test_dilate_tile_model_takes_both_shortcuts():
+    """On a 2x2-tile image with near splats in one tile, far ones (radius
+    under 1 px: nothing grows) in another and nothing in the other two, a
+    tile with no key in its span is written empty at once and the far
+    tile stops after its first pass; both equal the plain dilation."""
+    params = _dilate_cpu_params()
+    ch, cw, _ = _dilate_design()
+    kimg = torch.full((2 * ch, 2 * cw), IBIG, dtype=torch.int32)
+    kimg[:ch // 2, :cw // 2] = _tile_edge_keys(ch // 2, cw // 2, seed=3)
+    rng = np.random.default_rng(4)
+    zq = int((1.00001 - 0.1 / 120.0) * ((1 << 23) - 1))
+    r = rng.integers(ch + ch // 4, ch + 3 * ch // 4, 40)
+    c = rng.integers(cw // 4, 3 * cw // 4, 40)
+    kimg[r, c] = torch.from_numpy((zq << 8) | rng.integers(0, 256, 40)
+                                  ).to(torch.int32)
+    for radius in (3, 4):
+        got, stats = _dilate_tile_model(kimg, radius, *params)
+        ref = kernels.dilate_plain(kimg, radius, *params)
+        assert torch.equal(got, ref)
+        assert stats["empty"] >= 2 and stats["stopped"] >= 1
+        # the far splats' radius is under 1 px: they never grow
+        assert torch.equal(ref[ch:, :cw], kimg[ch:, :cw])
+    # one near splat in the last pixel grows up and left only, so the last
+    # direction of each pass, (1, 1), changes nothing: no stop before 3
+    corner = torch.full((ch, cw), IBIG, dtype=torch.int32)
+    corner[-1, -1] = int(kimg[kimg != IBIG].min())
+    got, stats = _dilate_tile_model(corner, 3, *params)
+    ref = kernels.dilate_plain(corner, 3, *params)
+    assert torch.equal(got, ref) and int((ref != IBIG).sum()) > 9
+    assert stats == {"tiles": 1, "empty": 0, "stopped": 0, "passes": 3}
+
+
+def _eye_dome_strip_rows():
+    """Rows a warp walks in ``csrc/eye_dome.cu``."""
+    text = (build.CSRC / "eye_dome.cu").read_text()
+    return int(re.search(r"constexpr int kStripRows = (\d+);", text).group(1))
+
+
+def _eye_dome_strip_model(color, z01, near, far, strength, ed):
+    """The eye-dome kernel's design in plain torch: strips of 128 columns by
+    kStripRows rows; each strip linearizes its depths and those of the rows
+    above and below it and of the columns left and right of it (reads
+    clamped to the image); a thread takes 4 neighbouring pixels of a row, as
+    16-byte accesses where the group starts on a 16-byte boundary and W
+    holds all 4, else pixel by pixel.  Returns (output, groups taken by
+    vector, groups taken by scalar)."""
+    rows = _eye_dome_strip_rows()
+    n2, fpn, fmn, s = eye_dome_constants(near, far, strength)
+    h, w = z01.shape
+    out = torch.full_like(color, float("nan"))
+    edv = torch.tensor(ed, dtype=torch.float32)
+    n_vec = n_scalar = 0
+    for row0 in range(0, h, rows):
+        for col0 in range(0, w, 128):
+            rr = torch.arange(row0 - 1, row0 + rows + 1).clamp(0, h - 1)
+            cc = torch.arange(col0 - 1, col0 + 129).clamp(0, w - 1)
+            zt = z01[rr][:, cc]
+            lin = torch.where(zt >= 1.0, 1.0,
+                              torch.div(full(n2, zt), fpn - zt * fmn))
+            own = lin[1:-1, 1:-1]
+            m = torch.maximum(torch.maximum(lin[:-2, 1:-1], lin[2:, 1:-1]),
+                              torch.maximum(lin[1:-1, :-2], lin[1:-1, 2:]))
+            m = torch.minimum(torch.maximum(m, own), own + s)
+            zo = zt[1:-1, 1:-1]
+            alpha = torch.where(zo < 1.0, torch.div(m - own, full(s, zo)),
+                                0.0)[..., None]
+            res = color[rr[1:-1]][:, cc[1:-1]] * (1.0 - alpha) + edv * alpha
+            for r in range(row0, min(row0 + rows, h)):
+                for c in range(col0, min(col0 + 128, w), 4):
+                    if c + 4 <= w and (r * w + c) % 4 == 0:
+                        n_vec += 1
+                    else:
+                        n_scalar += 1
+                    k = min(4, w - c)
+                    assert bool(torch.isnan(out[r, c:c + k]).all())
+                    out[r, c:c + k] = res[r - row0, c - col0:c - col0 + k]
+    assert not bool(torch.isnan(out).any())      # every pixel written once
+    return out, n_vec, n_scalar
+
+
+@pytest.mark.parametrize("w", [1, 3, 5, 7, 131, 260])
+def test_eye_dome_strip_model_matches_plain(w):
+    """Four pixels a thread, 16-byte groups and scalar ragged tails, strips
+    of 128 columns with the clamped rows and columns around them: the plain
+    eye-dome bit for bit."""
+    h = 19
+    rng = np.random.default_rng(w)
+    z01 = (0.999 + 0.001 * rng.random((h, w))).astype(np.float32)
+    z01[rng.random((h, w)) < 0.3] = 1.0
+    color = rng.random((h, w, 3)).astype(np.float32)
+    z01, color = torch.from_numpy(z01), torch.from_numpy(color)
+    args = (0.1, 1e4, 0.3 ** 6, (0.2, 0.4, 0.9))
+    got, n_vec, n_scalar = _eye_dome_strip_model(color, z01, *args)
+    ref = kernels.eye_dome_plain(color, z01, *args)
+    assert torch.equal(got, ref)
+    assert bool((ref != color).any())
+    assert _eye_dome_strip_rows() == 2
+    assert n_vec == sum(c + 4 <= w and (r * w + c) % 4 == 0
+                        for r in range(h) for c in range(0, w, 4))
+    assert (n_scalar > 0) == (w % 4 != 0)
 
 
 def _cpu_inputs():

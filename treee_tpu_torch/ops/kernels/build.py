@@ -99,7 +99,7 @@ LAUNCHERS = {
     "treee_cc_sweep": [_P, _P, _P, _I, _I, _I, _P],
     "treee_match_scan": [_P, _P, _I, _I, _I, _I, _F, _P, _P, _P, _P],
     "treee_seg_cummax": [_P, _P, _P, _LL, _I, _P, _P],
-    "treee_dilate": [_P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _F, _F, _P],
+    "treee_dilate": [_P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _F, _F, _P, _P],
     "treee_eye_dome": [_P, _P, _P, _I, _I, _F, _F, _F, _F, _F, _F, _F, _P],
     "treee_seg_cumsum": [_P, _P, _P, _LL, _I, _I, _P, _P],
     "treee_jump_flood": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
@@ -135,8 +135,10 @@ def library() -> ctypes.CDLL:
     _one_device = torch.cuda.device_count() == 1
     lib.treee_seg_cummax_scratch_bytes.argtypes = [_LL, _I]
     lib.treee_seg_cummax_scratch_bytes.restype = _LL
-    lib.treee_dilate_passes_per_launch.argtypes = []
-    lib.treee_dilate_passes_per_launch.restype = _I
+    for name in ("treee_dilate_passes_per_launch", "treee_dilate_core_rows",
+                 "treee_dilate_core_cols"):
+        getattr(lib, name).argtypes = []
+        getattr(lib, name).restype = _I
     lib.treee_seg_cumsum_scratch_bytes.argtypes = [_LL, _I, _I]
     lib.treee_seg_cumsum_scratch_bytes.restype = _LL
     lib.treee_jump_flood_clusters.argtypes = [_I, _I]

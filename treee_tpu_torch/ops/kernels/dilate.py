@@ -11,6 +11,8 @@ points have large splats.
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
@@ -98,10 +100,38 @@ def dilate_plain(kimg: torch.Tensor, radius: int, p22: float, p23: float,
     return dilate_scan(kimg, radius, p22, p23, coef)[0]
 
 
+@functools.cache
+def passes_per_launch() -> int:
+    """Passes the kernel runs in one launch."""
+    return build.library().treee_dilate_passes_per_launch()
+
+
 def launches_for(radius: int) -> int:
     """CUDA launches the kernel makes for ``radius`` passes."""
-    per = build.library().treee_dilate_passes_per_launch()
-    return -(-radius // per)
+    return -(-radius // passes_per_launch())
+
+
+def _launch(kimg: torch.Tensor, radius: int, p22: float, p23: float,
+            coef: float, stats: int) -> torch.Tensor:
+    """The kernel on CUDA tensor ``kimg``; ``stats`` is 0 or the address of
+    a zeroed i32[4] (see :func:`tile_stats`).  Counts one launch for each
+    group of passes the kernel runs."""
+    kimg = kimg.contiguous()
+    h, w = kimg.shape
+    n = launches_for(radius)
+    out = torch.empty_like(kimg)
+    # keys and offsets between launches: the last launch writes keys only
+    tmp = torch.empty_like(kimg) if n > 1 else None
+    off = (torch.empty((min(n - 1, 2), h, w), dtype=torch.int32,
+                       device=kimg.device) if n > 1 else None)
+    build.launch(build.library().treee_dilate, "dilate", kimg,
+                 kimg.data_ptr(), out.data_ptr(),
+                 0 if tmp is None else tmp.data_ptr(),
+                 0 if off is None else off[0].data_ptr(),
+                 0 if off is None or n < 3 else off[1].data_ptr(), h, w,
+                 radius, p22, p23, coef, ZSCALE, stats)
+    dilate.launches += n
+    return out
 
 
 def dilate(kimg: torch.Tensor, radius: int, p22: float, p23: float,
@@ -112,17 +142,23 @@ def dilate(kimg: torch.Tensor, radius: int, p22: float, p23: float,
     _check(kimg, radius)
     if not build.on_cuda(kimg, "dilate"):
         return dilate_plain(kimg, radius, p22, p23, coef)
-    kimg = kimg.contiguous()
-    h, w = kimg.shape
-    out = torch.empty_like(kimg)
-    tmp = torch.empty_like(kimg)
-    off = torch.empty((2, h, w), dtype=torch.int32, device=kimg.device)
-    build.launch(build.library().treee_dilate, "dilate", kimg,
-                 kimg.data_ptr(), out.data_ptr(), tmp.data_ptr(),
-                 off[0].data_ptr(), off[1].data_ptr(), h, w, radius, p22, p23,
-                 coef, ZSCALE)
-    dilate.launches += launches_for(radius)
-    return out
+    return _launch(kimg, radius, p22, p23, coef, 0)
 
 
 dilate.launches = 0
+
+
+def tile_stats(kimg: torch.Tensor, radius: int, p22: float, p23: float,
+               coef: float) -> dict[str, int]:
+    """The kernel's exact shortcuts on CUDA tensor ``kimg``, summed over its
+    launches: ``tiles`` run, ``empty`` (no key in the tile's span: written
+    empty at once), ``stopped`` (a pass changed nothing, so the tile ended
+    before its last pass) and ``passes`` run.  The launches count as
+    :func:`dilate`'s."""
+    _check(kimg, radius)
+    if not kimg.is_cuda:
+        raise ValueError("dilate.tile_stats: needs a CUDA tensor")
+    stats = torch.zeros(4, dtype=torch.int32, device=kimg.device)
+    _launch(kimg, radius, p22, p23, coef, stats.data_ptr())
+    return dict(zip(("tiles", "empty", "stopped", "passes"),
+                    stats.tolist()))

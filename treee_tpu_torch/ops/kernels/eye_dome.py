@@ -8,6 +8,8 @@ in HWC layout; the Pallas kernel's [3,H,W] layout is a TPU tiling choice.
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
@@ -32,6 +34,16 @@ def _constants(near: float, far: float, strength: float):
     double from the Python floats, then rounded to f32 once."""
     return tuple(float(np.float32(v)) for v in
                  (2.0 * near, far + near, far - near, strength))
+
+
+@functools.lru_cache(maxsize=64)
+def _launch_constants(near: float, far: float, strength: float,
+                      ed_color: tuple[float, float, float]):
+    """The kernel's seven f32 constants: :func:`_constants`, then
+    ``ed_color``.  Every frame of a session asks for the same seven, and
+    converting them costs a frame's launch as much host time again."""
+    return _constants(near, far, strength) + tuple(
+        float(np.float32(c)) for c in ed_color)
 
 
 def eye_dome_plain(color: torch.Tensor, z01: torch.Tensor, near: float,
@@ -65,15 +77,14 @@ def eye_dome(color: torch.Tensor, z01: torch.Tensor, near: float, far: float,
     _check(color, z01)
     if not build.on_cuda(z01, "eye_dome"):
         return eye_dome_plain(color, z01, near, far, strength, ed_color)
-    color = color.contiguous()
-    z01 = z01.contiguous()
+    # the kernel moves colour and depth 16 bytes an access
+    color = build.aligned(color)
+    z01 = build.aligned(z01)
     h, w = z01.shape
     out = torch.empty_like(color)
-    n2, fpn, fmn, s = _constants(near, far, strength)
-    e0, e1, e2 = (float(np.float32(c)) for c in ed_color)
     build.launch(build.library().treee_eye_dome, "eye_dome", z01,
-                 color.data_ptr(), z01.data_ptr(), out.data_ptr(), h, w, n2,
-                 fpn, fmn, s, e0, e1, e2)
+                 color.data_ptr(), z01.data_ptr(), out.data_ptr(), h, w,
+                 *_launch_constants(near, far, strength, tuple(ed_color)))
     eye_dome.launches += 1
     return out
 
