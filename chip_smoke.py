@@ -48,12 +48,31 @@ Phases, each of which raises on failure:
    must give the same ids.  Its route, the clusters the card holds at once
    and the bands that hold a seed are logged.  The packed flood runs once.
 12. A small scene on the card against the port's CPU run: ids, Morton keys,
-   a frame, and the inventory's columns wherever the ids agree.
+   a frame, and the inventory's columns wherever the ids agree; then, from
+   the same ids on both, the octree, ``lod_mask`` (levels 0, 5, 7, 10, with
+   and without frustum planes, 1 and 4 points a node), ``adaptive_mask``
+   and ``adaptive_counts`` over the tau ladder, node tables, ``snug_capacity``
+   and ``compact_indices``, the edit sequence of phase 14 and its LOD
+   subset, all bit-equal; ``pick`` with equal ids and distances within
+   PICK_RTOL.
 13. The gather probe, on no path of the system: the four gathers of
    ``treee_tpu_torch.tools.probe_extract`` (the Mosaic probe's shapes) through
    ``take_along_axis``, with the counters zeroed before and read after; then
    the kernel against its plain version and ``torch.take_along_dim`` /
    ``tab[idx]``, and at how many shapes the kernel was no slower.
+14. The interactive view of the segmented 15M scan, the counters zeroed
+   before and read after each call: ``Session.build_lod()`` (level 7) and
+   the 8 orbit frames with ``render(use_lod=True)``; ``solve_adaptive_tau``
+   for a budget of half the points and the adaptive frame, then the
+   screen-adaptive frame at tau 1; ``bench.py``'s 8 ``delete_sphere``
+   strokes, each with its LOD frame (the cached octree and subset must
+   survive); ``spawn``, ``combine``, ``draw_sphere``, ``reclassify_sphere``
+   and ``pick``; then ``full_table()`` (it must recompute) and
+   ``inventory()``.  Every frame launches both frame kernels and equals the
+   plain versions' byte for byte; ``full_table()`` launches
+   ``segmented_cummax`` and ``inventory()`` ``segmented_cumsum``, each
+   identical to the plain run.  Times of each call and of its stages, and
+   ``BENCH_r05.json``'s counts beside the port's as a cross-check.
 
 The last lines are the card's name and power limit, a JSON object of
 per-kernel results and the JSON result line ``{"ok": true, "device":
@@ -63,6 +82,7 @@ per-kernel results and the JSON result line ``{"ok": true, "device":
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import importlib.util
 import json
 import re
@@ -134,6 +154,25 @@ MAIN_PATH_KERNELS = ("cc_sweep", "match_scan", "segmented_cummax",
 FRAME_KERNELS = ("dilate", "eye_dome")
 INVENTORY_KERNELS = ("segmented_cummax", "segmented_cumsum")
 FLOOD_KERNELS = MAIN_PATH_KERNELS + ("jump_flood",)
+# the interactive view (phase 14): bench.py's 8 edit strokes (bench.py:611-613)
+EDIT_CENTERS = tuple(np.array([0.0, 5.0, 0.0], np.float32) + i
+                     for i in range(8))
+EDIT_RADIUS = 2.0
+# a tree of the 15M scan (its grid puts one at x = -7, z = 0) and of the
+# small scene (x = z = -4), for the membership edits
+EDIT_TREE = (-7.0, 0.0, 0.0)
+SMALL_EDIT_TREE = (-4.0, 0.0, -4.0)
+# the JAX package's counts on the same 15M scan, printed by bench.py on a
+# TPU v5e (BENCH_r05.json): another device's arithmetic, so a cross-check
+# that is logged, not a gate.  bench.py cuts without a frustum, over every
+# valid point (deleted ones included).
+BENCH_R05 = {"lod_points": 51_934, "adaptive_tau": 2.0,
+             "adaptive_points": 7_098_581, "adaptive_pixel_match": 0.9888,
+             "screen_adaptive_points": 12_913_000,
+             "screen_adaptive_pixel_match": 0.9999}
+# pick's distance, card against CPU: each device normalises its ray with
+# its own vector_norm, which may differ in the last bit
+PICK_RTOL = 1e-5
 
 
 def log(*args) -> None:
@@ -357,6 +396,28 @@ def device_ms(fn, reps: int = TIMING_REPS) -> float:
     return total / reps / 1e3
 
 
+def top_device_ops(fn, k: int = 4) -> str:
+    """The device time of one call of ``fn`` and the ``k`` kernels that take
+    most of it (``torch.profiler``, one call after a warm-up), as text."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    rows = []
+    for e in prof.key_averages():
+        t = getattr(e, "device_time_total", getattr(e, "cuda_time_total", 0.0))
+        if t > 0 and not e.key.startswith(("aten::", "cuda")):
+            rows.append((t / 1e3, e.count, e.key))
+    if not rows:
+        raise AssertionError("torch.profiler reported no device time")
+    rows.sort(reverse=True)
+    return (f"device {sum(r[0] for r in rows):.3f} ms; top: " + "; ".join(
+        f"{name[:72]} x{n} {ms:.3f} ms" for ms, n, name in rows[:k]))
+
+
 def dense_keys(h: int, w: int, seed: int, device) -> torch.Tensor:
     """An i32[h,w] key image with a splat on every pixel, made on the
     device: one in ten near (3-10 m, 9-29 px at the render defaults), the
@@ -460,20 +521,24 @@ def stage_timer(stages: dict, reps: int):
     return timed
 
 
-def frame_stages(session, cam, splat) -> dict:
-    """Host-clock ms of each stage of one frame (median of TIMING_REPS)."""
+def frame_stages(session, cam, splat, pos=None, select=None) -> dict:
+    """Host-clock ms of each stage of one frame (median of TIMING_REPS):
+    of the full cloud, or of the rows ``pos`` whose (prop, mask)
+    ``select()`` gives (the LOD subset's gathers through its indices)."""
     cloud, cfg = session.cloud, session.config.render
     stages = {}
     timed = stage_timer(stages, TIMING_REPS)
+    if pos is None:
+        pos = cloud.pos
+        select = lambda: (splat.prop_from_segment(cloud.segment),
+                          cloud.valid & (cloud.segment != 0))
 
-    prop = timed("prop_from_segment + mask", lambda: (
-        splat.prop_from_segment(cloud.segment),
-        cloud.valid & (cloud.segment != 0)))
-    timed("_project alone", lambda: splat._project(cloud.pos, cam, cfg.width,
+    prop = timed("prop_from_segment + mask", select)
+    timed("_project alone", lambda: splat._project(pos, cam, cfg.width,
                                                     cfg.height))
     kimg = timed("rasterize_keys (project + pack + scatter-min)",
-                 lambda: splat.rasterize_keys(cloud.pos, prop[0], prop[1],
-                                              cam, cfg))
+                 lambda: splat.rasterize_keys(pos, prop[0], prop[1], cam,
+                                              cfg))
     color, z01, _ = timed("resolve_keys (dilate + palette)",
                           lambda: splat.resolve_keys(kimg, cam,
                                                      session.palette, cfg))
@@ -666,6 +731,146 @@ def inventory_stages(session, trunk_axis, rbv) -> dict:
                               symmetric=True)))
     timed("batched_traits", lambda: rbv.batched_traits(*grids))
     return stages
+
+
+def build_lod_stages(session, octree, mask_fn) -> dict:
+    """Host-clock ms of each stage of ``Session.build_lod`` on its cloud
+    (median of MAIN_PATH_REPS), the tree built anew; ``mask_fn(tree,
+    live)`` is the cut."""
+    cloud = session.cloud
+    stages = {}
+    timed = stage_timer(stages, MAIN_PATH_REPS)
+    tree = timed("octree.build (bounds, keys, stable sort, ranks)",
+                 lambda: octree.build(cloud.pos, cloud.valid))
+    lod = timed("the cut (mask)", lambda: mask_fn(tree, cloud.alive))
+    cap = timed("snug_capacity (count to the host)", lambda: min(
+        cloud.capacity, octree.snug_capacity(int(lod.sum()))))
+    _, idx = timed("compact_indices", lambda: octree.compact_indices(lod,
+                                                                     cap))
+    timed("position gather", lambda: cloud.pos[idx])
+    return stages
+
+
+def lod_select(session, splat):
+    """The LOD frame's (prop, mask) of the session's subset, read through
+    its indices as ``pipeline._lod_frame`` reads them."""
+    _, idx, count = session._lod
+    cloud = session.cloud
+    seg_c = cloud.segment[idx]
+    slot = torch.arange(idx.shape[0], dtype=torch.int32, device=idx.device)
+    return (splat.prop_from_segment(seg_c),
+            cloud.valid[idx] & (seg_c != 0) & (slot < count))
+
+
+def membership_edits(session, tree_at, pair) -> dict:
+    """A user finishing a tree by hand: spawn a segment in its trunk, merge
+    segment ``pair[0]`` into ``pair[1]``, draw the crown (deleted points
+    too) into the new segment, reclassify its lower part as crown."""
+    at = np.asarray(tree_at, np.float32)
+    nid = session.spawn(at + [0.0, 4.0, 0.0], radius=EDIT_RADIUS)
+    session.combine(*pair)
+    session.draw_sphere(at + [0.0, 6.0, 0.0], nid, radius=1.5,
+                        include_deleted=True)
+    session.reclassify_sphere(at + [0.0, 2.0, 0.0], 2, nid, radius=1.0)
+    return {"spawned": nid, "combined": pair}
+
+
+def interactive_card_vs_cpu(pts, cfg, segment, cam, pipeline, octree,
+                            dev) -> None:
+    """The small scene's octree, LOD and screen-error cuts, node tables,
+    compaction, the edit sequence of phase 14 and ``pick``, on the card and
+    on the CPU from the same ids: bit-equal, and pick's distance within
+    PICK_RTOL.  The same frustum planes go to both."""
+    sessions = []
+    for d in ("cpu", dev):
+        s = pipeline.Session.from_points(pts, cfg, device=d)
+        s.cloud = s.cloud.replace(segment=segment.to(d))
+        s.camera = cam.to(d)
+        sessions.append(s)
+    n_checks = 0
+
+    def same(what, got, ref):
+        nonlocal n_checks
+        for g, r in zip(as_tuple(got), as_tuple(ref)):
+            g = g.cpu() if torch.is_tensor(g) else torch.as_tensor(g)
+            r = r if torch.is_tensor(r) else torch.as_tensor(r)
+            if g.dtype != r.dtype or g.shape != r.shape or not same_bits(g, r):
+                raise AssertionError(f"{what}: the card and the CPU differ")
+        n_checks += 1
+
+    def both(fn):
+        """(CPU result, card result) of ``fn(session, tree, live, to)``."""
+        return [fn(s, t, s.cloud.alive, lambda x, d=s.device: None
+                   if x is None else x.to(d))
+                for s, t in zip(sessions, trees)]
+
+    trees = [octree.build(s.cloud.pos, s.cloud.valid) for s in sessions]
+    for f in ("keys", "order", "rank", "inv", "lo", "hi"):
+        same(f"build {f}", getattr(trees[1], f), getattr(trees[0], f))
+    rcfg = cfg.render
+    planes = cam.frustum_planes(rcfg.width / rcfg.height)
+    px = pipeline._px_scale(cam, rcfg)
+    for level in (0, 5, 7, 10):
+        for ppn in (1, 4):
+            for fr in (None, planes):
+                cpu, gpu = both(lambda s, t, live, to: octree.lod_mask(
+                    t, level, ppn, live, to(fr)))
+                same(f"lod_mask level {level} x{ppn}", gpu, cpu)
+    taus = pipeline.Session.TAU_LADDER
+    for fr in (None, planes):
+        cpu, gpu = both(lambda s, t, live, to: octree.adaptive_counts(
+            t, to(cam.position), px, taus, live=live, frustum=to(fr)))
+        same("adaptive_counts", gpu, cpu)
+        for tau in taus:
+            cpu, gpu = both(lambda s, t, live, to: octree.adaptive_mask(
+                t, to(cam.position), px, tau, live=live, frustum=to(fr)))
+            same(f"adaptive_mask tau {tau}", gpu, cpu)
+    for level in (3, 7, 10):
+        n_nodes = int(octree.node_table(trees[0], level, 1).n)
+        for m in (n_nodes // 2 + 1, n_nodes, n_nodes + 64):
+            tabs = [octree.node_table(t, level, m) for t in trees]
+            for f in ("prefix", "start", "count", "n"):
+                same(f"node_table {f}", getattr(tabs[1], f),
+                     getattr(tabs[0], f))
+            same("node_bounds", octree.node_bounds(tabs[1], trees[1], level),
+                 octree.node_bounds(tabs[0], trees[0], level))
+    masks = both(lambda s, t, live, to: octree.lod_mask(t, 7, live=live))
+    kept = [int(m.sum()) for m in masks]
+    snug = [octree.snug_capacity(k) for k in kept]
+    same("snug_capacity", snug[1], snug[0])
+    for cap in (kept[0] // 2 + 1, kept[0], kept[0] + 100, snug[0]):
+        same(f"compact_indices cap {cap}",
+             octree.compact_indices(masks[1], cap),
+             octree.compact_indices(masks[0], cap))
+    pair = tuple(int(i) for i in np.unique(segment.numpy())[1:3])
+    for s in sessions:
+        s.build_lod()
+        for c in EDIT_CENTERS:
+            s.delete_sphere(c, radius=EDIT_RADIUS)
+        membership_edits(s, SMALL_EDIT_TREE, pair)
+    cpu, gpu = sessions
+    same("the edited segments", gpu.cloud.segment, cpu.cloud.segment)
+    same("the edited classes", gpu.cloud.classification,
+         cpu.cloud.classification)
+    same("the LOD subset", gpu._lod, cpu._lod)
+    f_gpu, f_cpu = gpu.render(use_lod=True), cpu.render(use_lod=True)
+    diff = int(abs(f_gpu.astype(int) - f_cpu.astype(int)).max())
+    if diff > 1:
+        raise AssertionError("the card's LOD frame after the edits differs "
+                             "from the CPU's by more than 1 per channel")
+    hits = 0
+    for x, y in ((rcfg.width / 2, rcfg.height / 2), (600.5, 300.0),
+                 (700.0, 420.0)):
+        got, ref = gpu.pick(x, y), cpu.pick(x, y)
+        if (got[0], got[2]) != (ref[0], ref[2]) or not np.isclose(
+                got[1], ref[1], rtol=PICK_RTOL, atol=0.0):
+            raise AssertionError(f"pick at {x, y}: card {got}, CPU {ref}")
+        hits += got[2]
+    log(f"  small scene, interactive view: {n_checks} card-vs-CPU checks "
+        f"bit-equal (octree, masks, counts, tables, indices, edits, LOD "
+        f"subset); LOD frame after the edits within {diff} per channel; "
+        f"{hits} of 3 picks hit, ids equal, distances within rtol "
+        f"{PICK_RTOL}")
 
 
 def main() -> int:
@@ -1038,6 +1243,9 @@ def main() -> int:
         log(f"  small inventory({kw}): {int(rows_a.sum())} of "
             f"{len(a['segment'])} rows with agreeing ids; card vs CPU largest "
             f"relative difference {worst:.3g}")
+    interactive_card_vs_cpu(small, small_cfg, s_cpu.cloud.segment, cam,
+                            pipeline, octree, dev)
+    del s_cpu, s_gpu
 
     # --- phase 13: the gather probe (on no path of the system) ---
     log("phase 13: take_along_axis, the gather probe's four shapes "
@@ -1074,6 +1282,217 @@ def main() -> int:
         f"{sum(k <= lib for k, lib in per_shape)} of {len(per_shape)} shapes "
         f"(kernel / library ms: "
         f"{'; '.join(f'{k:.4f} / {lib:.4f}' for k, lib in per_shape)})")
+
+    # --- phase 14: the interactive view ---
+    log("phase 14: the interactive view of the segmented scan: build_lod and "
+        "LOD frames, solve_adaptive_tau and the adaptive and screen-adaptive "
+        "frames, edit strokes with their LOD frames, membership edits, pick, "
+        "then full_table() and inventory()")
+    t_phase = time.perf_counter()
+    session = pipeline.Session.from_points(pts, device=dev)
+    session.segment(MAX_DISTANCE)
+    rcfg = session.config.render
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    view_launches = dict.fromkeys(PATH_KERNELS, 0)
+
+    def counted(fn, needed, what):
+        """``fn()`` and its host-clock ms, with the launch counters zeroed
+        before and read after; each kernel of ``needed`` must have run."""
+        kernels.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        got = kernels.launches()
+        for k in needed:
+            if got[k] <= 0:
+                raise AssertionError(f"{what} launched no {k} kernel")
+        for k in view_launches:
+            view_launches[k] += got[k]
+        return out, ms
+
+    def plain_equal(frames, draw, what):
+        with swapped(kernels, **plain):
+            same = sum(int((img == draw(i)).all())
+                       for i, img in enumerate(frames))
+        if same != len(frames):
+            raise AssertionError(f"{what}: {len(frames) - same} frames "
+                                 "differ with the plain versions")
+        return same
+
+    # (a) the fixed-level LOD
+    first_ms, _ = timed_ms(session.build_lod, 1)
+    warm_ms, warm = timed_ms(session.build_lod, MAIN_PATH_REPS)
+    _, idx, n_kept = session._lod
+    lod_points, lod_cap = int(n_kept), idx.shape[0]
+    frames, lod_ms = [], []
+    for cam in cams:
+        img, ms = counted(lambda: session.render(cam, use_lod=True),
+                          FRAME_KERNELS, "a LOD frame")
+        frames.append(img)
+        lod_ms.append(ms)
+    same = plain_equal(frames,
+                       lambda i: session.render(cams[i], use_lod=True),
+                       "LOD frames")
+    bench_lod = int((octree.lod_mask(session._tree, 7)
+                     & session.cloud.valid).sum())
+    log(f"  build_lod() (level 7): {first_ms:.2f} ms with the octree build, "
+        f"{warm_ms:.2f} ms on the cached tree (median of {MAIN_PATH_REPS} "
+        f"{[round(t, 2) for t in warm]}); {lod_points} points, capacity "
+        f"{lod_cap}")
+    log(f"  LOD frame: median {statistics.median(lod_ms):.2f} ms of "
+        f"{N_FRAMES} {[round(t, 2) for t in lod_ms]}; {same} of {N_FRAMES} "
+        "byte-equal to the plain versions'")
+    log(f"  cross-check, bench.py's cut (every valid point): {bench_lod} "
+        f"points; BENCH_r05.json (TPU v5e): {BENCH_R05['lod_points']}")
+    for stage, ms in build_lod_stages(session, octree, lambda t, live: (
+            octree.lod_mask(t, 7, live=live))).items():
+        log(f"  build_lod stage {stage}: {ms:.3f} ms")
+    log("  build_lod() on the cached tree: "
+        + top_device_ops(session.build_lod))
+    log("  octree.build: " + top_device_ops(
+        lambda: octree.build(session.cloud.pos, session.cloud.valid)))
+    log("  LOD frame: " + top_device_ops(
+        lambda: session.render(cams[0], use_lod=True)))
+    for stage, ms in frame_stages(session, cams[0], splat, session._lod[0],
+                                  lambda: lod_select(session, splat)).items():
+        log(f"  LOD frame stage {stage}: {ms:.3f} ms")
+
+    # (b) the screen-adaptive cuts for the first camera
+    full = session.render(cams[0])
+    px = pipeline._px_scale(cams[0], rcfg)
+    planes = cams[0].frustum_planes(rcfg.width / rcfg.height)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tau = session.solve_adaptive_tau(budget_rows=n // 2, camera=cams[0])
+    solve_ms = (time.perf_counter() - t0) * 1e3
+    log(f"  solve_adaptive_tau(budget_rows={n // 2}): tau {tau} in "
+        f"{solve_ms:.2f} ms; " + top_device_ops(
+            lambda: session.solve_adaptive_tau(budget_rows=n // 2,
+                                               camera=cams[0])))
+    # bench.py's own cut for the cross-check: the ladder's counts without a
+    # frustum over every valid point, and its tau for the same budget
+    ladder = pipeline.Session.TAU_LADDER
+    bench_counts = octree.adaptive_counts(
+        session._tree, cams[0].position, px, ladder,
+        live=session.cloud.valid).cpu().numpy()
+    fits = np.nonzero(bench_counts <= n // 2)[0]
+    bench_tau = ladder[int(fits[0])] if len(fits) else ladder[-1]
+    for cut, t, bench_key, b_tau in (
+            ("adaptive", tau, "adaptive", bench_tau),
+            ("screen-adaptive", 1.0, "screen_adaptive", 1.0)):
+        b_ms, _ = timed_ms(lambda: session.build_lod(
+            camera=cams[0], adaptive_tau_px=t), 1)
+        _, idx, n_kept = session._lod
+        img, _ = counted(lambda: session.render(cams[0], use_lod=True),
+                         FRAME_KERNELS, f"an {cut} frame")
+        plain_equal([img], lambda i: session.render(cams[0], use_lod=True),
+                    f"the {cut} frame")
+        f_ms, f_times = timed_ms(lambda: session.render(cams[0],
+                                                        use_lod=True),
+                                 TIMING_REPS)
+        match = float((img == full).all(axis=-1).mean())
+        bench_pts = int(octree.adaptive_mask(
+            session._tree, cams[0].position, px, tau_px=b_tau,
+            live=session.cloud.valid).sum())
+        log(f"  {cut} (tau {t}): build_lod {b_ms:.2f} ms, {int(n_kept)} "
+            f"points, capacity {idx.shape[0]}; frame median {f_ms:.2f} ms of "
+            f"{TIMING_REPS} {[round(x, 2) for x in f_times]}; pixel match "
+            f"against the full frame {match:.4f}; byte-equal to the plain "
+            "versions'")
+        log(f"  cross-check, bench.py's cut (no frustum, every valid point) "
+            f"at tau {b_tau}: {bench_pts} points; BENCH_r05.json (TPU v5e): "
+            f"{BENCH_R05[bench_key + '_points']} points, pixel match "
+            f"{BENCH_R05[bench_key + '_pixel_match']}"
+            + (f", tau {BENCH_R05['adaptive_tau']}" if cut == "adaptive"
+               else ""))
+        for stage, ms in build_lod_stages(session, octree, lambda tr, live: (
+                octree.adaptive_mask(tr, cams[0].position, px, tau_px=t,
+                                     live=live, frustum=planes))).items():
+            log(f"  {cut} build_lod stage {stage}: {ms:.3f} ms")
+        for stage, ms in frame_stages(session, cams[0], splat,
+                                      session._lod[0],
+                                      lambda: lod_select(session,
+                                                         splat)).items():
+            log(f"  {cut} frame stage {stage}: {ms:.3f} ms")
+        log(f"  {cut} frame: " + top_device_ops(
+            lambda: session.render(cams[0], use_lod=True)))
+        log(f"  {cut} build_lod: " + top_device_ops(
+            lambda: session.build_lod(camera=cams[0], adaptive_tau_px=t)))
+
+    # (c) edit strokes through the cached LOD subset, then membership edits
+    session.build_lod()
+    tree, lod = session._tree, session._lod
+    alive_before = int(session.cloud.alive.sum())
+    stroke_ms, stroke_frames = [], []
+    for c in EDIT_CENTERS:
+        img, ms = counted(lambda: (session.delete_sphere(c, EDIT_RADIUS),
+                                   session.render(cams[0], use_lod=True))[1],
+                          FRAME_KERNELS, "an edit frame")
+        stroke_frames.append(img)
+        stroke_ms.append(ms)
+        plain_equal([img], lambda i: session.render(cams[0], use_lod=True),
+                    "an edit frame")
+    if session._tree is not tree or session._lod is not lod:
+        raise AssertionError("an edit stroke rebuilt the octree or the LOD "
+                             "subset")
+    deleted = alive_before - int(session.cloud.alive.sum())
+    stroke_dev = top_device_ops(lambda: (
+        session.delete_sphere(EDIT_CENTERS[0], EDIT_RADIUS),
+        session.render(cams[0], use_lod=True)))
+    del_ms, _ = timed_ms(lambda: session.delete_sphere(EDIT_CENTERS[0],
+                                                       EDIT_RADIUS),
+                         TIMING_REPS)
+    frame_only, _ = timed_ms(lambda: session.render(cams[0], use_lod=True),
+                             TIMING_REPS)
+    log(f"  edit stroke (delete_sphere r={EDIT_RADIUS} + LOD frame): median "
+        f"{statistics.median(stroke_ms):.2f} ms of {len(EDIT_CENTERS)} "
+        f"{[round(t, 2) for t in stroke_ms]}; {deleted} points deleted; the "
+        f"cached octree and subset kept; every frame byte-equal to the plain "
+        f"versions'; delete_sphere alone {del_ms:.3f} ms, the frame alone "
+        f"{frame_only:.3f} ms (medians of {TIMING_REPS}); a stroke's "
+        + stroke_dev)
+    present = np.flatnonzero(session.table.present.cpu().numpy())
+    pair = tuple(int(i) for i in present[present > 0][:2])
+    done = membership_edits(session, EDIT_TREE, pair)
+    session.camera = cams[0]
+    hit = session.pick(rcfg.width / 2, rcfg.height / 2)
+    log(f"  membership edits {done}; pick at the frame centre: segment "
+        f"{hit[0]}, {hit[1]:.3f} m, hit {hit[2]}")
+    if not session._counts_stale:
+        raise AssertionError("the membership edits left the table fresh")
+    table, ft_ms = counted(session.full_table, ("segmented_cummax",),
+                           "full_table() after the edits")
+    if session._counts_stale or not bool(table.present[done["spawned"]]):
+        raise AssertionError("full_table() did not recompute after the "
+                             "edits")
+    with swapped(kernels, **plain):
+        session._counts_stale = True
+        plain_table = session.full_table()
+    for f in dataclasses.fields(table):
+        if not same_bits(getattr(table, f.name),
+                         getattr(plain_table, f.name)):
+            raise AssertionError(f"full_table() after the edits: {f.name} "
+                                 "differs with the plain versions")
+    inv, inv_ms = counted(session.inventory, ("segmented_cumsum",),
+                          "inventory() after the edits")
+    with swapped(kernels, **plain):
+        differ = same_columns(inv, session.inventory())
+    if differ:
+        raise AssertionError(f"inventory() after the edits differs in "
+                             f"{differ} with the plain versions")
+    log(f"  full_table() after the edits: {ft_ms:.2f} ms, recomputed, "
+        f"identical with the plain versions; inventory(): {inv_ms:.2f} ms, "
+        f"{len(inv['segment'])} trees, columns identical with the plain "
+        "versions")
+    log(f"  launches over the phase: {view_launches}; peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; phase "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    for k in ("dilate", "eye_dome", "segmented_cummax", "segmented_cumsum"):
+        launches[k] += view_launches[k]
+    del session, inv, table, plain_table, frames, stroke_frames, full
 
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(card_line())

@@ -39,6 +39,7 @@ from treee_tpu_torch import pipeline as tpl
 from treee_tpu_torch import segmentation as tsg
 from treee_tpu_torch.io import las as tlas
 from treee_tpu_torch.ops import kernels
+from treee_tpu_torch.ops import octree as toctree
 from treee_tpu_torch.ops.kernels import build
 from treee_tpu_torch.render import Camera
 from treee_tpu_torch.render import splat
@@ -660,3 +661,146 @@ def test_inventory_repeats_on_the_card(dev):
                     np.asarray(a[k], np.float64), np.asarray(c[k], np.float64),
                     rtol=1e-5, atol=1e-6 * np.abs(c[k]).max(initial=1.0),
                     err_msg=k)
+
+
+# ---- the octree, LOD and edits: the card against the CPU ------------------------------
+
+def _octree_clouds():
+    """(pos, valid) on the host: an empty cloud, an all-padding one, one
+    point, and rows that are no multiple of 1024."""
+    rng = np.random.default_rng(11)
+    pts = tlas.synthetic_forest(n_trees=4, points_per_tree=700,
+                                ground_points=1300, seed=4)
+    ragged = np.zeros((len(pts) + 333, 3), np.float32)
+    ragged[:len(pts)] = pts
+    return {
+        "empty": (np.zeros((1024, 3), np.float32), np.zeros(1024, bool)),
+        "all_padding": (rng.uniform(-5, 5, (3000, 3)).astype(np.float32),
+                        np.zeros(3000, bool)),
+        "one_point": (np.array([[1.5, 2.0, -3.0]], np.float32),
+                      np.ones(1, bool)),
+        "ragged": (ragged, np.arange(len(ragged)) < len(pts)),
+    }
+
+
+def _frusta():
+    """Planes that cull nothing, that cull everything, and a partial view."""
+    aspect = 1280 / 720
+    return {
+        "none": None,
+        "keep_all": Camera.orbital(distance=200.0, device="cpu")
+        .frustum_planes(aspect),
+        "cull_all": Camera.orbital(distance=-300.0, device="cpu")
+        .frustum_planes(aspect),
+        "partial": Camera.orbital(distance=12.0, device="cpu")
+        .rotate_orbital(120.0, -80.0).frustum_planes(aspect),
+    }
+
+
+@pytest.mark.parametrize("name", sorted(_octree_clouds()))
+def test_octree_on_the_card_equals_the_cpu(dev, name):
+    """build, lod_mask and adaptive_mask at levels 0 and 10 against every
+    frustum, adaptive_counts, node tables (with overflow) and
+    compact_indices with a capacity below, at and above the count: the
+    card's outputs equal the CPU's bit for bit."""
+    pos, valid = _octree_clouds()[name]
+    trees = [toctree.build(torch.from_numpy(pos).to(d),
+                           torch.from_numpy(valid).to(d))
+             for d in ("cpu", dev)]
+    for f in ("keys", "order", "rank", "inv", "lo", "hi"):
+        assert torch.equal(getattr(trees[1], f).cpu(),
+                           getattr(trees[0], f)), f
+    live = torch.from_numpy(valid & (np.arange(len(valid)) % 5 != 0))
+    cam_pos = torch.tensor([3.0, 20.0, 40.0])
+    for planes in _frusta().values():
+        for level in (0, 10):
+            got = toctree.lod_mask(trees[1], level, 2, live.to(dev), planes)
+            ref = toctree.lod_mask(trees[0], level, 2, live, planes)
+            assert torch.equal(got.cpu(), ref)
+        for tau in (0.75, 2.0, 8.0):
+            got = toctree.adaptive_mask(trees[1], cam_pos, 1086.0, tau,
+                                        live=live.to(dev), frustum=planes)
+            ref = toctree.adaptive_mask(trees[0], cam_pos, 1086.0, tau,
+                                        live=live, frustum=planes)
+            assert torch.equal(got.cpu(), ref)
+        taus = tpl.Session.TAU_LADDER
+        assert torch.equal(
+            toctree.adaptive_counts(trees[1], cam_pos, 1086.0, taus,
+                                    live=live.to(dev), frustum=planes).cpu(),
+            toctree.adaptive_counts(trees[0], cam_pos, 1086.0, taus,
+                                    live=live, frustum=planes))
+    for level in (0, 5, 10):
+        for max_nodes in (1, 7, 4096):
+            got = toctree.node_table(trees[1], level, max_nodes)
+            ref = toctree.node_table(trees[0], level, max_nodes)
+            for f in ("prefix", "start", "count", "n"):
+                assert torch.equal(getattr(got, f).cpu(), getattr(ref, f))
+            for g, r in zip(toctree.node_bounds(got, trees[1], level),
+                            toctree.node_bounds(ref, trees[0], level)):
+                assert torch.equal(g.cpu(), r)
+    mask = toctree.lod_mask(trees[0], 10, live=live)
+    k = int(mask.sum())
+    for cap in sorted({max(k - 3, 1), max(k, 1), k + 1, len(valid) + 9}):
+        got = toctree.compact_indices(mask.to(dev), cap)
+        ref = toctree.compact_indices(mask, cap)
+        assert all(torch.equal(g.cpu(), r) for g, r in zip(got, ref))
+        assert torch.equal(toctree._compact_indices_scatter(mask.to(dev),
+                                                            cap)[1].cpu(),
+                           ref[1])
+
+
+def test_interactive_session_runs_on_the_card(dev):
+    """Every new Session entry point, given host inputs (a CPU camera, a
+    CPU prop, numpy centres), computes on the card: its state stays there,
+    each frame launches both frame kernels, the recomputed table launches
+    the cummax; and its results equal the CPU session's from the same ids
+    (frames within 1 per channel, pick's distance within rtol 1e-5)."""
+    pts = tlas.synthetic_forest(n_trees=16, points_per_tree=2000,
+                                ground_points=8000, seed=1)
+    cam = Camera.orbital(distance=60.0, device="cpu").rotate_orbital(40.0,
+                                                                     -60.0)
+    ref = tpl.Session.from_points(pts, SMALL_CFG, device="cpu")
+    ref.segment(0.75)
+    out = []
+    for device in ("cpu", dev):
+        s = tpl.Session.from_points(pts, SMALL_CFG, device=device)
+        s.cloud = s.cloud.replace(segment=ref.cloud.segment.to(device))
+        s.characteristics()
+        s.camera = cam
+        prop = torch.linspace(0.0, 1.0, s.cloud.capacity)
+        kernels.reset_launches()
+        s.build_lod()
+        frames = [s.render(cam, use_lod=True),
+                  s.render(cam, prop=prop, use_lod=True)]
+        taus = (s.solve_adaptive_tau(budget_rows=20_000, camera=cam),
+                s.solve_adaptive_tau(match_floor=0.9, camera=cam))
+        s.build_lod(camera=cam, adaptive_tau_px=taus[0])
+        frames.append(s.render(cam, use_lod=True))
+        s.build_lod(camera=cam, level=9)
+        center = np.array([4.0, 6.0, 4.0], np.float32)
+        s.delete_sphere(center, radius=2.0)
+        frames.append(s.render(cam, use_lod=True))
+        nid = s.spawn(center + [0.0, -3.0, 0.0], radius=1.5)
+        s.draw_sphere(center, nid, radius=2.5, include_deleted=True)
+        s.combine(1, 2)
+        s.reclassify_sphere(center, 2, nid, radius=1.0)
+        hit = s.pick(160.0, 120.0)
+        table = s.full_table()
+        launches = kernels.launches()
+        state = [s.cloud.pos, s.cloud.segment, s.cloud.classification,
+                 s.cloud.valid, *s._lod, s._tree.keys, s._tree.order,
+                 s._tree.lo, table.count, table.ground_sep]
+        assert all(t.device.type == s.device.type for t in state)
+        out.append(dict(frames=frames, taus=taus, nid=nid, hit=hit,
+                        seg=s.cloud.segment.cpu(), launches=launches))
+    cpu, card = out
+    assert sum(cpu["launches"].values()) == 0
+    assert card["launches"]["dilate"] >= 4
+    assert card["launches"]["eye_dome"] >= 4
+    assert card["launches"]["segmented_cummax"] > 0
+    assert (cpu["taus"], cpu["nid"]) == (card["taus"], card["nid"])
+    assert torch.equal(cpu["seg"], card["seg"])
+    assert (cpu["hit"][0], cpu["hit"][2]) == (card["hit"][0], card["hit"][2])
+    np.testing.assert_allclose(card["hit"][1], cpu["hit"][1], rtol=1e-5)
+    for a, b in zip(cpu["frames"], card["frames"]):
+        assert np.abs(a.astype(int) - b.astype(int)).max() <= 1

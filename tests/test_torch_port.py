@@ -37,7 +37,8 @@ spec = importlib.util.spec_from_file_location("chip_smoke", "chip_smoke.py")
 spec.loader.exec_module(importlib.util.module_from_spec(spec))
 new = set(sys.modules) - before
 bad = sorted(m for m in new if m.split(".")[0] in ("jax", "jaxlib", "flax", "treee_tpu"))
-print(len([m for m in new if m.startswith("treee_tpu_torch")]), bad)
+print(" ".join(sorted(m for m in new if m.startswith("treee_tpu_torch"))))
+print(bad)
 """
 
 
@@ -47,8 +48,14 @@ def test_port_and_chip_smoke_import_no_jax():
     out = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=REPO,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    n_mods, bad = out.stdout.split(maxsplit=1)
-    assert int(n_mods) >= 28
+    mods, bad = out.stdout.splitlines()
+    mods = set(mods.split())
+    assert len(mods) >= 29
+    # the interactive view's modules among them
+    assert {"treee_tpu_torch.interactive", "treee_tpu_torch.ops.octree",
+            "treee_tpu_torch.ops.morton", "treee_tpu_torch.cloud",
+            "treee_tpu_torch.characteristics",
+            "treee_tpu_torch.pipeline"} <= mods
     assert bad.strip() == "[]"
 
 
@@ -106,6 +113,7 @@ def _device_defaults():
     fns = {"Session": tpl.Session.__init__,
            "Session.from_points": tpl.Session.from_points,
            "PointCloud.from_numpy": tcloud.PointCloud.from_numpy,
+           "PointCloud.empty": tcloud.PointCloud.empty,
            "SegmentTable.from_numpy": tch.SegmentTable.from_numpy,
            "Camera.orbital": Camera.orbital,
            "Camera.from_numpy": Camera.from_numpy,

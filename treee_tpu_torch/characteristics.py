@@ -12,7 +12,9 @@ All segments at once, scatter-free:
 - ground/crown separators are first-index searches over the [S, MS] area
   table, and points are classified against 16+16-bit packed separators.
 
-Curvature, normals and ``segment_properties`` are not ported yet.
+``update_separators_from_classes`` re-derives one segment's separators from
+its edited classes.  Curvature, normals and ``segment_properties`` are not
+ported yet.
 """
 
 from __future__ import annotations
@@ -257,3 +259,59 @@ def compute_segments(
         y < gs, CLASS_GROUND, torch.where(y < cs, CLASS_TRUNK, CLASS_CROWN))
     classification = torch.where(live0, classification, CLASS_GROUND)
     return table, classification.to(torch.int32)
+
+
+def update_separators_from_classes(
+    pos: torch.Tensor,
+    segment: torch.Tensor,
+    valid: torch.Tensor,
+    classification: torch.Tensor,
+    table: SegmentTable,
+    segment_id: int,
+) -> SegmentTable:
+    """One segment's separators re-derived from its EDITED classes.
+
+    After a brush stroke that reclassifies points, the reference takes
+    ground_sep from the lowest Trunk point, crown_sep from the lowest Crown
+    point, the trunk and crown heights from the class extents, and the y
+    box from the members (SegmentData::changed); re-running the area
+    profile would undo the user's edit.  Returns a new table; only row
+    ``segment_id`` changes.
+    """
+    member = valid & (segment == segment_id)
+    y = pos[:, 1]
+    sid = int(segment_id)
+
+    def extent(m):
+        has = m.any()
+        mn = torch.where(m, y, INF).amin()
+        mx = torch.where(m, y, -INF).amax()
+        return has, torch.where(has, mn, 0.0), torch.where(has, mx, 0.0)
+
+    has_t, t_min, t_max = extent(member & (classification == CLASS_TRUNK))
+    has_c, c_min, c_max = extent(member & (classification == CLASS_CROWN))
+    has_m, m_min, m_max = extent(member)
+    count = member.sum(dtype=torch.int32)
+
+    def row(col: torch.Tensor, value, index=sid) -> torch.Tensor:
+        out = col.clone()
+        out[index] = value
+        return out
+
+    return dataclasses.replace(
+        table,
+        ground_sep=row(table.ground_sep,
+                       torch.where(has_t, t_min, table.ground_sep[sid])),
+        crown_sep=row(table.crown_sep,
+                      torch.where(has_c, c_min, table.crown_sep[sid])),
+        trunk_height=row(table.trunk_height,
+                         torch.where(has_t, t_max - t_min, 0.0)),
+        crown_height=row(table.crown_height,
+                         torch.where(has_c, c_max - c_min, 0.0)),
+        count=row(table.count, count),
+        present=row(table.present, count > 0),
+        lo=row(table.lo, torch.where(has_m, m_min, table.lo[sid, 1]),
+               (sid, 1)),
+        hi=row(table.hi, torch.where(has_m, m_max, table.hi[sid, 1]),
+               (sid, 1)),
+    )

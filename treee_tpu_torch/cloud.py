@@ -23,6 +23,26 @@ CLASS_GROUND = 0
 CLASS_TRUNK = 1
 CLASS_CROWN = 2
 
+# class filters for hull, RBV and export selection (IncludeMode)
+INCLUDE_MODES = ("all", "crown", "trunk", "ground", "tree", "nocrown")
+
+
+def include_mask(classification: torch.Tensor, mode: str) -> torch.Tensor:
+    """bool[N] class filter for ``mode``, one of :data:`INCLUDE_MODES`."""
+    if mode == "all":
+        return torch.ones_like(classification, dtype=torch.bool)
+    if mode == "crown":
+        return classification == CLASS_CROWN
+    if mode == "trunk":
+        return classification == CLASS_TRUNK
+    if mode == "ground":
+        return classification == CLASS_GROUND
+    if mode == "tree":
+        return (classification == CLASS_CROWN) | (classification == CLASS_TRUNK)
+    if mode == "nocrown":
+        return (classification == CLASS_TRUNK) | (classification == CLASS_GROUND)
+    raise ValueError(f"unknown include mode {mode!r} (one of {INCLUDE_MODES})")
+
 
 @dataclasses.dataclass
 class PointCloud:
@@ -44,6 +64,37 @@ class PointCloud:
 
     def replace(self, **kw) -> "PointCloud":
         return dataclasses.replace(self, **kw)
+
+    @classmethod
+    def empty(cls, capacity: int,
+              device: str | torch.device = DEFAULT_DEVICE) -> "PointCloud":
+        """``capacity`` padding rows and no point."""
+        device = resolve(device)
+        return cls(
+            pos=torch.zeros((capacity, 3), dtype=torch.float32, device=device),
+            segment=torch.zeros(capacity, dtype=torch.int32, device=device),
+            classification=torch.zeros(capacity, dtype=torch.int32,
+                                       device=device),
+            valid=torch.zeros(capacity, dtype=torch.bool, device=device))
+
+    @property
+    def alive(self) -> torch.Tensor:
+        """Valid and not deleted."""
+        return self.valid & (self.segment != DELETED_SEGMENT)
+
+    def masked_pos(self, fill: float = float("inf")) -> torch.Tensor:
+        """Positions with the padding rows replaced by ``fill``."""
+        return torch.where(self.valid[:, None], self.pos, fill)
+
+    def bounds(self) -> tuple[torch.Tensor, torch.Tensor]:
+        """(min, max) f32[3] over the alive points; zeros if none."""
+        alive = self.alive
+        m = alive[:, None]
+        lo = torch.where(m, self.pos, 3.0e38).amin(dim=0)
+        hi = torch.where(m, self.pos, -3.0e38).amax(dim=0)
+        any_alive = alive.any()
+        return (torch.where(any_alive, lo, 0.0),
+                torch.where(any_alive, hi, 0.0))
 
     @classmethod
     def from_numpy(

@@ -44,3 +44,34 @@ def encode_positions(pos: torch.Tensor, lo: torch.Tensor,
                      hi: torch.Tensor) -> torch.Tensor:
     """f32[N,3] positions -> int32[N] Morton keys over the [lo, hi] bounding cube."""
     return encode(quantize(pos, lo, hi))
+
+
+def _compact3(x: torch.Tensor) -> torch.Tensor:
+    """Inverse of :func:`_spread3`: gather every 3rd bit of ``x`` (int32)."""
+    x = x & 0x09249249
+    x = (x | (x >> 2)) & 0x030C30C3
+    x = (x | (x >> 4)) & 0x0300F00F
+    x = (x | (x >> 8)) & 0x030000FF
+    x = (x | (x >> 16)) & 0x000003FF
+    return x
+
+
+def decode(key: torch.Tensor) -> torch.Tensor:
+    """Recover int32[..., 3] grid coords from int32 Morton keys.
+
+    Shifts are arithmetic on int32, where the JAX package shifts the uint32
+    image logically.  The two differ only in the top two bits of ``key >> 1``
+    and ``key >> 2``, and the first mask of :func:`_compact3` (highest bit
+    27) clears those, so every int32 key decodes as in the JAX package: the
+    keys below 2^30, and the wrapped ``INVALID_KEY << s`` of a padded node
+    table too."""
+    return torch.stack([_compact3(key), _compact3(key >> 1),
+                        _compact3(key >> 2)], dim=-1)
+
+
+def sort_by_key(keys: torch.Tensor, *values: torch.Tensor
+                ) -> tuple[torch.Tensor, ...]:
+    """STABLE sort of ``values`` by ``keys`` (``jax.lax.sort``'s default):
+    equal keys keep their input order, which the octree's ranks rely on."""
+    keys_sorted, perm = torch.sort(keys, stable=True)
+    return (keys_sorted,) + tuple(v[perm] for v in values)

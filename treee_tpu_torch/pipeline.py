@@ -1,9 +1,10 @@
 """The main path of the port: segmentation + characteristics, the full-cloud
-frame, the whole-forest inventory, and the part of ``Session`` that drives
+frame, the octree LOD and screen-adaptive frames, the sphere edits with ray
+picking, the whole-forest inventory, and the part of ``Session`` that drives
 them (``treee_tpu/pipeline.py``).
 
-LOD, edits, the focused view, ingest previews, checkpoints, exports and the
-forest summary are not ported yet.
+The focused view, rasters, ingest previews, checkpoints, exports, the forest
+summary and the mesh mode are not ported yet.
 """
 
 from __future__ import annotations
@@ -14,11 +15,13 @@ import numpy as np
 import torch
 
 from . import characteristics as ch
+from . import interactive as edit
 from . import rbv as rbv_mod
 from . import trunk_axis
 from .cloud import CLASS_TRUNK, DELETED_SEGMENT, PointCloud
 from .config import Config, DEFAULT_CONFIG, RenderConfig
 from .device import DEFAULT_DEVICE, resolve
+from .ops import octree as octree_mod
 from .render import Camera, palettes, splat
 from .segmentation import SegmentationResult, segment_points
 
@@ -47,6 +50,31 @@ def _height_preview(pos: torch.Tensor, valid: torch.Tensor, cam: Camera,
     yhi = torch.where(any_v, torch.where(valid, y, -big).amax(), 1.0)
     prop = torch.clamp((y - ylo) / torch.clamp(yhi - ylo, min=1e-6), 0.0, 1.0)
     return splat.render_frame(pos, prop, valid, cam, palette, cfg)
+
+
+def _lod_frame(pos_c: torch.Tensor, idx: torch.Tensor, count: torch.Tensor,
+               cloud: PointCloud, cam: Camera, palette: torch.Tensor,
+               cfg: RenderConfig, prop: torch.Tensor | None = None
+               ) -> torch.Tensor:
+    """One frame of the LOD subset, with the cloud's current state read
+    through the cached indices.
+
+    Edits between frames only rewrite ``cloud.segment`` and ``cloud.valid``;
+    a frame re-reads them with subset-sized gathers, so an edit needs no
+    compaction of the full cloud.  ``prop`` (f32[N], original order) colours
+    the points in place of their segment ids.
+    """
+    seg_c = cloud.segment[idx]
+    slot = torch.arange(idx.shape[0], dtype=torch.int32, device=idx.device)
+    mask_c = cloud.valid[idx] & (seg_c != DELETED_SEGMENT) & (slot < count)
+    prop_c = splat.prop_from_segment(seg_c) if prop is None else prop[idx]
+    return splat.render_frame(pos_c, prop_c, mask_c, cam, palette, cfg)
+
+
+def _px_scale(cam: Camera, cfg: RenderConfig) -> np.float32:
+    """f_proj * height/2 in f32: world size to pixels at distance 1."""
+    p11 = cam.projection_entries(cfg.width / cfg.height)[1, 1]
+    return np.float32(p11) * np.float32(cfg.height / 2.0)
 
 
 def _u8(img: torch.Tensor) -> np.ndarray:
@@ -81,6 +109,13 @@ class Session:
         self.camera = Camera.orbital(device=self.device)
         self.palette = palettes.get(config.render.palette, device=self.device)
         self.max_distance = config.segmentation.max_distance
+        # set by membership edits; cleared when the table is recomputed
+        self._counts_stale = False
+        self._next_id: int | None = None    # host mirror of the id counter
+        # the octree of the cloud's positions, kept across edits (they never
+        # move a point), and the LOD subset (pos_c, idx, count)
+        self._tree: octree_mod.Octree | None = None
+        self._lod: tuple | None = None
 
     @classmethod
     def from_points(cls, pos: np.ndarray, config: Config = DEFAULT_CONFIG,
@@ -131,6 +166,9 @@ class Session:
                                         classification=classification)
         self.table = table
         self._bbox_full = False
+        self._counts_stale = False
+        self._next_id = None
+        self._lod = None    # the subset's colours and membership follow ids
         if bool(res.occupied_overflow):
             logging.getLogger(__name__).warning(
                 "segmentation occupied-cell compaction overflowed "
@@ -140,22 +178,118 @@ class Session:
             )
         return res
 
+    def _lod_tree(self) -> octree_mod.Octree:
+        """The cached octree, built at first use over ALL valid points,
+        deleted ones included: a restored point must find its place."""
+        if self._tree is None or self._tree.capacity != self.cloud.capacity:
+            self._tree = octree_mod.build(self.cloud.pos, self.cloud.valid)
+        return self._tree
+
+    def build_lod(self, level: int = 7, points_per_node: int = 1,
+                  capacity: int | None = None,
+                  camera: Camera | None = None,
+                  adaptive_tau_px: float | None = None) -> None:
+        """The LOD subset for ``render(use_lod=True)``, kept as
+        ORIGINAL-ORDER INDICES padded to a snug capacity.
+
+        Positions are gathered once here; a frame re-reads the segments and
+        the deletion mask through the indices, so an edit needs no
+        rebuild.  The octree is cached across edits.  ``camera`` culls the
+        nodes outside its view; with ``adaptive_tau_px`` the subset is the
+        screen-error cut for that camera in place of the fixed ``level``.
+        A deleted representative is masked out per frame; its node hands
+        over to a live sibling at the next rebuild.  ``capacity`` defaults
+        to ``snug_capacity`` of the subset's true size (one host sync).
+        """
+        if adaptive_tau_px is not None and camera is None:
+            raise ValueError("adaptive_tau_px requires a camera")
+        cloud, rcfg = self.cloud, self.config.render
+        mask = cloud.alive
+        tree = self._lod_tree()
+        frustum = None
+        if camera is not None:
+            frustum = camera.frustum_planes(rcfg.width / rcfg.height)
+        if adaptive_tau_px is not None:
+            lod = octree_mod.adaptive_mask(
+                tree, camera.position, _px_scale(camera, rcfg),
+                tau_px=adaptive_tau_px, live=mask, frustum=frustum)
+        else:
+            lod = octree_mod.lod_mask(tree, level, points_per_node, live=mask,
+                                      frustum=frustum)
+        cap = capacity if capacity is not None else min(
+            cloud.capacity, octree_mod.snug_capacity(int(lod.sum())))
+        count, idx = octree_mod.compact_indices(lod, cap)
+        self._lod = (cloud.pos[idx], idx, count)
+
+    #: candidate screen-error cuts for the auto-tau solver, finest first
+    TAU_LADDER = (0.75, 1.0, 1.25, 1.5, 2.0, 2.5, 3.0, 4.0, 5.0, 6.0, 8.0)
+
+    def solve_adaptive_tau(self, budget_rows: int | None = None,
+                           match_floor: float | None = None,
+                           camera: Camera | None = None) -> float:
+        """The screen-error tau for ``build_lod(adaptive_tau_px=...)``.
+
+        - ``budget_rows``: the smallest ladder tau whose cut fits the row
+          budget, from one pass over the ladder (``adaptive_counts``);
+          the coarsest tau when none fits.
+        - ``match_floor``: the largest ladder tau whose frame matches at
+          least this share of the full frame's pixels, by bisecting the
+          ladder with real frames; the finest tau when none does.  The
+          session's LOD subset is left as it was.
+        """
+        if (budget_rows is None) == (match_floor is None):
+            raise ValueError("pass exactly one of budget_rows / match_floor")
+        cam = camera if camera is not None else self.camera
+        rcfg = self.config.render
+        if budget_rows is not None:
+            counts = octree_mod.adaptive_counts(
+                self._lod_tree(), cam.position, _px_scale(cam, rcfg),
+                self.TAU_LADDER, live=self.cloud.alive,
+                frustum=cam.frustum_planes(rcfg.width / rcfg.height))
+            fits = np.nonzero(counts.cpu().numpy() <= budget_rows)[0]
+            return (self.TAU_LADDER[int(fits[0])] if len(fits)
+                    else self.TAU_LADDER[-1])
+        full = self.render(camera=cam)
+        lod_state = self._lod
+        lo_i, hi_i = 0, len(self.TAU_LADDER) - 1
+        best = self.TAU_LADDER[0]
+        while lo_i <= hi_i:
+            mid = (lo_i + hi_i) // 2
+            self.build_lod(camera=cam, adaptive_tau_px=self.TAU_LADDER[mid])
+            img = self.render(camera=cam, use_lod=True)
+            if float((img == full).all(axis=-1).mean()) >= match_floor:
+                best = self.TAU_LADDER[mid]   # good enough: try coarser
+                lo_i = mid + 1
+            else:
+                hi_i = mid - 1
+        self._lod = lod_state
+        return best
+
     def render(self, camera: Camera | None = None,
                prop: torch.Tensor | None = None, show_deleted: bool = False,
+               use_lod: bool = False,
                palette: torch.Tensor | None = None) -> np.ndarray:
-        """Full-cloud frame, u8[H,W,3]: segment-coloured unless ``prop``
-        (f32[N] in [0,1]) is given; deleted points (segment 0) hidden unless
-        ``show_deleted``."""
+        """Frame, u8[H,W,3]: segment-coloured unless ``prop`` (f32[N] in
+        [0,1]) is given; deleted points (segment 0) hidden unless
+        ``show_deleted``.  ``use_lod`` draws the LOD subset (built at level
+        7 if absent); with ``show_deleted`` the full cloud is drawn, since
+        the subset leaves deleted points out."""
         cam = camera if camera is not None else self.camera
-        pal = palette if palette is not None else self.palette
+        pal = (palette if palette is not None else self.palette).to(self.device)
         cloud = self.cloud
+        if prop is not None:
+            prop = prop.to(self.device)
+        if use_lod and not show_deleted:
+            if self._lod is None:
+                self.build_lod()
+            pos_c, idx, count = self._lod
+            return _u8(_lod_frame(pos_c, idx, count, cloud, cam, pal,
+                                  self.config.render, prop))
         if prop is None:
             prop = splat.prop_from_segment(cloud.segment)
-        mask = cloud.valid
-        if not show_deleted:
-            mask = mask & (cloud.segment != DELETED_SEGMENT)
-        img = splat.render_frame(cloud.pos, prop.to(self.device), mask, cam,
-                                 pal.to(self.device), self.config.render)
+        mask = cloud.valid if show_deleted else cloud.alive
+        img = splat.render_frame(cloud.pos, prop, mask, cam, pal,
+                                 self.config.render)
         return _u8(img)
 
     def characteristics(self) -> ch.SegmentTable:
@@ -171,13 +305,16 @@ class Session:
             live, classification, cloud.classification))
         self.table = table
         self._bbox_full = True
+        self._counts_stale = False
         return table
 
     def full_table(self) -> ch.SegmentTable:
         """The table with real x/z bounds: ``segment()`` keeps zero
         placeholders there, so this recomputes the characteristics first
-        when needed (calculations.rs:136-147)."""
-        if self.table is None or not self._bbox_full:
+        when needed (calculations.rs:136-147).  After a membership edit
+        (spawn, combine, delete, draw) it recomputes too: the table's rows
+        would describe the forest before the edit."""
+        if self.table is None or not self._bbox_full or self._counts_stale:
             self.characteristics()
         return self.table
 
@@ -250,3 +387,88 @@ class Session:
             out[name] = (getattr(tr, name).cpu().numpy()[ids]
                          .astype(np.float64))
         return out
+
+    # ---- edits -------------------------------------------------------------
+
+    def _alloc_id(self) -> int:
+        if self._next_id is None:
+            seg = self.cloud.segment
+            self._next_id = int(seg.max()) + 1 if seg.numel() else 1
+        nid = self._next_id
+        self._next_id += 1
+        return nid
+
+    def _mark_edited(self) -> None:
+        """Segment membership changed: the table's rows no longer describe
+        the cloud, so ``full_table()`` must recompute.  (The focused view's
+        caches, which slice 6 adds, and the height-above-ground cache,
+        which slice 7 adds, are cleared here too once they exist.)"""
+        self._counts_stale = True
+
+    def _radius(self, radius) -> float:
+        return (radius if radius is not None
+                else self.config.interactive.draw_radius)
+
+    def delete_sphere(self, center, radius=None) -> None:
+        """Delete every alive point within ``radius`` of ``center``."""
+        self.cloud = edit.remove_points(self.cloud, center,
+                                        self._radius(radius), DELETED_SEGMENT)
+        self._mark_edited()
+
+    def draw_sphere(self, center, target: int, radius=None,
+                    include_deleted: bool = False) -> None:
+        """Move every alive point in the sphere to segment ``target``, and
+        the deleted ones too with ``include_deleted``."""
+        r = self._radius(radius)
+        self.cloud = edit.remove_points(self.cloud, center, r, target)
+        if include_deleted:
+            self.cloud = edit.restore_deleted(self.cloud, center, r, target)
+        self._mark_edited()
+
+    def reclassify_sphere(self, center, classification: int, segment: int,
+                          radius=None) -> None:
+        """Reclassify the segment's points in the sphere, then re-derive the
+        segment's separators from its classes, as the reference does after
+        every stroke (mod.rs:182-221)."""
+        self.cloud = edit.change_classification(
+            self.cloud, center, self._radius(radius), classification, segment)
+        if self.table is not None:
+            self.update_separators_from_classes(segment)
+
+    def update_separators_from_classes(self, segment_id: int) -> None:
+        """Refresh one segment's separators and heights from its (edited)
+        classes (SegmentData::changed, mod.rs:199-221)."""
+        if self.table is None:
+            self.characteristics()
+            return
+        cloud = self.cloud
+        self.table = ch.update_separators_from_classes(
+            cloud.pos, cloud.segment, cloud.valid, cloud.classification,
+            self.table, segment_id)
+
+    def combine(self, a: int, b: int) -> None:
+        """Merge segment ``a`` into ``b``."""
+        self.cloud = edit.combine_segments(self.cloud, a, b)
+        self._mark_edited()
+
+    def spawn(self, center, radius=None) -> int:
+        """A new segment of the alive points in the sphere; returns its id."""
+        nid = self._alloc_id()
+        self.cloud = edit.spawn_segment(self.cloud, center,
+                                        self._radius(radius), nid)
+        self._mark_edited()
+        return nid
+
+    def pick(self, pixel_x: float, pixel_y: float,
+             include_deleted: bool = False) -> tuple[int, float, bool]:
+        """Ray-pick through a pixel of the session's camera -> (segment id,
+        distance along the ray, hit).  ``include_deleted`` makes deleted
+        points targetable (the reference's show_deleted brush)."""
+        rcfg = self.config.render
+        cam = self.camera
+        direction = cam.ray_direction(pixel_x, pixel_y, rcfg.width,
+                                      rcfg.height)
+        seg, dist, found = edit.pick(self.cloud, cam.position, direction,
+                                     rcfg.point_size,
+                                     include_deleted=include_deleted)
+        return int(seg), float(dist), bool(found)
