@@ -74,6 +74,29 @@ Phases, each of which raises on failure:
    identical to the plain run.  Times of each call and of its stages, and
    ``BENCH_r05.json``'s counts beside the port's as a cross-check.
 
+15. The focused view of the segmented 15M scan's largest tree, the counters
+   zeroed before and read after each call: ``Session.properties()`` (it
+   launches ``segmented_cummax`` and equals the plain run bit for bit);
+   ``curvature`` uncached and cached and ``normals`` (a fresh k-NN repeats
+   them bit for bit; the port's CPU run on the same compacted rows gives
+   the same neighbours and curvatures and normals within FOCUS_ATOL);
+   ``render_focus`` for the 5 displays over the 8 orbit cameras and one
+   frame with all three overlays under each axis algorithm and RBV method,
+   each launching both frame kernels (and the cummax for expansion and
+   height) and byte-equal to the plain versions'; ``split_rbv`` +
+   ``traits`` of the tree against its ``inventory()`` row;
+   ``segment_coords``; a ``delete_sphere`` through the tree, after which
+   ``curvature`` recomputes; then the grid path: the tree combined with its
+   nearest trees past ``brute_force_max`` points, ``curvature`` through
+   the grid hash against the brute force on the same members (time, the
+   share of points with the same neighbours, the largest curvature
+   difference) and a second call from the cache.  Times of each call and
+   stage, ``torch.profiler``'s top device ops, the peak memory.
+
+Phase 12 also holds the small scene's focused view card against CPU:
+eigen, both k-NNs, properties, curvature, normals, the axes, RBVs, hull
+candidates and frames.
+
 The last lines are the card's name and power limit, a JSON object of
 per-kernel results and the JSON result line ``{"ok": true, "device":
 {...}}``.
@@ -169,10 +192,33 @@ SMALL_EDIT_TREE = (-4.0, 0.0, -4.0)
 BENCH_R05 = {"lod_points": 51_934, "adaptive_tau": 2.0,
              "adaptive_points": 7_098_581, "adaptive_pixel_match": 0.9888,
              "screen_adaptive_points": 12_913_000,
-             "screen_adaptive_pixel_match": 0.9999}
+             "screen_adaptive_pixel_match": 0.9999,
+             "curvature_points": 39_102, "curvature_grid": False}
 # pick's distance, card against CPU: each device normalises its ray with
 # its own vector_norm, which may differ in the last bit
 PICK_RTOL = 1e-5
+# the focused view (phase 15): one frame of all three overlays under each
+# axis algorithm and RBV method
+FOCUS_OVERLAYS = tuple(dict(show_hull=True, show_rbv=True, show_axis=True,
+                            axis_algo=a, rbv_method=m)
+                       for a in ("average", "lowhigh") for m in ("max", "mean"))
+# card against CPU in the focused view: the 31 neighbours' covariances sum
+# in another order on each device and CUDA's acos and cos may differ from
+# the CPU's in the last bits, so curvature and normals agree within
+# FOCUS_ATOL on at least FOCUS_MIN_SHARE of the members (an ill-conditioned
+# neighbourhood's normal may turn further); the k-NN, heights and hull
+# candidates are elementwise f32 arithmetic and must be bit-equal; an
+# RBV grid may differ in RBV_EDGE_CELLS cells, where CUDA's atan2 moves a
+# point across a sector edge
+FOCUS_ATOL = 1e-4
+FOCUS_MIN_SHARE = 0.99
+RBV_EDGE_CELLS = 2
+# one tree's traits against its inventory row (tests/test_analytics.py:163)
+TRAITS_RTOL, TRAITS_ATOL = 2e-3, 1e-5
+# the grid path: the k-NN cell size that Session.curvature uses
+GRID_CELL = 0.5
+# the focus camera's distance in front of the tree
+FOCUS_DISTANCE = 30.0
 
 
 def log(*args) -> None:
@@ -873,6 +919,260 @@ def interactive_card_vs_cpu(pts, cfg, segment, cam, pipeline, octree,
         f"{PICK_RTOL}")
 
 
+def launch_counter(kernels, totals: dict):
+    """``counted(fn, needed, what)``: ``fn()`` and its host-clock ms, with
+    the launch counters zeroed before and read after (and added to
+    ``totals``); each kernel of ``needed`` must have run."""
+    def counted(fn, needed, what):
+        kernels.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        got = kernels.launches()
+        for k in needed:
+            if got[k] <= 0:
+                raise AssertionError(f"{what} launched no {k} kernel")
+        for k in totals:
+            totals[k] += got[k]
+        return out, ms
+    return counted
+
+
+def share_close(got, ref, atol: float) -> tuple[float, float]:
+    """(share of rows within ``atol``, largest difference) of two tensors
+    whose rows are compared by their largest element difference."""
+    d = (got.double().cpu() - ref.double().cpu()).abs()
+    if d.dim() > 1:
+        d = d.amax(dim=1)
+    if not d.numel():
+        return 1.0, 0.0
+    return float((d <= atol).double().mean()), float(d.max())
+
+
+def same_neighbours(got, ref) -> tuple[int, int]:
+    """(rows whose k-NN index rows differ, of those, rows where the two
+    distance rows do not both hold a tie within 4 ulps) for (idx, dist)
+    pairs from two runs; a row may differ only at such a tie."""
+    (gi, gd), (ri, rd) = [(i.cpu(), d.cpu()) for i, d in (got, ref)]
+    rows = torch.nonzero((gi != ri).any(dim=1)).flatten()
+    bad = 0
+    for r in rows.tolist():
+        d = torch.sort(torch.cat([gd[r], rd[r]])).values.double()
+        gaps = torch.diff(d[d < 3e38])
+        if not gaps.numel() or float(gaps.min()) > 4 * 2.0**-23 * float(d.max()):
+            bad += 1
+    return len(rows), bad
+
+
+def rbv_cells_apart(got, ref) -> int:
+    """Cells of two RBV distance grids that differ by more than 1e-5 of the
+    grid's largest distance."""
+    scale = max(float(ref.distances.abs().max()), 1e-6)
+    return int(((got.distances.cpu() - ref.distances.cpu()).abs()
+                > 1e-5 * scale).sum())
+
+
+def focus_card_vs_cpu(pts, cfg, segment, cam, pipeline, dev) -> None:
+    """The small scene's focused view on the card and on the CPU from the
+    same ids: eigen, both k-NNs (bit-equal), ``properties`` (heights
+    bit-equal), curvature and normals (FOCUS_ATOL), both axes, the RBVs
+    (RBV_EDGE_CELLS), the hull's candidates (equal) and the five displays'
+    frames and an overlay frame (within 1 per channel)."""
+    from treee_tpu_torch import hull3d, rbv, trunk_axis
+    from treee_tpu_torch.ops import eigen, neighbors
+    sessions = []
+    for d in ("cpu", dev):
+        s = pipeline.Session.from_points(pts, cfg, device=d)
+        s.cloud = s.cloud.replace(segment=segment.to(d))
+        s.characteristics()
+        s.camera = cam.to(d)
+        sessions.append(s)
+    cpu, gpu = sessions
+    counts = cpu.table.count.numpy().astype(np.int64)
+    counts[0] = 0
+    sid = int(np.argmax(counts))
+    notes = []
+
+    def both(fn):
+        return [fn(s.cloud, s.device) for s in sessions]
+
+    rng = np.random.default_rng(5)
+    a = rng.normal(size=(4096, 3, 3)).astype(np.float32)
+    mats = torch.from_numpy(np.concatenate([
+        a @ a.transpose(0, 2, 1),
+        np.einsum("ni,ij->nij", np.abs(a[:, 0]), np.eye(3, dtype=np.float32)),
+        a[:, :, :1] @ a[:, :, :1].transpose(0, 2, 1)]))
+    scale = mats.abs().amax(dim=(1, 2))
+    ev_c, ev_g = eigen.eigvals_sym3(mats), eigen.eigvals_sym3(mats.to(dev))
+    if not torch.equal(ev_g[4096:8192].cpu(), ev_c[4096:8192]):
+        raise AssertionError("eigen's diagonal branch: card and CPU differ")
+    if ((ev_g.cpu() - ev_c).abs().amax(dim=1) > 5e-4 * scale).any():
+        raise AssertionError("eigenvalues: card and CPU differ")
+    nv = share_close(eigen.smallest_eigenvector(mats.to(dev)),
+                     eigen.smallest_eigenvector(mats), FOCUS_ATOL)
+    notes.append(f"eigen: diagonal branch bit-equal, eigenvalues within "
+                 f"5e-4 of the scale, normals within {FOCUS_ATOL} on "
+                 f"{nv[0]:.4f}")
+
+    member = [c.valid & (c.segment == sid) for c in (cpu.cloud, gpu.cloud)]
+    rows = torch.nonzero(member[0]).flatten()
+    for what, fn in (("knn_bruteforce", neighbors.knn_bruteforce),
+                     ("knn_grid", lambda p, v: neighbors.knn_grid(
+                         p, v, GRID_CELL))):
+        ref = fn(cpu.cloud.pos[rows], torch.ones(len(rows), dtype=torch.bool))
+        got = fn(gpu.cloud.pos[rows.to(dev)],
+                 torch.ones(len(rows), dtype=torch.bool, device=dev))
+        if not all(torch.equal(g.cpu(), r) for g, r in zip(got, ref)):
+            raise AssertionError(f"{what}: the card and the CPU differ")
+    notes.append(f"k-NN of the {len(rows)} points of segment {sid}: brute "
+                 "force and grid bit-equal")
+
+    (e_c, h_c), (e_g, h_g) = cpu.properties(), gpu.properties()
+    ok, worst = share_close(e_g, e_c, 1e-5)
+    if not torch.equal(h_g.cpu(), h_c) or ok < 0.999 or worst > 1e-3:
+        raise AssertionError("properties: the card and the CPU differ")
+    notes.append(f"properties: heights bit-equal, expansion within 1e-5 on "
+                 f"{ok:.5f} (largest {worst:.2g})")
+    m = member[0]
+    for kind in ("curvature", "normals"):
+        got, ref = (getattr(s, kind)(sid) for s in (gpu, cpu))
+        ok, worst = share_close(got[m.to(dev)], ref[m], FOCUS_ATOL)
+        if ok < FOCUS_MIN_SHARE:
+            raise AssertionError(f"{kind}: card and CPU within {FOCUS_ATOL} "
+                                 f"on only {ok:.4f} of the members")
+        notes.append(f"{kind} within {FOCUS_ATOL} on {ok:.4f} (largest "
+                     f"{worst:.3g})")
+
+    axes = {}
+    for algo, fn in (("average", trunk_axis.average_direction),
+                     ("lowhigh", trunk_axis.low_high_layer)):
+        axes[algo] = both(lambda c, d: fn(c.pos, c.valid & (c.segment == sid)
+                                          & (c.classification == 1)))
+        for f in ("origin", "direction"):
+            g, r = (getattr(x, f).cpu() for x in axes[algo][::-1])
+            if not torch.allclose(g, r, rtol=1e-5, atol=1e-5):
+                raise AssertionError(f"{algo} axis {f}: card and CPU differ")
+    tfs = [trunk_axis.axis_transform(x) for x in axes["average"]]
+    apart = 0
+    for method in (rbv.METHOD_MAX, rbv.METHOD_MEAN):
+        for frame in (False, True):
+            grids = [rbv.split_rbv(c.pos, c.classification,
+                                   c.valid & (c.segment == sid),
+                                   transform=tf if frame else None,
+                                   method=method, symmetric=frame)
+                     for c, tf in zip((cpu.cloud, gpu.cloud), tfs)]
+            for r, g in zip(*grids):
+                n_apart = rbv_cells_apart(g, r)
+                apart = max(apart, n_apart)
+                if n_apart > RBV_EDGE_CELLS:
+                    raise AssertionError(f"RBV (method {method}, frame "
+                                         f"{frame}): {n_apart} cells apart")
+    notes.append(f"axes within 1e-5; RBVs at most {apart} cells apart")
+
+    crown = [c.valid & (c.segment == sid) & (c.classification == 2)
+             for c in (cpu.cloud, gpu.cloud)]
+    dirs = torch.from_numpy(hull3d._fibonacci_sphere(512))
+    cand = [hull3d.support_candidates(c.pos, m_, dirs.to(c.pos.device))
+            for c, m_ in zip((cpu.cloud, gpu.cloud), crown)]
+    hulls = [hull3d.convex_hull(c.pos, m_)
+             for c, m_ in zip((cpu.cloud, gpu.cloud), crown)]
+    if (not torch.equal(cand[1].cpu(), cand[0])
+            or hulls[0].volume != hulls[1].volume):
+        raise AssertionError("hull candidates: card and CPU differ")
+    notes.append(f"hull candidates equal, volume {hulls[0].volume:.3f}")
+
+    worst = 1.0
+    for kw in [dict(display=d) for d in pipeline.FOCUS_DISPLAYS] + [
+            dict(show_hull=True, show_rbv=True, show_axis=True)]:
+        f_c, f_g = cpu.render_focus(sid, **kw), gpu.render_focus(sid, **kw)
+        ok = float((np.abs(f_c.astype(int) - f_g.astype(int)).max(-1)
+                    <= 1).mean())
+        worst = min(worst, ok)
+        if ok < 0.999:
+            raise AssertionError(f"render_focus({kw}): card and CPU within 1 "
+                                 f"on only {ok:.5f} of the pixels")
+    notes.append(f"6 focus frames within 1 per channel on >= {worst:.5f} of "
+                 "the pixels")
+    log(f"  small scene, focused view of segment {sid}: " + "; ".join(notes))
+
+
+def focus_stages(session, sid, cam, neighbors, eigen, splat) -> dict:
+    """Host-clock ms of each stage of an uncached brute-path ``curvature``
+    and of a classification focus frame (median of MAIN_PATH_REPS)."""
+    from treee_tpu_torch.ops import octree
+    cloud = session.cloud
+    stages = {}
+    timed = stage_timer(stages, MAIN_PATH_REPS)
+    member = timed("member mask", lambda: session._member_mask(sid))
+    cnt = int(member.sum())
+    cap = min(octree.snug_capacity(cnt, headroom=1.0), cloud.capacity)
+    count, idx = timed("compact_indices", lambda: octree.compact_indices(
+        member, cap))
+    sub_valid = torch.arange(cap, device=idx.device) < count
+    pos = timed("position gather", lambda: cloud.pos[idx])
+    nn_idx, nn_d = timed("knn_bruteforce", lambda: neighbors.knn_bruteforce(
+        pos, sub_valid))
+    cov = timed("neighbor_covariance", lambda: neighbors.neighbor_covariance(
+        pos, nn_idx, nn_d < 3e38))
+    timed("curvature_from_cov", lambda: eigen.curvature_from_cov(cov))
+    timed("smallest_eigenvector", lambda: eigen.smallest_eigenvector(cov))
+    prop = torch.full((cap,), 0.375, device=pos.device)
+    rcfg = session.config.render
+    color, z01, _ = timed("frame: render_points", lambda: splat.render_points(
+        pos, prop, sub_valid, cam, session.palette, rcfg))
+    img = timed("frame: eye_dome", lambda: splat.eye_dome(color, z01, rcfg))
+    timed("frame: to_u8 + copy", lambda: splat.to_u8(img).cpu())
+    return stages
+
+
+def overlay_stages(session, sid, cam, trunk_axis, rbv, splat) -> dict:
+    """Host-clock ms of each overlay of a focus frame on the brute path's
+    compacted rows (median of MAIN_PATH_REPS)."""
+    from treee_tpu_torch import hull3d
+    from treee_tpu_torch.render import lines
+    cloud, rcfg = session.cloud, session.config.render
+    idx, sub_valid = session._compact_member(sid, None, 0)
+    pos, cls_ = cloud.pos[idx], cloud.classification[idx]
+    member = sub_valid & cloud.valid[idx] & (cloud.segment[idx] == sid)
+    stages = {}
+    timed = stage_timer(stages, MAIN_PATH_REPS)
+    axis = timed("average_direction", lambda: trunk_axis.average_direction(
+        pos, member & (cls_ == 1)))
+    tf = timed("axis_transform", lambda: trunk_axis.axis_transform(axis))
+    hull = timed("convex_hull (candidates on the card, qhull)", lambda: (
+        hull3d.convex_hull(pos, member & (cls_ == 2))))
+    grids = timed("split_rbv", lambda: rbv.split_rbv(pos, cls_, member,
+                                                     transform=tf))
+    cage = timed("rbv_lines (host)", lambda: rbv.rbv_lines(grids[0]))
+    color, z01, _ = splat.render_points(pos, torch.zeros_like(pos[:, 0]),
+                                        member, cam, session.palette, rcfg)
+    ends = torch.as_tensor(np.concatenate(
+        [hull.vertices[hull3d.hull_edges(hull.faces)], cage]), device=pos.device)
+    timed(f"lines.overlay ({len(ends)} lines)", lambda: lines.overlay(
+        color, z01, ends, cam, rcfg))
+    return stages
+
+
+def nearest_trees(table, sid: int, need: int) -> list[int]:
+    """Segment ids nearest to ``sid`` by box centre, as many as bring its
+    count past ``need``."""
+    lo, hi = table.lo.cpu().numpy(), table.hi.cpu().numpy()
+    counts = table.count.cpu().numpy().astype(np.int64)
+    centre = (lo + hi) / 2.0
+    d = np.hypot(centre[:, 0] - centre[sid, 0], centre[:, 2] - centre[sid, 2])
+    order = [int(i) for i in np.argsort(d, kind="stable")
+             if i not in (0, sid) and counts[i] > 0]
+    chosen, total = [], int(counts[sid])
+    for i in order:
+        if total > need:
+            break
+        chosen.append(i)
+        total += int(counts[i])
+    return chosen
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -882,7 +1182,7 @@ def main() -> int:
     from treee_tpu_torch import (characteristics, pipeline, rbv, segmentation,
                                  trunk_axis)
     from treee_tpu_torch.io import las
-    from treee_tpu_torch.ops import kernels, octree
+    from treee_tpu_torch.ops import eigen, kernels, neighbors, octree
     from treee_tpu_torch.ops.kernels import build
     from treee_tpu_torch.render import Camera, splat
     from treee_tpu_torch.tools import probe_extract
@@ -934,6 +1234,12 @@ def main() -> int:
                              for k in PATH_KERNELS}):
         session, _, _ = run_main_path(pts, pipeline, octree, dev)
         session.render(Camera.orbital(distance=ORBIT_DISTANCE, device=dev))
+        # the focused view: properties() and a focus frame of the largest
+        # tree, which runs segment_properties on its compacted rows
+        session.properties()
+        session.render_focus(int(torch.argmax(session.table.count[1:])) + 1,
+                             Camera.orbital(distance=ORBIT_DISTANCE,
+                                            device=dev), display="expansion")
         for kw in INVENTORY_CALLS:
             session.inventory(**kw)
         del session
@@ -1245,6 +1551,8 @@ def main() -> int:
             f"relative difference {worst:.3g}")
     interactive_card_vs_cpu(small, small_cfg, s_cpu.cloud.segment, cam,
                             pipeline, octree, dev)
+    focus_card_vs_cpu(small, small_cfg, s_cpu.cloud.segment, cam, pipeline,
+                      dev)
     del s_cpu, s_gpu
 
     # --- phase 13: the gather probe (on no path of the system) ---
@@ -1295,23 +1603,7 @@ def main() -> int:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     view_launches = dict.fromkeys(PATH_KERNELS, 0)
-
-    def counted(fn, needed, what):
-        """``fn()`` and its host-clock ms, with the launch counters zeroed
-        before and read after; each kernel of ``needed`` must have run."""
-        kernels.reset_launches()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = fn()
-        torch.cuda.synchronize()
-        ms = (time.perf_counter() - t0) * 1e3
-        got = kernels.launches()
-        for k in needed:
-            if got[k] <= 0:
-                raise AssertionError(f"{what} launched no {k} kernel")
-        for k in view_launches:
-            view_launches[k] += got[k]
-        return out, ms
+    counted = launch_counter(kernels, view_launches)
 
     def plain_equal(frames, draw, what):
         with swapped(kernels, **plain):
@@ -1493,6 +1785,264 @@ def main() -> int:
     for k in ("dilate", "eye_dome", "segmented_cummax", "segmented_cumsum"):
         launches[k] += view_launches[k]
     del session, inv, table, plain_table, frames, stroke_frames, full
+
+    # --- phase 15: the focused view ---
+    log("phase 15: the focused view of the segmented scan's largest tree: "
+        "properties(), curvature and normals, render_focus for "
+        f"{len(pipeline.FOCUS_DISPLAYS)} displays x {N_FRAMES} orbit cameras "
+        "and the overlays, traits against the inventory, segment_coords, an "
+        "edit, then the grid path")
+    t_phase = time.perf_counter()
+    session = pipeline.Session.from_points(pts, device=dev)
+    session.segment(MAX_DISTANCE)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    focus_launches = dict.fromkeys(PATH_KERNELS, 0)
+    counted = launch_counter(kernels, focus_launches)
+    seg_counts = session.table.count.cpu().numpy().astype(np.int64)
+    seg_counts[0] = 0
+    sid = int(np.argmax(seg_counts))
+    seg_n = int(seg_counts[sid])
+    k_nn = session.config.characteristics.neighbors
+    bfm = session.config.neighbors.brute_force_max
+    log(f"  segment {sid}: {seg_n} points, brute force up to {bfm}; "
+        f"cross-check, BENCH_r05.json (TPU v5e): "
+        f"{BENCH_R05['curvature_points']} points, grid "
+        f"{BENCH_R05['curvature_grid']}")
+    if seg_n > bfm:
+        raise AssertionError("the largest tree routes to the grid")
+
+    # (a) properties() of the whole cloud
+    props, p_ms = counted(session.properties, ("segmented_cummax",),
+                          "properties()")
+    with swapped(kernels, **plain):
+        plain_props = session.properties()
+    if not all(same_bits(a, b) for a, b in zip(props, plain_props)):
+        raise AssertionError("properties() differs with the plain versions")
+    p_warm, p_times = timed_ms(session.properties, MAIN_PATH_REPS)
+    log(f"  properties() over {n} points: {p_ms:.2f} ms first, median "
+        f"{p_warm:.2f} ms of {MAIN_PATH_REPS} {[round(t, 2) for t in p_times]}"
+        "; identical with the plain versions; " + top_device_ops(
+            session.properties))
+    del props, plain_props
+
+    # (b) curvature and normals on the brute path
+    curve, c_first = counted(lambda: session.curvature(sid), (),
+                             "curvature")
+    _, c_cached = counted(lambda: session.curvature(sid), (), "curvature")
+    nrm, n_ms = counted(lambda: session.normals(sid), (), "normals")
+    idx, sub_valid = session._focus_idx_cache[sid]
+    sub_c = session._focus_prop_cache[("curve", sid, k_nn)]
+    sub_n = session._focus_prop_cache[("normals", sid, k_nn)]
+    session._clear_focus()
+    if not (torch.equal(session.curvature(sid), curve)
+            and torch.equal(session.normals(sid), nrm)):
+        raise AssertionError("a second k-NN run on the card gave other "
+                             "curvatures or normals")
+    pos_sub = session.cloud.pos[idx]
+    knn = [neighbors.knn_bruteforce(pos_sub, sub_valid) for _ in range(2)]
+    if not all(torch.equal(a, b) for a, b in zip(*knn)):
+        raise AssertionError("the card's k-NN indices do not repeat")
+    cpu_knn = neighbors.knn_bruteforce(pos_sub.cpu(), sub_valid.cpu())
+    n_differ, n_bad = same_neighbours(knn[0], cpu_knn)
+    if n_bad:
+        raise AssertionError(f"{n_bad} k-NN rows differ between the card and "
+                             "the CPU away from a distance tie")
+    cov = neighbors.neighbor_covariance(pos_sub.cpu(), cpu_knn[0],
+                                        cpu_knn[1] < 3e38)
+    sv = sub_valid.cpu()
+    c_ok, c_worst = share_close(sub_c[sub_valid],
+                                eigen.curvature_from_cov(cov)[sv], FOCUS_ATOL)
+    n_ok, n_worst = share_close(sub_n[sub_valid],
+                                eigen.smallest_eigenvector(cov)[sv],
+                                FOCUS_ATOL)
+    if min(c_ok, n_ok) < FOCUS_MIN_SHARE:
+        raise AssertionError(f"curvature / normals: card and CPU within "
+                             f"{FOCUS_ATOL} on {c_ok:.4f} / {n_ok:.4f}")
+    del knn, cpu_knn, cov
+    log(f"  curvature({sid}): {c_first:.2f} ms uncached (compaction + k-NN + "
+        f"covariance + eigen), {c_cached:.3f} ms cached; normals "
+        f"{n_ms:.2f} ms (compaction cached); {idx.shape[0]} rows; a fresh "
+        "k-NN repeats curvature and normals bit for bit, k-NN indices repeat")
+    log(f"  card vs the port's CPU run on the same {idx.shape[0]} rows: "
+        f"{n_differ} k-NN rows differ (each at a distance tie); curvature "
+        f"within {FOCUS_ATOL} on {c_ok:.5f} (largest {c_worst:.3g}), normals "
+        f"on {n_ok:.5f} (largest {n_worst:.3g})")
+
+    # the same tree through the grid hash, for the brute-vs-grid crossover
+    member = session._member_mask(sid)
+    g_tree_ms, g_tree_times = timed_ms(
+        lambda: characteristics.segment_curvature(
+            session.cloud.pos, member, k=k_nn, use_grid=True), 2)
+    diff = (characteristics.segment_curvature(
+        session.cloud.pos, member, k=k_nn, use_grid=True) - curve)[member]
+    log(f"  the same {seg_n} points through the grid hash: median "
+        f"{g_tree_ms:.2f} ms of 2 {[round(t, 2) for t in g_tree_times]}; "
+        f"curvature within {FOCUS_ATOL} of the brute force's on "
+        f"{float((diff.abs() <= FOCUS_ATOL).double().mean()):.5f}")
+
+    def fresh_curvature():
+        session._clear_focus()
+        return session.curvature(sid)
+
+    log("  curvature uncached: " + top_device_ops(fresh_curvature, k=6))
+    for stage, ms in focus_stages(session, sid, cams[0], neighbors, eigen,
+                                  splat).items():
+        log(f"  focus stage {stage}: {ms:.3f} ms")
+
+    # (c) the five displays over the 8 orbit cameras (bench.py's focus
+    # frames, which pivot on the scene's centre and may miss the tree), and
+    # from a camera 30 m in front of the tree
+    centre = session.cloud.pos[session._member_mask(sid)].mean(dim=0)
+    eye = np.eye(4, dtype=np.float32)
+    eye[:3, 3] = centre.cpu().numpy() + [0.0, 0.0, FOCUS_DISTANCE]
+    focus_cam = Camera.from_numpy(eye, FOCUS_DISTANCE, device=dev)
+    bg = [round(c * 255.0) for c in session.config.render.background]
+    for display in pipeline.FOCUS_DISPLAYS:
+        needed = FRAME_KERNELS + (("segmented_cummax",) if display in (
+            "expansion", "height") else ())
+        imgs, f_ms = [], []
+        for cam in cams + [focus_cam]:
+            img, ms = counted(lambda: session.render_focus(
+                sid, cam, display=display), needed, f"a {display} focus frame")
+            imgs.append(img)
+            f_ms.append(ms)
+        plain_equal(imgs, lambda i: session.render_focus(
+            sid, (cams + [focus_cam])[i], display=display),
+            f"{display} focus frames")
+        lit = [float(((abs(img.astype(int) - bg)).max(-1) > 3).mean())
+               for img in imgs]
+        if not lit[-1] > 0.01:
+            raise AssertionError(f"the {display} focus frame shows "
+                                 f"{lit[-1]} of its pixels lit")
+        log(f"  render_focus(display={display!r}): median "
+            f"{statistics.median(f_ms[:-1]):.2f} ms of the {N_FRAMES} orbit "
+            f"frames {[round(t, 2) for t in f_ms[:-1]]}, lit "
+            f"{[round(x, 4) for x in lit[:-1]]}; {f_ms[-1]:.2f} ms from "
+            f"{FOCUS_DISTANCE:.0f} m in front of the tree, {lit[-1]:.4f} lit; "
+            f"all {len(imgs)} byte-equal to the plain versions'")
+    log("  classification focus frame: " + top_device_ops(
+        lambda: session.render_focus(sid, focus_cam)))
+    log("  expansion focus frame: " + top_device_ops(
+        lambda: session.render_focus(sid, focus_cam, display="expansion")))
+
+    # (d) all three overlays under each axis algorithm and RBV method
+    for kw in FOCUS_OVERLAYS:
+        img, ms = counted(lambda: session.render_focus(sid, focus_cam, **kw),
+                          FRAME_KERNELS, f"an overlay frame {kw}")
+        plain_equal([img], lambda i: session.render_focus(sid, focus_cam,
+                                                          **kw),
+                    f"the overlay frame {kw}")
+        o_ms, o_times = timed_ms(lambda: session.render_focus(sid, focus_cam,
+                                                              **kw),
+                                 TIMING_REPS)
+        log(f"  overlays (hull, RBV cage, axis), axis {kw['axis_algo']}, RBV "
+            f"{kw['rbv_method']}: {ms:.2f} ms first, median {o_ms:.2f} ms of "
+            f"{TIMING_REPS} {[round(t, 2) for t in o_times]}; byte-equal to "
+            "the plain versions'")
+    log("  overlay frame: " + top_device_ops(
+        lambda: session.render_focus(sid, focus_cam, **FOCUS_OVERLAYS[0])))
+    for stage, ms in overlay_stages(session, sid, focus_cam, trunk_axis, rbv,
+                                    splat).items():
+        log(f"  overlay stage {stage}: {ms:.3f} ms")
+
+    # (e) the tree's split RBVs and traits against its inventory row
+    cloud = session.cloud
+    member = session._member_mask(sid)
+    axis = trunk_axis.average_direction(cloud.pos, member & (
+        cloud.classification == 1))
+    crown_r, trunk_r = rbv.split_rbv(cloud.pos, cloud.classification, member,
+                                     transform=trunk_axis.axis_transform(axis))
+    traits = rbv.traits(crown_r, trunk_r)
+    inv = session.inventory()
+    row = int(np.flatnonzero(inv["segment"] == sid)[0])
+    worst = 0.0
+    for trait in rbv.TRAITS:
+        got, ref = float(getattr(traits, trait)), float(inv[trait][row])
+        worst = max(worst, abs(got - ref) / max(abs(ref), 1e-12))
+        if not np.isclose(got, ref, rtol=TRAITS_RTOL, atol=TRAITS_ATOL):
+            raise AssertionError(f"traits {trait} of segment {sid}: {got} "
+                                 f"against the inventory's {ref}")
+    coords = session.segment_coords(sid)
+    if coords is None or not np.all(np.isfinite(coords)):
+        raise AssertionError(f"segment_coords({sid}) gave {coords}")
+    log(f"  split_rbv + traits of segment {sid} against its inventory row: "
+        f"within rtol {TRAITS_RTOL} (largest relative difference "
+        f"{worst:.3g}); DBH {float(traits.diameter_breast_height):.4f} m; "
+        f"segment_coords {coords}")
+
+    # (f) a deletion through the tree: the focus caches go, curvature
+    # recomputes
+    session.curvature(sid)
+    centre = cloud.pos[member][0].cpu().numpy()      # a point of the tree
+    n_before = int(member.sum())
+    session.delete_sphere(centre, radius=1.0)
+    if session._focus_prop_cache or session._focus_idx_cache:
+        raise AssertionError("delete_sphere left the focus caches")
+    after, d_ms = counted(lambda: session.curvature(sid), (),
+                          "curvature after the edit")
+    n_after = int(session._member_mask(sid).sum())
+    if not n_after < n_before or not bool((after[member] == 0).any()):
+        raise AssertionError("curvature did not follow the deletion")
+    log(f"  delete_sphere through segment {sid}: {n_before - n_after} points "
+        f"deleted; curvature recomputed in {d_ms:.2f} ms")
+
+    # (g) the grid path: the tree and its nearest trees past brute_force_max
+    others = nearest_trees(session.full_table(), sid, bfm)
+    for other in others:
+        session.combine(other, sid)
+    member = session._member_mask(sid)
+    n_member = int(member.sum())
+    g_curve, g_ms = counted(lambda: session.curvature(sid), (),
+                            "grid curvature")
+    key = ("curve", sid, k_nn)
+    if key not in session._focus_grid_cache:
+        raise AssertionError(f"{n_member} points did not route to the grid")
+    again, g2_ms = counted(lambda: session.curvature(sid), (),
+                           "cached grid curvature")
+    if again is not g_curve:
+        raise AssertionError("a second grid curvature missed the cache")
+    g_frame, gf_ms = counted(lambda: session.render_focus(
+        sid, focus_cam, display="curve"), FRAME_KERNELS, "a grid focus frame")
+    plain_equal([g_frame], lambda i: session.render_focus(
+        sid, focus_cam, display="curve"), "the grid path's focus frame")
+    cap = octree.snug_capacity(n_member, headroom=1.0)
+    n_kept, cidx = octree.compact_indices(member, cap)
+    valid_c = torch.arange(cap, device=cidx.device) < n_kept
+    pos_c = cloud.pos[cidx]
+    b_ms, b_times = timed_ms(lambda: characteristics.segment_curvature(
+        pos_c, valid_c, k=k_nn), 2)
+    b_curve = characteristics.segment_curvature(pos_c, valid_c, k=k_nn)
+    rows = torch.nonzero(member).flatten()
+    g_idx, _ = neighbors.knn_grid_reduce(
+        cloud.pos, member, GRID_CELL, lambda i, d, nb: (i, d), k=k_nn,
+        rows=rows)
+    b_idx = cidx[neighbors.knn_bruteforce(pos_c, valid_c, k=k_nn)[0].long()]
+    same_sets = float((torch.sort(g_idx, dim=1).values == torch.sort(
+        b_idx[:len(rows)].to(g_idx.dtype), dim=1).values).all(dim=1)
+        .double().mean())
+    diff = (g_curve[cidx[:len(rows)].long()] - b_curve[:len(rows)]).abs()
+    log(f"  grid path: segment {sid} combined with {len(others)} nearest "
+        f"trees, {n_member} points (> {bfm}); curvature through the grid "
+        f"hash {g_ms:.2f} ms, again from the cache {g2_ms:.3f} ms; brute "
+        f"force on the same members median {b_ms:.2f} ms of 2 "
+        f"{[round(t, 2) for t in b_times]}; {same_sets:.5f} of the points "
+        f"have the brute force's neighbours; curvature difference largest "
+        f"{float(diff.max()):.4f}, {float((diff <= FOCUS_ATOL).double().mean()):.5f} "
+        f"within {FOCUS_ATOL}; a curve focus frame on the grid path "
+        f"{gf_ms:.2f} ms, byte-equal to the plain versions'")
+
+    def fresh_grid():
+        session._focus_grid_cache.clear()
+        return session.curvature(sid)
+
+    log("  grid curvature uncached: " + top_device_ops(fresh_grid, k=6))
+    for k in ("dilate", "eye_dome", "segmented_cummax", "segmented_cumsum"):
+        launches[k] += focus_launches[k]
+    log(f"  launches over the phase: {focus_launches}; peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; phase "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    del session, inv, curve, nrm, g_curve, b_curve, pos_c, pos_sub
 
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(card_line())

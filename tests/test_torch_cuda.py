@@ -34,11 +34,14 @@ import numpy as np
 import pytest
 import torch
 
+from treee_tpu_torch import characteristics as tch
 from treee_tpu_torch import config as tconfig
 from treee_tpu_torch import pipeline as tpl
 from treee_tpu_torch import segmentation as tsg
 from treee_tpu_torch.io import las as tlas
+from treee_tpu_torch.ops import eigen as teig
 from treee_tpu_torch.ops import kernels
+from treee_tpu_torch.ops import neighbors as tnb
 from treee_tpu_torch.ops import octree as toctree
 from treee_tpu_torch.ops.kernels import build
 from treee_tpu_torch.render import Camera
@@ -804,3 +807,135 @@ def test_interactive_session_runs_on_the_card(dev):
     np.testing.assert_allclose(card["hit"][1], cpu["hit"][1], rtol=1e-5)
     for a, b in zip(cpu["frames"], card["frames"]):
         assert np.abs(a.astype(int) - b.astype(int)).max() <= 1
+
+
+def _knn_case(case: str):
+    """(pos f32[N,3], valid bool[N]) on the CPU for a k-NN edge case."""
+    rng = np.random.default_rng(7)
+    if case == "empty":
+        return torch.zeros((0, 3)), torch.zeros(0, dtype=torch.bool)
+    pos = torch.from_numpy(rng.uniform(-3, 3, (3000, 3)).astype(np.float32))
+    valid = torch.from_numpy(rng.random(3000) < 0.9)
+    if case == "no_point":
+        valid[:] = False
+    elif case == "one_point":
+        valid[:] = False
+        valid[1234] = True
+    elif case == "few_members":
+        valid = torch.arange(3000) % 300 == 7
+    elif case == "all_ties":
+        pos[:] = torch.tensor([1.5, -2.0, 0.25])
+    elif case == "overflow":     # 40 copies of each of 75 points
+        pos = pos[:75].repeat(40, 1)
+    return pos, valid
+
+
+@pytest.mark.parametrize("case", ["empty", "no_point", "one_point",
+                                  "few_members", "all_ties", "overflow",
+                                  "random"])
+def test_knn_on_the_card_equals_the_cpu(dev, case):
+    """Both k-NNs on the card equal the CPU's bit for bit (elementwise f32
+    arithmetic, one int64 key per candidate, a stable sort), and repeat."""
+    pos, valid = _knn_case(case)
+    for fn, kw in ((tnb.knn_bruteforce, {}),
+                   (tnb.knn_grid, dict(cell_size=0.5, cell_capacity=2)),
+                   (tnb.knn_grid, dict(cell_size=0.5))):
+        if case == "empty" and fn is tnb.knn_grid:
+            continue    # the grid's origin is a reduction over the rows
+        ref = fn(pos, valid, **kw)
+        got = fn(pos.to(dev), valid.to(dev), **kw)
+        again = fn(pos.to(dev), valid.to(dev), **kw)
+        for g, a, r in zip(got, again, ref):
+            assert torch.equal(g, a)
+            assert torch.equal(g.cpu(), r), (fn.__name__, kw)
+    if case == "all_ties":
+        idx, dist = tnb.knn_bruteforce(pos.to(dev), valid.to(dev))
+        assert (dist == 0).all()
+        first = torch.nonzero(valid).flatten()[:31].to(dev)
+        assert (idx == first.to(torch.int32)).all()
+    if case == "overflow":
+        _, dist = tnb.knn_grid(pos.to(dev), valid.to(dev), 0.5,
+                               cell_capacity=2)
+        assert (dist == 3.0e38).any()
+
+
+def test_eigen_degenerate_branches_on_the_card(dev):
+    """The closed form's branches on the card: diagonal matrices take the
+    sorted diagonal and isotropic or zero ones the +y normal, as on the CPU,
+    bit for bit; elsewhere acos and cos of CUDA's libm may differ from the
+    CPU's by a few ulps, which near a repeated eigenvalue moves the
+    eigenvalues by up to sqrt(ulp) of the scale, and the normal of a
+    repeated smallest eigenvalue is any unit vector of its plane."""
+    rng = np.random.default_rng(3)
+    d = rng.uniform(0, 5, (300, 3)).astype(np.float32)
+    d[::3] = d[::3, :1]                              # isotropic
+    d[1::7] = 0.0                                    # zero
+    diag = torch.from_numpy(np.einsum("ni,ij->nij", d, np.eye(3,
+                                                               dtype=np.float32)))
+    u = torch.from_numpy(rng.normal(size=(300, 3, 1)).astype(np.float32))
+    a = torch.from_numpy(rng.normal(size=(300, 3, 3)).astype(np.float32))
+    mats = torch.cat([diag, u @ u.transpose(1, 2), a @ a.transpose(1, 2)])
+    scale = mats.abs().amax(dim=(1, 2))
+    out = {}
+    for fn in (teig.eigvals_sym3, teig.smallest_eigenvector,
+               teig.curvature_from_cov):
+        got, ref = fn(mats.to(dev)).cpu(), fn(mats)
+        assert torch.equal(got[:300], ref[:300]), fn.__name__
+        assert torch.equal(fn(mats.to(dev)).cpu(), got)
+        out[fn.__name__] = got, ref
+    got, ref = out["eigvals_sym3"]
+    assert ((got - ref).abs().amax(dim=1) <= 5e-4 * scale).all()
+    got, ref = out["curvature_from_cov"]
+    assert ((got - ref).abs() <= 2e-3).all()
+    got, ref = out["smallest_eigenvector"]
+    ev = out["eigvals_sym3"][1]
+    apart = ev[:, 1] - ev[:, 2] > 1e-3 * scale
+    assert apart[600:].all() and not apart[300:600].any()
+    dot = (got * ref).sum(dim=1).abs()
+    assert (1.0 - dot[apart] <= 1e-4).all()
+    assert (got[:, 1] >= 0).all()
+    assert ((got.norm(dim=1) - 1.0).abs() <= 1e-5).all()
+
+
+@pytest.mark.parametrize("display", tpl.FOCUS_DISPLAYS)
+def test_render_focus_on_the_card(dev, display):
+    """Each focused display on the card, from the CPU's ids: both frame
+    kernels launch (and the cummax for expansion and height), the frame
+    repeats bit for bit and equals the CPU's within 1 per channel on all
+    but a few pixels (curvature and normals sum in another order)."""
+    pts = tlas.synthetic_forest(n_trees=4, points_per_tree=3000,
+                                ground_points=4000, seed=11)
+    cam = Camera.orbital(distance=30.0, device="cpu").rotate_orbital(40.0,
+                                                                     -60.0)
+    ref = tpl.Session.from_points(pts, SMALL_CFG, device="cpu")
+    ref.segment(0.75)
+    counts = ref.table.count.numpy()
+    sid = int(np.argmax(counts[1:])) + 1
+    frames = []
+    for device in ("cpu", dev):
+        s = tpl.Session.from_points(pts, SMALL_CFG, device=device)
+        s.cloud = s.cloud.replace(
+            segment=ref.cloud.segment.to(device),
+            classification=ref.cloud.classification.to(device))
+        s.table = tch.SegmentTable.from_numpy(ref.table.to_numpy(),
+                                              device=device)
+        s.camera = cam.to(device)
+        kernels.reset_launches()
+        frames.append(s.render_focus(sid, display=display, show_axis=True,
+                                     show_rbv=display == "height",
+                                     show_hull=display == "shaded"))
+        launches = kernels.launches()
+        if s.device.type == "cuda":
+            assert launches["dilate"] >= 1 and launches["eye_dome"] == 1
+            if display in ("expansion", "height"):
+                assert launches["segmented_cummax"] >= 1
+            np.testing.assert_array_equal(
+                frames[-1], s.render_focus(sid, display=display,
+                                           show_axis=True,
+                                           show_rbv=display == "height",
+                                           show_hull=display == "shaded"))
+            curve = s.curvature(sid)
+            s._clear_focus()        # recompute the k-NN, not the cache
+            assert torch.equal(s.curvature(sid), curve)
+    diff = np.abs(frames[0].astype(int) - frames[1].astype(int)).max(-1)
+    assert (diff <= 1).mean() >= 0.999

@@ -50,12 +50,14 @@ def test_port_and_chip_smoke_import_no_jax():
     assert out.returncode == 0, out.stderr
     mods, bad = out.stdout.splitlines()
     mods = set(mods.split())
-    assert len(mods) >= 29
-    # the interactive view's modules among them
+    assert len(mods) >= 33
+    # the interactive and focused views' modules among them
     assert {"treee_tpu_torch.interactive", "treee_tpu_torch.ops.octree",
             "treee_tpu_torch.ops.morton", "treee_tpu_torch.cloud",
             "treee_tpu_torch.characteristics",
-            "treee_tpu_torch.pipeline"} <= mods
+            "treee_tpu_torch.pipeline", "treee_tpu_torch.ops.eigen",
+            "treee_tpu_torch.ops.neighbors", "treee_tpu_torch.hull3d",
+            "treee_tpu_torch.geo"} <= mods
     assert bad.strip() == "[]"
 
 
@@ -103,14 +105,31 @@ def test_config_has_the_jax_fields_in_order():
 
 
 def _device_defaults():
-    """Every entry point that places tensors, with its device default."""
+    """Every entry point that places tensors, with its device default: the
+    named ones, and every function of the focused view's modules whose
+    ``device`` has a default (the others run on their inputs' device)."""
     import inspect
 
+    from treee_tpu_torch import geo as tgeo
+    from treee_tpu_torch import hull3d as thull
     from treee_tpu_torch import pipeline as tpl
+    from treee_tpu_torch.ops import eigen as teig
+    from treee_tpu_torch.ops import neighbors as tnb
     from treee_tpu_torch.render import Camera
     from treee_tpu_torch.render import palettes as tpal
 
-    fns = {"Session": tpl.Session.__init__,
+    def takes_device(f):
+        p = inspect.signature(f).parameters.get("device")
+        return p is not None and p.default is not p.empty
+
+    scanned = {f"{m.__name__.rsplit('.', 1)[-1]}.{n}": f
+               for m in (teig, tnb, thull, tgeo)
+               for n, f in vars(m).items()
+               if inspect.isfunction(f) and f.__module__ == m.__name__
+               and takes_device(f)}
+    assert "hull3d.convex_hull" in scanned
+    fns = {**scanned,
+           "Session": tpl.Session.__init__,
            "Session.from_points": tpl.Session.from_points,
            "PointCloud.from_numpy": tcloud.PointCloud.from_numpy,
            "PointCloud.empty": tcloud.PointCloud.empty,

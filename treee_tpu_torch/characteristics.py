@@ -13,8 +13,16 @@ All segments at once, scatter-free:
   table, and points are classified against 16+16-bit packed separators.
 
 ``update_separators_from_classes`` re-derives one segment's separators from
-its edited classes.  Curvature, normals and ``segment_properties`` are not
-ported yet.
+its edited classes.  The focused view's per-point properties:
+
+- ``segment_properties``: expansion (each slice's crown diameter against
+  the segment's largest) and relative height, from crown-only slice areas
+  reduced as above and the table's (min y, height) read through one 16+16-bit
+  packed gather, as the JAX package quantizes them;
+- ``segment_curvature`` / ``segment_normals``: the k-NN neighbourhood's
+  covariance, its eigenvalue ratio or smallest eigenvector
+  (``ops/neighbors``, ``ops/eigen``), brute force among a segment's members
+  or, for very large segments, through the grid hash.
 """
 
 from __future__ import annotations
@@ -28,7 +36,8 @@ import torch
 from .cloud import CLASS_CROWN, CLASS_GROUND, CLASS_TRUNK
 from .config import CharacteristicsConfig
 from .device import DEFAULT_DEVICE
-from .ops import kernels
+from .ops import eigen, kernels, neighbors
+from .ops.kernels.dilate import div, full
 
 INF = 3.0e38
 
@@ -315,3 +324,141 @@ def update_separators_from_classes(
         hi=row(table.hi, torch.where(has_m, m_max, table.hi[sid, 1]),
                (sid, 1)),
     )
+
+
+def segment_properties(
+    pos: torch.Tensor,
+    segment: torch.Tensor,
+    valid: torch.Tensor,
+    classification: torch.Tensor,
+    table: SegmentTable,
+    num_segments: int,
+    cfg: CharacteristicsConfig = CharacteristicsConfig(),
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per-point expansion and relative height (calculations.rs:297-326).
+
+    Expansion: crown-only slice areas -> each slice's diameter against the
+    segment's largest crown diameter; each point reads its slice's ratio.
+    Height: y normalized to the segment's extent.  Returns (expansion
+    f32[N], height f32[N]).  Each point's (min y, height) comes from the
+    table quantized to 16 bits each over the table's y range and packed into
+    one i32, as the JAX package gathers it; the values are decoded from
+    that, so they carry its rounding.
+    """
+    s_cap = num_segments
+    ms = cfg.max_slices
+    sw = cfg.slice_width
+    k_dirs = cfg.hull_directions
+
+    seg = torch.where(valid & (segment > 0) & (segment < s_cap), segment, 0)
+    live = seg > 0
+    min_y = table.lo[:, 1]
+    height_ext = torch.clamp(table.hi[:, 1] - table.lo[:, 1], min=1e-6)
+    ylo_s = min_y.amin()
+    yext_s = torch.clamp(table.hi[:, 1].amax() - ylo_s, min=1e-6)
+    qsc = torch.div(full(65535.0, yext_s), yext_s)
+    qmy = torch.clamp(((min_y - ylo_s) * qsc).to(torch.int32), 0, 65535)
+    qh = torch.clamp((height_ext * qsc).to(torch.int32), 1, 65535)
+    packed = ((qmy << 16) | qh)[seg.long()]
+    step = div(yext_s, 65535.0)
+    # mask after the arithmetic >>: qmy >= 32768 makes packed negative
+    min_y_pt = ylo_s + ((packed >> 16) & 0xFFFF).float() * step
+    inv_h_pt = torch.div(full(1.0, step), (packed & 0xFFFF).float() * step)
+    slice_idx = torch.clamp(
+        torch.floor(div(pos[:, 1] - min_y_pt, sw)).to(torch.int32),
+        0, ms - 1)
+
+    # crown-only slice areas: sort by the (segment, slice) bucket, a
+    # segmented cummax of the support scores, read at each run's end; other
+    # points go to a dump bucket that no table row reads
+    crown_only = live & (classification == CLASS_CROWN)
+    bucket = torch.where(crown_only, seg * ms + slice_idx, s_cap * ms)
+    bucket_s, perm = torch.sort(bucket.to(torch.int32), stable=False)
+    x_s, z_s = pos[:, 0][perm], pos[:, 2][perm]
+    dirs = _support_directions(k_dirs, pos.device)
+    scores = x_s[:, None] * dirs[0][None, :] + z_s[:, None] * dirs[1][None, :]
+    cum = kernels.segmented_cummax(bucket_s, scores)
+    idx, hit = _run_end_index(bucket_s, s_cap * ms)
+    tab = torch.where(hit[:, None], cum[idx], -INF)
+    areas_crown = _areas_from_supports(tab, k_dirs).view(s_cap, ms)
+
+    # crown area: the largest area at or above the crown separator's slice
+    # (calculations.rs:301-306)
+    crown_sep_idx = torch.clamp(
+        div(table.crown_sep - min_y, sw).to(torch.int32), 0, ms - 1)
+    sl = torch.arange(ms, dtype=torch.int32, device=pos.device)[None, :]
+    crown_area = torch.where(sl >= crown_sep_idx[:, None], areas_crown,
+                             -INF).amax(dim=1)
+    crown_area = torch.clamp(crown_area, min=0.0)
+
+    # diameter ratio per slice (approximate_diameter, calculations.rs:460-462)
+    crown_diam = 2.0 * torch.sqrt(div(crown_area, math.pi))
+    slice_diam = 2.0 * torch.sqrt(div(areas_crown, math.pi))
+    ratio = torch.div(slice_diam, torch.clamp(crown_diam[:, None], min=1e-6))
+
+    expansion = torch.where(live, ratio[seg.long(), slice_idx.long()], 0.0)
+    height = torch.where(
+        live, torch.clamp((pos[:, 1] - min_y_pt) * inv_h_pt, 0.0, 1.0), 0.0)
+    return expansion, height
+
+
+def _curv_per_row(idx, dist, nbrs):
+    """Per-row reduction of the grid k-NN: the covariance's eigenvalue
+    ratio."""
+    return (eigen.curvature_from_cov(
+        neighbors.neighbor_covariance_from(nbrs, dist < INF)),)
+
+
+def _normals_per_row(idx, dist, nbrs):
+    """Per-row reduction of the grid k-NN: the smallest eigenvector."""
+    return (eigen.smallest_eigenvector(
+        neighbors.neighbor_covariance_from(nbrs, dist < INF)),)
+
+
+def _grid_rows(pos, member, k, cell_size, per_row, fill):
+    """``per_row`` of the grid k-NN at the member rows, ``fill`` f32[..]
+    elsewhere.  Only member rows are queried: the JAX package queries every
+    row and masks the others out, which gives the same output."""
+    rows = torch.nonzero(member).flatten()
+    (vals,) = neighbors.knn_grid_reduce(pos, member, cell_size, per_row, k=k,
+                                        rows=rows)
+    out = fill.clone()
+    out[rows] = vals
+    return out
+
+
+def segment_curvature(pos: torch.Tensor, member: torch.Tensor, k: int = 31,
+                      use_grid: bool = False, cell_size: float = 0.5
+                      ) -> torch.Tensor:
+    """Per-point curvature of one segment's members (calculations.rs:
+    328-373): k-NN within the member set, the neighbourhood's covariance,
+    then 3*lambda_min/trace.  Non-members get 0.
+
+    ``use_grid`` switches the exact tiled brute force (the reference's
+    per-tree sizes) to the grid-hash k-NN for very large member sets, where
+    O(N^2) distances would not fit the time or memory.  Members with fewer
+    than k neighbours leave the INF-distance padding out of the covariance,
+    as the reference's KD-tree returns members only.
+    """
+    if use_grid:
+        return _grid_rows(pos, member, k, cell_size, _curv_per_row,
+                          torch.zeros(pos.shape[0], dtype=torch.float32,
+                                      device=pos.device))
+    idx, dist = neighbors.knn_bruteforce(pos, member, k=k)
+    cov = neighbors.neighbor_covariance(pos, idx, dist < INF)
+    return torch.where(member, eigen.curvature_from_cov(cov), 0.0)
+
+
+def segment_normals(pos: torch.Tensor, member: torch.Tensor, k: int = 31,
+                    use_grid: bool = False, cell_size: float = 0.5
+                    ) -> torch.Tensor:
+    """Per-point unit surface normals of one segment's members, f32[N,3]:
+    the smallest eigenvector of the same neighbourhood covariance as
+    :func:`segment_curvature`, y >= 0; non-members get +y."""
+    up = torch.zeros_like(pos)
+    up[:, 1] = 1.0
+    if use_grid:
+        return _grid_rows(pos, member, k, cell_size, _normals_per_row, up)
+    idx, dist = neighbors.knn_bruteforce(pos, member, k=k)
+    cov = neighbors.neighbor_covariance(pos, idx, dist < INF)
+    return torch.where(member[:, None], eigen.smallest_eigenvector(cov), up)

@@ -33,9 +33,10 @@ Fields left out, and why:
 - ``RenderConfig.raster_tile``: nothing in the JAX package reads it.
 
 ``cc_pallas_sweeps`` is called ``cc_sweeps`` here, with the same meaning.
-``NeighborConfig`` and ``InteractiveConfig`` are carried with the JAX
-package's defaults so that ``Config`` takes the same fields; nothing in the
-port reads them yet.
+``NeighborConfig`` and ``InteractiveConfig`` carry the JAX package's
+defaults: the focused view routes a segment by ``brute_force_max`` and
+tiles its brute-force queries by ``query_tile``; ``source_location`` is the
+session's proj string and ``draw_radius`` the edits' default radius.
 """
 
 from __future__ import annotations

@@ -49,6 +49,12 @@ def full(value: float, like: torch.Tensor) -> torch.Tensor:
     return torch.full((), value, dtype=torch.float32, device=like.device)
 
 
+def div(a: torch.Tensor, b: float) -> torch.Tensor:
+    """``a / b`` for a Python number ``b``, rounded once as IEEE and XLA
+    divide (see :func:`full`)."""
+    return torch.div(a, full(b, a))
+
+
 def radius_from_key(k: torch.Tensor, p22: float, p23: float,
                     coef: float) -> torch.Tensor:
     """Pixel radius of the splat whose packed key is ``k``: invert

@@ -1,10 +1,11 @@
 """The main path of the port: segmentation + characteristics, the full-cloud
 frame, the octree LOD and screen-adaptive frames, the sphere edits with ray
-picking, the whole-forest inventory, and the part of ``Session`` that drives
-them (``treee_tpu/pipeline.py``).
+picking, the whole-forest inventory, the focused single-tree view, and the
+part of ``Session`` that drives them (``treee_tpu/pipeline.py``).
 
-The focused view, rasters, ingest previews, checkpoints, exports, the forest
-summary and the mesh mode are not ported yet.
+Rasters (and with them the focused view's ``hag`` display), ingest and its
+source attributes (the attribute displays), checkpoints, exports, the
+forest summary and the mesh mode are not ported yet.
 """
 
 from __future__ import annotations
@@ -15,15 +16,43 @@ import numpy as np
 import torch
 
 from . import characteristics as ch
+from . import geo
+from . import hull3d
 from . import interactive as edit
 from . import rbv as rbv_mod
 from . import trunk_axis
-from .cloud import CLASS_TRUNK, DELETED_SEGMENT, PointCloud
+from .cloud import CLASS_TRUNK, DELETED_SEGMENT, PointCloud, include_mask
 from .config import Config, DEFAULT_CONFIG, RenderConfig
 from .device import DEFAULT_DEVICE, resolve
 from .ops import octree as octree_mod
-from .render import Camera, palettes, splat
+from .render import Camera, lines, palettes, splat
 from .segmentation import SegmentationResult, segment_points
+
+# the focused view's own displays; "hag" and the scan's source attributes
+# (io/las.decode_attributes in the JAX package) come with later slices
+FOCUS_DISPLAYS = ("classification", "expansion", "height", "curve", "shaded")
+SOURCE_ATTRIBUTES = ("intensity", "file_classification", "return_number",
+                     "rgb", "gps_time", "nir")
+# Lambert light of the shaded display, unit, y-up
+SHADE_LIGHT = (0.45, 0.76, 0.47)
+
+
+def _evict_oldest(d: dict, cap: int) -> None:
+    """Bound a cache dict to ``cap`` entries, dropping the least recently
+    used (``_lru_get`` refreshes an entry on a hit; dicts keep insertion
+    order).  The focused view's caches hold device tensors, which browsing
+    many segments would otherwise pile up."""
+    while len(d) > cap:
+        d.pop(next(iter(d)))
+
+
+def _lru_get(d: dict, key):
+    """``d.get(key)`` that re-inserts a hit, so ``_evict_oldest`` drops the
+    least recently used entry, not the oldest."""
+    val = d.get(key)
+    if val is not None:
+        d[key] = d.pop(key)
+    return val
 
 
 def full_pipeline(pos: torch.Tensor, valid: torch.Tensor, max_distance: float,
@@ -116,6 +145,30 @@ class Session:
         # move a point), and the LOD subset (pos_c, idx, count)
         self._tree: octree_mod.Octree | None = None
         self._lod: tuple | None = None
+        # the proj string that geo-references the map frame
+        self.source_location = config.interactive.source_location
+        # the focused view's caches; membership-derived, so every edit of
+        # membership, segment() and characteristics() clear them
+        self._clear_focus()
+
+    def _clear_focus(self) -> None:
+        """Drop the focused view's caches:
+
+        - ``_counts_np``: a host copy of ``table.count`` (brute or grid);
+        - ``_focus_cnt_cache``: member counts synced while the table is
+          stale, per segment (at most 64);
+        - ``_focus_idx_cache``: a segment's member rows compacted to a snug
+          buffer, (idx, sub_valid) (at most 8);
+        - ``_focus_prop_cache``: brute-path curvature and normals of those
+          rows, per (kind, segment, k) (at most 16);
+        - ``_focus_grid_cache``: grid-path results of the full cloud, per
+          (kind, segment, k) (at most 2).
+        """
+        self._counts_np: np.ndarray | None = None
+        self._focus_cnt_cache: dict[int, int] = {}
+        self._focus_idx_cache: dict[int, tuple] = {}
+        self._focus_prop_cache: dict[tuple, torch.Tensor] = {}
+        self._focus_grid_cache: dict[tuple, torch.Tensor] = {}
 
     @classmethod
     def from_points(cls, pos: np.ndarray, config: Config = DEFAULT_CONFIG,
@@ -167,6 +220,7 @@ class Session:
         self.table = table
         self._bbox_full = False
         self._counts_stale = False
+        self._clear_focus()
         self._next_id = None
         self._lod = None    # the subset's colours and membership follow ids
         if bool(res.occupied_overflow):
@@ -306,6 +360,7 @@ class Session:
         self.table = table
         self._bbox_full = True
         self._counts_stale = False
+        self._clear_focus()
         return table
 
     def full_table(self) -> ch.SegmentTable:
@@ -317,6 +372,266 @@ class Session:
         if self.table is None or not self._bbox_full or self._counts_stale:
             self.characteristics()
         return self.table
+
+    # ---- the focused view ----------------------------------------------------
+
+    def properties(self) -> tuple[torch.Tensor, torch.Tensor]:
+        """Per-point (expansion, height) of the whole cloud, f32[N] each
+        (CalculationProperties, on demand)."""
+        if self.table is None:
+            self.characteristics()
+        cloud = self.cloud
+        return ch.segment_properties(
+            cloud.pos, cloud.segment, cloud.valid, cloud.classification,
+            self.table, self.config.segmentation.max_segments + 1,
+            self.config.characteristics)
+
+    def _member_mask(self, segment_id: int) -> torch.Tensor:
+        """The full-cloud member mask of a segment."""
+        return self.cloud.valid & (self.cloud.segment == segment_id)
+
+    def _member_and_grid(self, segment_id: int):
+        """(member mask or None, member count, use_grid): segments up to
+        ``NeighborConfig.brute_force_max`` points take the exact brute
+        force, larger ones the grid hash.  The count comes from a host copy
+        of the table's counts; while those are stale (no table, or edited
+        membership) it is synced once per segment and cached.  The
+        full-cloud mask is built only when the count needs it (else None),
+        so a cached focused frame makes no pass over the cloud."""
+        member = None
+        cnt = None
+        if self.table is not None and not self._counts_stale:
+            if self._counts_np is None:
+                self._counts_np = self.table.count.cpu().numpy()
+            if 0 <= segment_id < len(self._counts_np):
+                cnt = int(self._counts_np[segment_id])
+        if cnt is None:
+            cnt = _lru_get(self._focus_cnt_cache, segment_id)
+        if cnt is None:
+            member = self._member_mask(segment_id)
+            cnt = int(member.sum())
+            self._focus_cnt_cache[segment_id] = cnt
+            _evict_oldest(self._focus_cnt_cache, 64)
+        return member, cnt, cnt > self.config.neighbors.brute_force_max
+
+    def _compact_member(self, segment_id: int, member, cnt: int):
+        """(idx, sub_valid): the segment's member rows compacted into a snug
+        buffer, cached per segment.  The brute-force k-NN runs among these
+        rows (a [tile, N] distance tile over the whole cloud would not
+        fit), and a focused frame draws them."""
+        cached = _lru_get(self._focus_idx_cache, segment_id)
+        if cached is not None:
+            return cached
+        if member is None:
+            member = self._member_mask(segment_id)
+        cap = min(octree_mod.snug_capacity(max(int(cnt), 1), headroom=1.0),
+                  self.cloud.capacity)
+        count, idx = octree_mod.compact_indices(member, cap)
+        sub_valid = torch.arange(cap, dtype=torch.int32,
+                                 device=idx.device) < count
+        self._focus_idx_cache[segment_id] = (idx, sub_valid)
+        _evict_oldest(self._focus_idx_cache, 8)
+        return idx, sub_valid
+
+    def _focus_sub(self, kind: str, segment_id: int, member, cnt: int):
+        """(sub, idx, sub_valid): the brute-path curvature ("curve") or
+        normals ("normals") of the compacted member rows, cached per
+        (kind, segment, k) so that repeated focused frames skip the k-NN."""
+        k = self.config.characteristics.neighbors
+        idx, sub_valid = self._compact_member(segment_id, member, cnt)
+        key = (kind, segment_id, k)
+        sub = _lru_get(self._focus_prop_cache, key)
+        if sub is None:
+            fn = (ch.segment_curvature if kind == "curve"
+                  else ch.segment_normals)
+            sub = fn(self.cloud.pos[idx], sub_valid, k=k, use_grid=False)
+            self._focus_prop_cache[key] = sub
+            _evict_oldest(self._focus_prop_cache, 16)
+        return sub, idx, sub_valid
+
+    def _focus_grid(self, kind: str, segment_id: int, member=None):
+        """The grid-path result of a large segment over the whole cloud,
+        cached per (kind, segment, k) (at most 2: each is f32[N] or
+        f32[N,3]).  The member mask is built only on a miss."""
+        k = self.config.characteristics.neighbors
+        key = (kind, segment_id, k)
+        hit = _lru_get(self._focus_grid_cache, key)
+        if hit is not None:
+            return hit
+        if member is None:
+            member = self._member_mask(segment_id)
+        fn = ch.segment_curvature if kind == "curve" else ch.segment_normals
+        res = fn(self.cloud.pos, member, k=k, use_grid=True)
+        self._focus_grid_cache[key] = res
+        _evict_oldest(self._focus_grid_cache, 2)
+        return res
+
+    def _scatter_sub(self, sub: torch.Tensor, idx, sub_valid,
+                     fill: torch.Tensor) -> torch.Tensor:
+        """``fill`` with the compacted rows' values put back at their cloud
+        rows; padding slots drop out."""
+        out = torch.cat([fill, fill[:1]])
+        out[torch.where(sub_valid, idx, fill.shape[0]).long()] = sub
+        return out[:fill.shape[0]]
+
+    def curvature(self, segment_id: int) -> torch.Tensor:
+        """Per-point curvature of a segment, f32[N] (0 off the segment)."""
+        member, cnt, use_grid = self._member_and_grid(segment_id)
+        if use_grid:
+            return self._focus_grid("curve", segment_id, member)
+        sub, idx, sub_valid = self._focus_sub("curve", segment_id, member,
+                                              cnt)
+        return self._scatter_sub(sub, idx, sub_valid, torch.zeros(
+            self.cloud.capacity, dtype=torch.float32, device=self.device))
+
+    def normals(self, segment_id: int) -> torch.Tensor:
+        """Per-point unit surface normals of a segment, f32[N,3] (+y off the
+        segment): the smallest eigenvector of the curvature neighbourhoods'
+        covariance, a capability beyond the reference viewer."""
+        member, cnt, use_grid = self._member_and_grid(segment_id)
+        if use_grid:
+            return self._focus_grid("normals", segment_id, member)
+        sub, idx, sub_valid = self._focus_sub("normals", segment_id, member,
+                                              cnt)
+        up = torch.zeros((self.cloud.capacity, 3), dtype=torch.float32,
+                         device=self.device)
+        up[:, 1] = 1.0
+        return self._scatter_sub(sub, idx, sub_valid, up)
+
+    def segment_coords(self, segment_id: int):
+        """(longitude, latitude) in radians of a segment's box centre through
+        the session's proj string (mod.rs:235-243); None where the string
+        does not parse."""
+        table = self.full_table()
+        try:
+            return geo.segment_coords(self.world_offset,
+                                      table.lo[segment_id].cpu().numpy(),
+                                      table.hi[segment_id].cpu().numpy(),
+                                      self.source_location)
+        except geo.ProjError:
+            return None
+
+    def render_focus(self, segment_id: int, camera: Camera | None = None,
+                     display: str = "classification", show_hull: bool = False,
+                     show_rbv: bool = False, show_axis: bool = False,
+                     hull_include: str = "crown",
+                     rbv_slices: int | None = None,
+                     rbv_sectors: int | None = None, rbv_method: str = "max",
+                     rbv_symmetric: bool = False,
+                     axis_algo: str = "average") -> np.ndarray:
+        """The focused single-tree view (the reference's View mode,
+        interactive/mod.rs:770-800), u8[H,W,3]: the segment's points
+        coloured by ``display`` (one of ``FOCUS_DISPLAYS``), with the crown
+        hull (``hull_include`` is the class filter, hull.rs:15-67), the RBV
+        cage and the trunk axis as optional overlays (the reference's
+        widgets, hull.rs:248-285, trunk_axis.rs:267-293).
+
+        A segment on the brute path is drawn from its cached compacted rows,
+        so the frame and its overlays cost the segment's size, not the
+        cloud's; the scatter-min z-buffer and the overlays' reductions do
+        not depend on the rows' order or padding, so the frame equals the
+        full cloud's.  A grid-path segment draws from the full cloud.
+        """
+        if display == "hag":
+            raise NotImplementedError(
+                "display 'hag' needs the height-above-ground rasters, which "
+                "the port does not have yet (slice 7)")
+        if display in SOURCE_ATTRIBUTES:
+            raise NotImplementedError(
+                f"display {display!r} needs the scan's source attributes, "
+                "which the port does not ingest yet (slice 8a)")
+        if display not in FOCUS_DISPLAYS:
+            raise ValueError(f"unknown display {display!r}")
+        cam = camera if camera is not None else self.camera
+        pal = self.palette
+        rcfg = self.config.render
+        if display in ("expansion", "height") and self.table is None:
+            # before any gather: characteristics() replaces the classes,
+            # which the expansion's crown filter and the overlays read
+            self.characteristics()
+        member, cnt, use_grid = self._member_and_grid(segment_id)
+        cloud = self.cloud
+        if use_grid:
+            f_pos = cloud.pos
+            f_member = (self._member_mask(segment_id) if member is None
+                        else member)
+            f_cls = cloud.classification
+        else:
+            idx, sub_valid = self._compact_member(segment_id, member, cnt)
+            seg_sub = cloud.segment[idx]
+            f_member = sub_valid & cloud.valid[idx] & (seg_sub == segment_id)
+            f_pos = cloud.pos[idx]
+            f_cls = cloud.classification[idx]
+
+        if display == "classification":
+            # Ground, Trunk, Crown -> 1/8, 3/8, 6/8 of the palette
+            # (mod.rs:1031-1039)
+            f_prop = torch.tensor([1 / 8, 3 / 8, 6 / 8], dtype=torch.float32,
+                                  device=self.device)[f_cls.long()]
+        elif display in ("expansion", "height"):
+            if use_grid:
+                exp, hgt = self.properties()
+            else:
+                # the slice areas are segment-local and the rows hold all
+                # of the segment's points, so member rows get the values
+                # of the full cloud's run
+                exp, hgt = ch.segment_properties(
+                    f_pos, seg_sub, f_member, f_cls, self.table,
+                    self.config.segmentation.max_segments + 1,
+                    self.config.characteristics)
+            f_prop = exp if display == "expansion" else hgt
+            if display == "expansion":
+                f_prop = torch.div(f_prop, torch.clamp(
+                    torch.where(f_member, f_prop, 0.0).amax(), min=1e-6))
+        elif display == "curve":
+            f_prop = (self.curvature(segment_id) if use_grid else
+                      self._focus_sub("curve", segment_id, member, cnt)[0])
+        else:   # shaded: Lambert brightness from the k-NN normals
+            nrm = (self.normals(segment_id) if use_grid else
+                   self._focus_sub("normals", segment_id, member, cnt)[0])
+            light = torch.tensor(SHADE_LIGHT, dtype=torch.float32,
+                                 device=self.device)
+            lam = nrm * light
+            lam = torch.clamp((lam[:, 0] + lam[:, 1]) + lam[:, 2], min=0.0)
+            f_prop = 0.15 + 0.85 * lam
+
+        color, z01, _ = splat.render_points(f_pos, f_prop, f_member, cam,
+                                            pal, rcfg)
+
+        overlays = []
+        axis = tf = None
+        if show_rbv or show_axis:
+            axis_fn = (trunk_axis.low_high_layer if axis_algo == "lowhigh"
+                       else trunk_axis.average_direction)
+            axis = axis_fn(f_pos, f_member & (f_cls == CLASS_TRUNK))
+            tf = trunk_axis.axis_transform(axis)
+        if show_hull:
+            h = hull3d.convex_hull(f_pos,
+                                   f_member & include_mask(f_cls, hull_include))
+            if h is not None:
+                overlays.append(h.vertices[hull3d.hull_edges(h.faces)])
+        if show_rbv:
+            kw = dict(transform=tf, symmetric=rbv_symmetric,
+                      method=(rbv_mod.METHOD_MEAN if rbv_method == "mean"
+                              else rbv_mod.METHOD_MAX))
+            if rbv_slices is not None:
+                kw.update(crown_slices=rbv_slices, trunk_slices=rbv_slices)
+            if rbv_sectors is not None:
+                kw.update(crown_sectors=rbv_sectors, trunk_sectors=rbv_sectors)
+            crown, trunk = rbv_mod.split_rbv(f_pos, f_cls, f_member, **kw)
+            overlays += [rbv_mod.rbv_lines(crown), rbv_mod.rbv_lines(trunk)]
+        if show_axis and bool(axis.found):
+            y = f_pos[:, 1]
+            lo_y = float(torch.where(f_member, y, 3e38).amin())
+            hi_y = float(torch.where(f_member, y, -3e38).amax())
+            overlays.append(trunk_axis.axis_lines(axis, hi_y - lo_y))
+
+        for ep in overlays:
+            if len(ep):
+                color = lines.overlay(color, z01,
+                                      torch.as_tensor(ep, device=self.device),
+                                      cam, rcfg)
+        return _u8(splat.eye_dome(color, z01, rcfg))
 
     def inventory(self, method: str = "max", symmetric: bool = False,
                   crown_slices: int = 26, crown_sectors: int = 32,
@@ -400,10 +715,13 @@ class Session:
 
     def _mark_edited(self) -> None:
         """Segment membership changed: the table's rows no longer describe
-        the cloud, so ``full_table()`` must recompute.  (The focused view's
-        caches, which slice 6 adds, and the height-above-ground cache,
-        which slice 7 adds, are cleared here too once they exist.)"""
+        the cloud, so ``full_table()`` must recompute, and the focused
+        view's routing must not trust the table's counts (a combine() that
+        folds a large segment into a small id would otherwise send it to
+        the O(N^2) brute force).  (The height-above-ground cache, which
+        slice 7 adds, is cleared here too once it exists.)"""
         self._counts_stale = True
+        self._clear_focus()
 
     def _radius(self, radius) -> float:
         return (radius if radius is not None
@@ -432,6 +750,7 @@ class Session:
         every stroke (mod.rs:182-221)."""
         self.cloud = edit.change_classification(
             self.cloud, center, self._radius(radius), classification, segment)
+        self._clear_focus()
         if self.table is not None:
             self.update_separators_from_classes(segment)
 
@@ -445,6 +764,7 @@ class Session:
         self.table = ch.update_separators_from_classes(
             cloud.pos, cloud.segment, cloud.valid, cloud.classification,
             self.table, segment_id)
+        self._counts_np = None
 
     def combine(self, a: int, b: int) -> None:
         """Merge segment ``a`` into ``b``."""

@@ -1,6 +1,8 @@
-"""Radial bounding volumes (RBVs) and forestry traits of every segment at
-once, the PyTorch port of the batched functions of ``treee_tpu/rbv.py``
-(treee/src/interactive/hull.rs:631-995).
+"""Radial bounding volumes (RBVs) and forestry traits, the PyTorch port of
+``treee_tpu/rbv.py`` (treee/src/interactive/hull.rs:631-995): of one
+focused tree (``build_rbv``, ``split_rbv``, ``traits``, ``landmarks``,
+``rbv_lines``, ``split_landmarks``) and of every segment at once (the
+batched forms).
 
 Each segment's crown and trunk points move into the segment's trunk-axis
 frame and are binned into ``slices`` x ``sectors`` cells around the axis;
@@ -17,19 +19,30 @@ grid is an f32 scatter-max, which takes no order.  The mean grid's sums
 are not scattered with float atomics: the rows are sorted by cell and summed
 by the CUDA kernel ``segmented_cumsum``, so they repeat bit for bit on the
 card.
+
+A single tree's RBV is centred on its axis frame when one is given, else on
+the midpoint of two farthest points (p farthest from the (x, z) centroid, q
+farthest from p: the parallel stand-in for the reference's Ritter pass,
+hull.rs:707-726).  Its max grid is a scatter-max; its mean grid's sums are
+``ordered_sums`` (row order on the CPU, as XLA's scatter-add; sorted and
+scanned on the card).  ``atan2`` may differ between devices in the last
+bit, which moves a point across a sector edge only where it lies on one.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import json
 import math
+
+import numpy as np
 
 import torch
 
 from .cloud import CLASS_CROWN, CLASS_TRUNK
 from .ops import kernels
-from .ops.kernels.dilate import full
-from .ops.sums import sums_by_key
+from .ops.kernels.dilate import div, full
+from .ops.sums import ordered_sums, sums_by_key
 
 INF = 3.0e38
 
@@ -54,6 +67,24 @@ class Traits:
     stem_volume: torch.Tensor
     wood_volume: torch.Tensor
 
+    def to_json(self) -> str:
+        """One tree's traits as a JSON object of floats."""
+        return json.dumps({k: float(getattr(self, k)) for k in TRAITS},
+                          indent=2)
+
+
+@dataclasses.dataclass
+class RadialBoundingVolume:
+    """One tree's distance grid and cylinder frame (hull.rs:631-645)."""
+
+    center: torch.Tensor        # f32[2] (x, z) in axis space
+    min_y: torch.Tensor         # f32 cylinder base height
+    slice_height: torch.Tensor  # f32
+    distances: torch.Tensor     # f32[slices * sectors]
+    transform: torch.Tensor     # f32[4,4] axis frame (identity when untilted)
+    slices: int
+    sectors: int
+
 
 @dataclasses.dataclass
 class BatchedRBV:
@@ -64,12 +95,6 @@ class BatchedRBV:
     distances: torch.Tensor     # f32[S, slices*sectors]
     slices: int
     sectors: int
-
-
-def div(a: torch.Tensor, b: float) -> torch.Tensor:
-    """``a / b`` for a Python number ``b``, rounded once as IEEE and XLA
-    divide (see ``dilate.full``)."""
-    return torch.div(a, full(b, a))
 
 
 def run_fill(key_s, left, right, table: torch.Tensor) -> torch.Tensor:
@@ -230,3 +255,184 @@ def batched_traits(crown: BatchedRBV, trunk: BatchedRBV) -> Traits:
         crown_projected_area=crown_projected_area, crown_volume=crown_volume,
         crown_surface=crown_surface, stem_volume=stem_volume,
         wood_volume=wood_volume)
+
+
+def _apply_inverse(tf: torch.Tensor, pos: torch.Tensor):
+    """(x, y, z) of ``(pos - t) @ R`` for the rigid frame ``tf`` f32[4,4]
+    (R^-1 = R^T), as f32 products and adds, not a matrix multiply."""
+    p = pos - tf[:3, 3]
+    return [(p[:, 0] * tf[0, j] + p[:, 1] * tf[1, j]) + p[:, 2] * tf[2, j]
+            for j in range(3)]
+
+
+def build_rbv(pos: torch.Tensor, mask: torch.Tensor, slices: int = 8,
+              sectors: int = 8, method: int = METHOD_MAX,
+              symmetric: bool = False,
+              transform: torch.Tensor | None = None) -> RadialBoundingVolume:
+    """The RBV of the masked points (hull.rs:656-858), in the axis frame
+    ``transform`` (centred on the axis) or untilted (centred on the two
+    farthest points' midpoint)."""
+    dev = pos.device
+    tf = (transform if transform is not None
+          else torch.eye(4, dtype=torch.float32, device=dev))
+    x, y, z = _apply_inverse(tf, pos)
+    any_pt = mask.any()
+    min_y = torch.where(any_pt, torch.where(mask, y, INF).amin(), 0.0)
+    max_y = torch.where(any_pt, torch.where(mask, y, -INF).amax(), 1.0)
+
+    if transform is not None:
+        center = torch.zeros(2, dtype=torch.float32, device=dev)
+    else:
+        xz = torch.stack([x, z], dim=-1)
+        n = torch.clamp(mask.float().sum(), min=1.0)
+        centroid = torch.div(torch.where(mask[:, None], xz, 0.0).sum(dim=0),
+                             n)
+
+        def farthest_from(c):
+            d = xz - c
+            return xz[torch.argmax(torch.where(
+                mask, d[:, 0] * d[:, 0] + d[:, 1] * d[:, 1], -1.0))]
+
+        pa = farthest_from(centroid)
+        pb = farthest_from(pa)
+        center = torch.where(any_pt, div(pa + pb, 2.0), 0.0)
+
+    slice_h = torch.clamp(div(max_y - min_y, slices), min=1e-6)
+    sector_angle = 2.0 * math.pi / sectors
+    si = torch.clamp(torch.div(y - min_y, slice_h).to(torch.int32), 0,
+                     slices - 1)
+    dx = x - center[0]
+    dz = z - center[1]
+    dist = torch.sqrt(dx * dx + dz * dz)
+    ang = torch.atan2(dz, dx) + 2.0 * math.pi
+    sec = torch.clamp(torch.remainder(div(ang, sector_angle), sectors)
+                      .to(torch.int32), 0, sectors - 1)
+    cells = slices * sectors
+    bucket = torch.where(mask, si * sectors + sec, cells)
+    if method == METHOD_MAX:
+        d = torch.zeros(cells + 1, dtype=torch.float32, device=dev)
+        d.scatter_reduce_(0, bucket.long(), torch.where(mask, dist, 0.0),
+                          "amax")
+        d = d[:cells]
+    else:
+        tab = ordered_sums(bucket, torch.stack(
+            [torch.where(mask, dist, 0.0), mask.float()], dim=1), cells)
+        d = torch.div(tab[:, 0], torch.clamp(tab[:, 1], min=1.0))
+    if symmetric and sectors % 2 == 0:
+        dg = d.view(slices, sectors)
+        half = sectors // 2
+        avg = div(dg[:, :half] + dg[:, half:], 2.0)
+        d = torch.cat([avg, avg], dim=1).reshape(-1)
+    return RadialBoundingVolume(center=center, min_y=min_y,
+                                slice_height=slice_h, distances=d,
+                                transform=tf, slices=slices, sectors=sectors)
+
+
+def landmarks(rbv: RadialBoundingVolume, base,
+              interpolate_height: bool) -> torch.Tensor:
+    """Characteristic points, flat f32[slices*sectors*3] (hull.rs:880-904),
+    as [cos*d, sin*d, height] with the height third: the reference's
+    landmark text format, not the y-up convention.  ``interpolate_height``
+    spreads the layers over 0..1 (Ground/NoCrown volumes, hull.rs:891-898)
+    where the others take mid-slice (0.5)."""
+    s, k = rbv.slices, rbv.sectors
+    dev = rbv.distances.device
+    sector_angle = 2.0 * math.pi / k
+    si = torch.arange(s, dtype=torch.float32, device=dev).repeat_interleave(k)
+    ki = torch.arange(k, dtype=torch.float32, device=dev).repeat(s)
+    ang = (ki + 0.5) * sector_angle
+    d = rbv.distances
+    off = div(si, max(s - 1, 1)) if interpolate_height else 0.5
+    yy = base + (si + off) * rbv.slice_height
+    return torch.stack([torch.cos(ang) * d, torch.sin(ang) * d, yy],
+                       dim=-1).reshape(-1)
+
+
+def traits(crown: RadialBoundingVolume,
+           trunk: RadialBoundingVolume) -> Traits:
+    """One tree's traits from its split RBV (hull.rs:926-995 formulas):
+    :func:`batched_traits` of one row."""
+    def row(r):
+        return BatchedRBV(min_y=r.min_y[None],
+                          slice_height=r.slice_height[None],
+                          distances=r.distances[None], slices=r.slices,
+                          sectors=r.sectors)
+
+    tr = batched_traits(row(crown), row(trunk))
+    return Traits(**{k: getattr(tr, k)[0] for k in TRAITS})
+
+
+def split_rbv(pos: torch.Tensor, classification: torch.Tensor,
+              mask: torch.Tensor, transform: torch.Tensor | None = None,
+              crown_slices: int = 26, crown_sectors: int = 32,
+              trunk_slices: int = 5, trunk_sectors: int = 32,
+              method: int = METHOD_MAX, symmetric: bool = False,
+              ) -> tuple[RadialBoundingVolume, RadialBoundingVolume]:
+    """Crown 26x32 + trunk 5x32 split (hull.rs:185-208 defaults); ``method``
+    and ``symmetric`` are the reference's RBV widgets (hull.rs:248-285)."""
+    crown = build_rbv(pos, mask & (classification == CLASS_CROWN),
+                      slices=crown_slices, sectors=crown_sectors,
+                      transform=transform, method=method, symmetric=symmetric)
+    trunk = build_rbv(pos, mask & (classification == CLASS_TRUNK),
+                      slices=trunk_slices, sectors=trunk_sectors,
+                      transform=transform, method=method, symmetric=symmetric)
+    return crown, trunk
+
+
+def rbv_lines(rbv: RadialBoundingVolume, arc_detail: int = 4) -> np.ndarray:
+    """Wireframe cage endpoints f32[L,2,3] (hull.rs:780-841 geometry), on
+    the host.
+
+    Per slice the centre vertical, then per sector the radials at both
+    heights, the outer vertical edge, and an ``arc_detail``-segment arc at
+    each height, in the JAX package's order; mapped back through the axis
+    frame (``transform * p``, hull.rs:784-786).  Built as arrays in f64 and
+    rounded to f32 once, where the JAX package loops over the ~10k lines in
+    Python and rounds some coordinates to f32 on the way (so the two agree
+    to about an f32 ulp of the coordinates).
+    """
+    s, k, arcs = rbv.slices, rbv.sectors, arc_detail
+    d = rbv.distances.cpu().numpy().astype(np.float64).reshape(s, k, 1)
+    cx, cz = (float(v) for v in rbv.center.cpu())
+    min_y, sh = float(rbv.min_y), float(rbv.slice_height)
+    sector_angle = 2.0 * math.pi / k
+    tf = rbv.transform.cpu().numpy().astype(np.float64)
+
+    # the sector's arc points p_0 .. p_arcs at angles a0 + angle * j / arcs
+    ang = (sector_angle * np.arange(k)[:, None]
+           + sector_angle * np.arange(arcs + 1)[None, :] / arcs)
+    px = np.broadcast_to(cx + np.cos(ang) * d, (s, k, arcs + 1))
+    pz = np.broadcast_to(cz + np.sin(ang) * d, (s, k, arcs + 1))
+    y0 = np.broadcast_to((min_y + sh * np.arange(s))[:, None, None],
+                         (s, k, arcs + 1))
+    y1 = np.broadcast_to((min_y + sh * (np.arange(s) + 1))[:, None, None],
+                         (s, k, arcs + 1))
+
+    def at(x, y, z):
+        return np.stack(np.broadcast_arrays(x, y, z), axis=-1)
+
+    c0 = at(cx, y0[..., 0], cz)                       # [s,k,3]
+    c1 = at(cx, y1[..., 0], cz)
+    q0 = at(px, y0, pz)                               # [s,k,arcs+1,3]
+    q1 = at(px, y1, pz)
+    per_sector = [np.stack([c0, q0[:, :, 0]], axis=2),
+                  np.stack([c1, q1[:, :, 0]], axis=2),
+                  np.stack([q0[:, :, 0], q1[:, :, 0]], axis=2)]
+    for j in range(1, arcs + 1):
+        per_sector.append(np.stack([q0[:, :, j - 1], q0[:, :, j]], axis=2))
+        per_sector.append(np.stack([q1[:, :, j - 1], q1[:, :, j]], axis=2))
+    sectors = np.stack(per_sector, axis=2).reshape(s, -1, 2, 3)
+    centre = np.stack([c0[:, 0], c1[:, 0]], axis=1)[:, None]
+    lines = np.concatenate([centre, sectors], axis=1).reshape(-1, 2, 3)
+    return (lines @ tf[:3, :3].T + tf[:3, 3]).astype(np.float32)
+
+
+def split_landmarks(crown: RadialBoundingVolume,
+                    trunk: RadialBoundingVolume) -> np.ndarray:
+    """Landmark export of the split RBV: trunk rows, crown rows, then the
+    apex (hull.rs:398-402)."""
+    lm_t = landmarks(trunk, 0.0, interpolate_height=False).cpu().numpy()
+    base = float(crown.min_y - trunk.min_y)
+    lm_c = landmarks(crown, base, interpolate_height=False).cpu().numpy()
+    top = base + float(crown.slice_height) * crown.slices
+    return np.concatenate([lm_t, lm_c, [0.0, 0.0, top]])

@@ -1,6 +1,7 @@
-"""Trunk axes of every segment at once, the PyTorch port of the batched
-functions of ``treee_tpu/trunk_axis.py`` (treee/src/interactive/
-trunk_axis.rs:108-232).
+"""Trunk axes, the PyTorch port of ``treee_tpu/trunk_axis.py``
+(treee/src/interactive/trunk_axis.rs:108-232): of one focused tree
+(``average_direction``, ``low_high_layer``, ``axis_transform``,
+``axis_lines``) and of every segment at once (the batched forms below).
 
 - ``batched_average_direction``: split each trunk into ``layers`` horizontal
   layers; origin = mean (x, z) of the points 0.4-0.6 m above the trunk's base
@@ -15,8 +16,11 @@ trunk_axis.rs:108-232).
   a segmented cumsum, so they repeat bit for bit on the card.
 - ``batched_axis_transform``: each axis's 4x4 frame (trunk_axis.rs:56-70).
 
-Float sums take another order than the JAX package's scatter-adds, so the
-axes agree with it to float rounding, not bit for bit.
+The batched forms' float sums take another order than the JAX package's
+scatter-adds, so their axes agree with it to float rounding, not bit for
+bit.  The single-tree forms reuse the batched tails with one row; their
+layer sums are ``ordered_sums`` (row order on the CPU, as XLA's
+scatter-add; a fixed order on the card), their other sums reductions.
 """
 
 from __future__ import annotations
@@ -26,8 +30,8 @@ import dataclasses
 import torch
 
 from . import rbv
-from .ops import kernels
-from .ops.sums import sums_by_key
+from .ops import eigen, kernels
+from .ops.sums import ordered_sums, sums_by_key
 
 INF = 3.0e38
 
@@ -43,13 +47,6 @@ def _norm(v: torch.Tensor) -> torch.Tensor:
     """Euclidean norm over the last axis of size 3, summed in index order."""
     return torch.sqrt(v[..., 0] * v[..., 0] + v[..., 1] * v[..., 1]
                       + v[..., 2] * v[..., 2])
-
-
-def _cross(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """a x b over the last axis, as separate products and differences."""
-    return torch.stack([a[..., 1] * b[..., 2] - a[..., 2] * b[..., 1],
-                        a[..., 2] * b[..., 0] - a[..., 0] * b[..., 2],
-                        a[..., 0] * b[..., 1] - a[..., 1] * b[..., 0]], dim=-1)
 
 
 def _up(like: torch.Tensor) -> torch.Tensor:
@@ -193,12 +190,97 @@ def batched_axis_transform(axes: TrunkAxis) -> torch.Tensor:
     s = yv.shape[0]
     ez = torch.zeros_like(yv)
     ez[:, 2] = 1.0
-    xv = _cross(yv, ez)
+    xv = eigen.cross(yv, ez)
     xv = xv / torch.clamp(_norm(xv)[:, None], min=1e-6)
-    zv = _cross(xv, yv)
+    zv = eigen.cross(xv, yv)
     m = torch.eye(4, dtype=torch.float32, device=yv.device).repeat(s, 1, 1)
     m[:, :3, 0] = xv
     m[:, :3, 1] = yv
     m[:, :3, 2] = zv
     m[:, :3, 3] = axes.origin
     return m
+
+
+def _masked_minmax_y(pos: torch.Tensor, mask: torch.Tensor):
+    """(lo, hi, found) of the masked y, each f32[1] (bool[1])."""
+    y = pos[:, 1]
+    found = mask.any()[None]
+    lo = torch.where(mask, y, INF).amin()[None]
+    hi = torch.where(mask, y, -INF).amax()[None]
+    return torch.where(found, lo, 0.0), torch.where(found, hi, 0.0), found
+
+
+def _single(axis: TrunkAxis) -> TrunkAxis:
+    return TrunkAxis(origin=axis.origin[0], direction=axis.direction[0],
+                     found=axis.found[0])
+
+
+def average_direction(pos: torch.Tensor, mask: torch.Tensor,
+                      layers: int = 10) -> TrunkAxis:
+    """AverageDirection of the masked points (trunk_axis.rs:108-178):
+    origin[3], direction[3] and found of one tree."""
+    lo, hi, found = _masked_minmax_y(pos, mask)
+    x, y, z = pos[:, 0], pos[:, 1], pos[:, 2]
+    band = mask & (y >= lo + 0.4) & (y < lo + 0.6)
+    band_n = band.float().sum()[None]
+    band_x = torch.where(band, x, 0.0).sum()[None]
+    band_z = torch.where(band, z, 0.0).sum()[None]
+    layer_h = torch.clamp(rbv.div(hi - lo, layers), min=1e-6)
+    li = torch.clamp(torch.div(y - lo, layer_h).to(torch.int32), 0,
+                     layers - 1)
+    tgt = torch.where(mask, li, layers)
+    sums = ordered_sums(tgt, torch.stack(
+        [torch.where(mask, x, 0.0), torch.where(mask, z, 0.0),
+         mask.float()], dim=1), layers)
+    return _single(_axis_from_tables(
+        lo, hi, found, layer_h, band_n, band_x, band_z, sums[None, :, 0],
+        sums[None, :, 1], sums[None, :, 2], layers))
+
+
+def low_high_layer(pos: torch.Tensor, mask: torch.Tensor,
+                   layer_width: float = 1.0) -> TrunkAxis:
+    """LowHighLayer of the masked points (trunk_axis.rs:181-232): the means
+    of the lowest and highest ``layer_width`` bands, connected."""
+    lo, hi, found = _masked_minmax_y(pos, mask)
+    x, y, z = pos[:, 0], pos[:, 1], pos[:, 2]
+    # the layer, floored: a flat trunk (hi == lo) would leave both bands empty
+    layer = torch.clamp(torch.minimum(rbv.full(layer_width, lo),
+                                      rbv.div(hi - lo, 2.0)), min=1e-3)
+    low = mask & (y - lo < layer)
+    high = mask & (hi - y < layer)
+
+    def mean_xz(m):
+        n = torch.clamp(m.float().sum(), min=1.0)
+        return (torch.div(torch.where(m, x, 0.0).sum(), n),
+                torch.div(torch.where(m, z, 0.0).sum(), n))
+
+    (lmx, lmz), (hmx, hmz) = mean_xz(low), mean_xz(high)
+    origin = torch.stack([lmx, lo[0], lmz])
+    target = torch.stack([hmx, hi[0], hmz])
+    direction = target - origin
+    norm = _norm(direction)
+    up = _up(pos)
+    direction = torch.where(norm > 1e-6,
+                            direction / torch.clamp(norm, min=1e-6), up)
+    direction = torch.where(found, direction, up)
+    origin = torch.where(found, origin, 0.0)
+    return TrunkAxis(origin=origin, direction=direction, found=found[0])
+
+
+def axis_transform(axis: TrunkAxis) -> torch.Tensor:
+    """4x4 affine frame with y = the trunk direction at the origin
+    (trunk_axis.rs:56-70)."""
+    return batched_axis_transform(TrunkAxis(
+        origin=axis.origin[None], direction=axis.direction[None],
+        found=axis.found[None]))[0]
+
+
+def axis_lines(axis: TrunkAxis, scale) -> torch.Tensor:
+    """Render lines of an axis: the axis and a ground cross, f32[3,2,3]
+    endpoints (TrunkAxisRender, trunk_axis.rs:24-43)."""
+    o, d = axis.origin, axis.direction
+    ex = torch.tensor([2.5, 0.0, 0.0], dtype=torch.float32, device=o.device)
+    ez = torch.tensor([0.0, 0.0, 2.5], dtype=torch.float32, device=o.device)
+    return torch.stack([torch.stack([o, o + d * scale]),
+                        torch.stack([o - ex, o + ex]),
+                        torch.stack([o - ez, o + ez])])
