@@ -7,7 +7,8 @@ Needs one CUDA card and the CUDA toolkit; it exits non-zero without them.
 Phases, each of which raises on failure:
 
 0. The device: the card's name and power limit, the toolchain, the build
-   of the port's eight CUDA kernels from ``treee_tpu_torch/ops/kernels/csrc``
+   of the port's CUDA kernels (the eight TPU kernels' and the rasters'
+   grid flood) from ``treee_tpu_torch/ops/kernels/csrc``
    (into ``build/treee_tpu_torch/``).
 1-7. Each kernel of a path on the card at the shapes its path gives it (its
    inputs are recorded from one run of the main path, one ``Session.render``,
@@ -93,6 +94,24 @@ Phases, each of which raises on failure:
    difference) and a second call from the cache.  Times of each call and
    stage, ``torch.profiler``'s top device ops, the peak memory.
 
+16. The rasters of the segmented 15M scan, the counters zeroed before and
+   read after each call: ``Session.rasters`` at 0.5 m (512x512 padded cells)
+   and 0.1 m (2304x2304, the flood's first step 2048), whose floods launch
+   the grid entry of ``jump_flood.cu``; every raster flood of the phase is
+   held byte for byte against the plain flood on its input, then timed
+   against it with its bound; the DTM, DSM and CHM equal a second card run
+   and the plain run bit for bit; ``height_above_ground`` (1 m) and
+   ``hag_prop`` (cached), the ``hag`` focus frame of the largest tree over
+   the 8 orbit cameras, byte-equal to the plain versions'; ``export_raster``
+   of each raster to a temporary directory; ``forest_summary()``.  Then a
+   second epoch built as tests/test_change.py:121-151 builds it, at full
+   scale (canopy 15% higher, tree 0 felled, a tree planted, another world
+   offset): ``chm_change`` (growth on average, a felled patch; a null
+   self-compare), ``tree_changes`` (the felled tree lost, the planted tree
+   new, every matched tree that keeps its points within SAME_TREE_POINTS
+   grown; a null self-compare) and ``stand_changes``.  Times of each call and stage, the
+   floods' CUDA launches.
+
 Phase 12 also holds the small scene's focused view card against CPU:
 eigen, both k-NNs, properties, curvature, normals, the axes, RBVs, hull
 candidates and frames.
@@ -108,11 +127,13 @@ import contextlib
 import dataclasses
 import importlib.util
 import json
+import os
 import re
 import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -167,10 +188,17 @@ KERNELS = (
      "treee_tpu/ops/pallas_kernels.py:32"),
     ("take_along_axis", "treee_tpu_torch/ops/kernels/csrc/take_along.cu",
      "tools/probe_extract.py:97"),
+    # the rasters' flood: the grid entry of jump_flood.cu (the JAX package
+    # floods its rasters with XLA rolls, treee_tpu/rasters.py:85, the same
+    # jump flood as _jfa_kernel)
+    ("jump_flood_grid", "treee_tpu_torch/ops/kernels/csrc/jump_flood.cu",
+     "treee_tpu/ops/pallas_kernels.py:32"),
 )
-# the kernels that the system's paths run (phases 1-7); the gather probe's
-# kernel has only the probe tool's path (phase 13)
-PATH_KERNELS = tuple(k for k, _, _ in KERNELS if k != "take_along_axis")
+# the kernels that phases 1-7 hold against their plain versions on the
+# paths' recorded inputs; the gather probe's kernel has only the probe
+# tool's path (phase 13), the rasters' flood phase 16
+PATH_KERNELS = tuple(k for k, _, _ in KERNELS
+                     if k not in ("take_along_axis", "jump_flood_grid"))
 # the card's centroid sums run through segmented_cumsum on every path
 MAIN_PATH_KERNELS = ("cc_sweep", "match_scan", "segmented_cummax",
                      "segmented_cumsum")
@@ -219,6 +247,27 @@ TRAITS_RTOL, TRAITS_ATOL = 2e-3, 1e-5
 GRID_CELL = 0.5
 # the focus camera's distance in front of the tree
 FOCUS_DISTANCE = 30.0
+# the rasters (phase 16): forest_summary's 0.5 m CHM, a 0.1 m raster (2304
+# cells a side, 4096 the flood's first step) and the hag display's 1 m DTM
+RASTER_CELLS = (0.5, 0.1)
+HAG_CELL = 1.0
+# epoch B, as tests/test_change.py:121-151 builds it at full scale: canopy
+# points (tree points above 0.3 m) 15% higher, tree 0 felled, tree 1 planted
+# again 63 m east and 210 m south (grid cell 10 of the last row, which the
+# 937 trees leave empty), the scan recentred by another world offset
+GROWTH = 1.15
+PLANT_SHIFT = (63.0, 0.0, 210.0)
+EPOCH_B_OFFSET = (10.0, 0.0, 5.0)
+CHANGE_MAX_DIST = 2.0
+# a felled or planted tree must show up within this many metres of its stem
+# (tests/test_change.py:184-193)
+STEM_TOLERANCE = 4.0
+# a matched pair whose point count changed by at most this share holds the
+# same tree in both epochs, and must have grown; where crowns touch, the
+# two epochs' segmentations may split them otherwise (on the 15M scan
+# every pair that did not grow had changed by >= 12.9%), and at least half
+# of the matched pairs must be such pairs
+SAME_TREE_POINTS = 0.10
 
 
 def log(*args) -> None:
@@ -294,7 +343,8 @@ def work(name: str, args: tuple, kernels) -> tuple[int, int]:
     per round;
     the scans one per value; dilate ~12 per pixel, direction and pass;
     eye_dome ~40 per pixel; jump_flood 8 per cell and direction in the
-    bands that hold a seed (a band without one is its input copied);
+    bands that hold a seed (a band without one is its input copied), and
+    jump_flood_grid likewise over its one grid;
     take_along_axis one per output)."""
     if name == "cc_sweep":
         lbl, sweeps = args[:2]
@@ -324,6 +374,11 @@ def work(name: str, args: tuple, kernels) -> tuple[int, int]:
     if name == "take_along_axis":
         tab, idx = args[:2]
         return 4 * (tab.numel() + 2 * idx.numel()), idx.numel()
+    if name == "jump_flood_grid":
+        slot, pos, cc, steps = args[:4]
+        seeded = int(bool((slot >= 0).any()))
+        return (4 * (2 * slot.numel() + pos.numel() + cc.numel()),
+                8 * 8 * len(steps) * seeded * slot.numel())
     raise KeyError(name)
 
 
@@ -1093,7 +1148,8 @@ def focus_card_vs_cpu(pts, cfg, segment, cam, pipeline, dev) -> None:
         if ok < 0.999:
             raise AssertionError(f"render_focus({kw}): card and CPU within 1 "
                                  f"on only {ok:.5f} of the pixels")
-    notes.append(f"6 focus frames within 1 per channel on >= {worst:.5f} of "
+    notes.append(f"{len(pipeline.FOCUS_DISPLAYS) + 1} focus frames within 1 "
+                 f"per channel on >= {worst:.5f} of "
                  "the pixels")
     log(f"  small scene, focused view of segment {sid}: " + "; ".join(notes))
 
@@ -1155,6 +1211,36 @@ def overlay_stages(session, sid, cam, trunk_axis, rbv, splat) -> dict:
     return stages
 
 
+def raster_stages(session, cell: float, rasters) -> dict:
+    """Host-clock ms of each stage of ``Session.rasters(cell)`` as
+    ``compute_rasters`` runs them (median of MAIN_PATH_REPS)."""
+    cloud = session.cloud
+    stages = {}
+    timed = stage_timer(stages, MAIN_PATH_REPS)
+    live, lo, hi = timed("live mask + bounds to the host",
+                         session._live_bounds)
+    (rows, cols), shape, cell = rasters.grid_dims(lo, hi, cell)
+    pos = cloud.pos
+    ground = live & (cloud.classification == rasters.CLASS_GROUND)
+    scale = (rasters.f32(lo[0], pos), rasters.f32(lo[2], pos),
+             rasters.f32(1.0 / cell, pos))
+    dtm, dsm = timed("height_grids (cell index, scatter-min and -max)",
+                     lambda: rasters.height_grids(pos, ground, live, *scale,
+                                                  shape, (rows, cols)))
+    n_dirs = 8 * len(rasters.jfa_steps(*shape))
+    timed(f"jfa_fill {shape[0]}x{shape[1]}, {n_dirs} directions",
+          lambda: rasters.jfa_fill(dtm, dtm < rasters.BIG))
+    timed("finalize_rasters (the flood, NODATA, window, host copy)",
+          lambda: rasters.finalize_rasters(dtm, dsm, rows, cols))
+    return stages
+
+
+def stem(points: np.ndarray) -> np.ndarray:
+    """(x, z) of a synthetic tree's stem: the median of its points below
+    2 m (its trunk)."""
+    return np.median(points[points[:, 1] < 2.0][:, [0, 2]], axis=0)
+
+
 def nearest_trees(table, sid: int, need: int) -> list[int]:
     """Segment ids nearest to ``sid`` by box centre, as many as bring its
     count past ``need``."""
@@ -1179,8 +1265,8 @@ def main() -> int:
               "needs a CUDA card", file=sys.stderr)
         return 1
     from treee_tpu_torch import config as tconfig
-    from treee_tpu_torch import (characteristics, pipeline, rbv, segmentation,
-                                 trunk_axis)
+    from treee_tpu_torch import (change, characteristics, pipeline, rasters,
+                                 rbv, segmentation, trunk_axis)
     from treee_tpu_torch.io import las
     from treee_tpu_torch.ops import eigen, kernels, neighbors, octree
     from treee_tpu_torch.ops.kernels import build
@@ -2043,6 +2129,252 @@ def main() -> int:
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; phase "
         f"{time.perf_counter() - t_phase:.1f} s")
     del session, inv, curve, nrm, g_curve, b_curve, pos_c, pos_sub
+
+    # --- phase 16: rasters, height above ground, summary, change ---
+    log("phase 16: rasters of the segmented scan (DTM/DSM/CHM at "
+        f"{' and '.join(map(str, RASTER_CELLS))} m), height above ground "
+        f"({HAG_CELL} m) and hag focus frames, export_raster, "
+        "forest_summary, then change detection against a second epoch")
+    t_phase = time.perf_counter()
+    session = pipeline.Session.from_points(pts, device=dev)
+    session.segment(MAX_DISTANCE)
+    ppt, n_tree_pts = POINTS_PER_TREE, N_TREES * POINTS_PER_TREE
+    grown = pts.copy()
+    canopy = np.zeros(n, bool)
+    canopy[:n_tree_pts] = pts[:n_tree_pts, 1] > 0.3
+    grown[canopy, 1] *= np.float32(GROWTH)
+    planted = grown[ppt:2 * ppt] + np.array(PLANT_SHIFT, np.float32)
+    off_b = np.array(EPOCH_B_OFFSET)
+    pts_b = (np.concatenate([grown[ppt:], planted])
+             - off_b[None, :].astype(np.float32))
+    epoch_b = pipeline.Session.from_points(pts_b, world_offset=off_b,
+                                           device=dev)
+    epoch_b.segment(MAX_DISTANCE)
+    del grown, canopy, pts_b
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    raster_launches = dict.fromkeys(PATH_KERNELS + ("jump_flood_grid",), 0)
+    counted = launch_counter(kernels, raster_launches)
+
+    # (a) every flood of the phase's raster calls against the plain flood on
+    # the same input, in a pass of its own
+    flood_kernel = kernels.jump_flood_grid
+    flood_calls, flood_log = [], []
+
+    def flood_checked(slot, at, cc, steps):
+        out = flood_kernel(slot, at, cc, steps)
+        if not torch.equal(out, kernels.jump_flood_grid_plain(slot, at, cc,
+                                                              steps)):
+            raise AssertionError(f"jump_flood_grid at {list(slot.shape)}: "
+                                 "the kernel differs from the plain flood")
+        sig = (tuple(slot.shape), tuple(at.shape), tuple(cc.shape))
+        if all(s != sig for s, _ in flood_calls):
+            flood_calls.append((sig, (slot.clone(), at.clone(), cc.clone(),
+                                      list(steps))))
+        flood_log.append(f"{slot.shape[0]}x{slot.shape[1]} "
+                         f"({8 * len(steps)} directions, "
+                         f"{2 + 8 * len(steps)} CUDA launches)")
+        return out
+
+    with swapped(kernels, jump_flood_grid=flood_checked):
+        checked = {c: session.rasters(c) for c in RASTER_CELLS}
+        checked_hag = session.height_above_ground(HAG_CELL)
+        change.chm_change(session, epoch_b, cell=RASTER_CELLS[0])
+    log(f"  {len(flood_log)} raster floods, each byte-equal to the plain "
+        f"flood on the same input: {'; '.join(flood_log)}")
+    results["jump_flood_grid"] = check_kernel(
+        "jump_flood_grid", kernels, flood_calls, device=True)
+
+    # (b) the rasters: kernel runs, a second card run and the plain run
+    for cell in RASTER_CELLS:
+        (grids, ll, out_cell), r_ms = counted(
+            lambda: session.rasters(cell), ("jump_flood_grid",),
+            f"rasters({cell})")
+        again = session.rasters(cell)
+        with swapped(kernels, **plain):
+            plain_grids = session.rasters(cell)[0]
+        for k, g in grids.items():
+            if (g.tobytes() != checked[cell][0][k].tobytes()
+                    or g.tobytes() != again[0][k].tobytes()):
+                raise AssertionError(f"rasters({cell}) {k}: a second card "
+                                     "run gave other bits")
+            if g.tobytes() != plain_grids[k].tobytes():
+                raise AssertionError(f"rasters({cell}) {k}: the plain run "
+                                     "gave other bits")
+        dtm, dsm, chm = grids["dtm"], grids["dsm"], grids["chm"]
+        if not ((dtm != rasters.NODATA).all() and np.isfinite(dtm).all()
+                and (chm != rasters.NODATA).any()
+                and float(chm[chm != rasters.NODATA].max()) > 5.0):
+            raise AssertionError(f"rasters({cell}): DTM holes or no canopy")
+        warm, warm_t = timed_ms(lambda: session.rasters(cell), MAIN_PATH_REPS)
+        log(f"  rasters({cell}): {dtm.shape[0]}x{dtm.shape[1]} live cells, "
+            f"cell {out_cell}, corner {ll}; {r_ms:.2f} ms first, median "
+            f"{warm:.2f} ms of {MAIN_PATH_REPS} {[round(t, 2) for t in warm_t]}"
+            f"; DSM cells {float((dsm != rasters.NODATA).mean()):.4f}, CHM "
+            f"max {float(chm[chm != rasters.NODATA].max()):.3f} m; identical "
+            "to the checked pass, a second card run and the plain run")
+        for stage, ms in raster_stages(session, cell, rasters).items():
+            log(f"  rasters({cell}) stage {stage}: {ms:.3f} ms")
+    log(f"  rasters({RASTER_CELLS[-1]}): " + top_device_ops(
+        lambda: session.rasters(RASTER_CELLS[-1]), k=6))
+
+    # (c) height above ground, hag_prop and the hag focus frames
+    hag, h_ms = counted(lambda: session.height_above_ground(HAG_CELL),
+                        ("jump_flood_grid",), "height_above_ground")
+    with swapped(kernels, **plain):
+        plain_hag = session.height_above_ground(HAG_CELL)
+    if not (same_bits(hag, checked_hag) and same_bits(hag, plain_hag)):
+        raise AssertionError("height_above_ground differs between runs")
+    prop, p_first = counted(session.hag_prop, ("jump_flood_grid",),
+                            "hag_prop")
+    again, p_cached = counted(session.hag_prop, (), "hag_prop cached")
+    if again is not prop or float(prop.max()) != 1.0:
+        raise AssertionError("hag_prop missed its cache or is not in [0, 1]")
+    seg_counts = session.table.count.cpu().numpy().astype(np.int64)
+    seg_counts[0] = 0
+    sid = int(np.argmax(seg_counts))
+    # the 8 orbit cameras (bench.py's, which pivot on the scene's centre)
+    # and one 30 m in front of the tree
+    eye = np.eye(4, dtype=np.float32)
+    eye[:3, 3] = (session.cloud.pos[session._member_mask(sid)].mean(dim=0)
+                  .cpu().numpy() + [0.0, 0.0, FOCUS_DISTANCE])
+    hag_cams = cams + [Camera.from_numpy(eye, FOCUS_DISTANCE, device=dev)]
+    frames, f_ms = [], []
+    for cam in hag_cams:
+        img, ms = counted(lambda: session.render_focus(sid, cam,
+                                                       display="hag"),
+                          FRAME_KERNELS, "a hag focus frame")
+        frames.append(img)
+        f_ms.append(ms)
+    with swapped(kernels, **plain):
+        session._hag_cache.clear()      # the plain flood computes it anew
+        same = sum(int((img == session.render_focus(sid, cam,
+                                                    display="hag")).all())
+                   for img, cam in zip(frames, hag_cams))
+    session._hag_cache.clear()
+    if same != len(frames):
+        raise AssertionError(f"{len(frames) - same} hag focus frames differ "
+                             "with the plain versions")
+    bg = [round(c * 255.0) for c in session.config.render.background]
+    lit = float(((abs(frames[-1].astype(int) - bg)).max(-1) > 3).mean())
+    if not lit > 0.01:
+        raise AssertionError(f"the hag focus frame in front of the tree "
+                             f"shows {lit} of its pixels lit")
+    log(f"  height_above_ground({HAG_CELL}): {h_ms:.2f} ms, "
+        f"{int((hag > 0).sum())} points above ground, max "
+        f"{float(hag.max()):.3f} m; identical to the checked pass and the "
+        f"plain run; hag_prop {p_first:.2f} ms first, {p_cached:.3f} ms "
+        f"cached; render_focus({sid}, display='hag') median "
+        f"{statistics.median(f_ms[:-1]):.2f} ms of the {N_FRAMES} orbit "
+        f"frames {[round(t, 2) for t in f_ms[:-1]]}, {f_ms[-1]:.2f} ms from "
+        f"{FOCUS_DISTANCE:.0f} m in front of the tree ({lit:.4f} lit); all "
+        f"{len(frames)} byte-equal to the plain versions'")
+
+    # (d) export_raster and forest_summary
+    with tempfile.TemporaryDirectory() as tmp:
+        for which in ("dtm", "dsm", "chm"):
+            path = os.path.join(tmp, f"{which}.asc")
+            shape, e_ms = counted(lambda: session.export_raster(
+                path, which, cell=RASTER_CELLS[0]), ("jump_flood_grid",),
+                f"export_raster({which})")
+            with open(path) as fh:
+                head = [next(fh) for _ in range(6)]
+                n_rows = sum(1 for _ in fh)
+            if head[0].split() != ["ncols", str(shape[1])] or \
+                    n_rows != shape[0]:
+                raise AssertionError(f"export_raster({which}) wrote {head}, "
+                                     f"{n_rows} rows for {shape}")
+            log(f"  export_raster({which}, {RASTER_CELLS[0]}): {shape[0]}x"
+                f"{shape[1]}, {os.path.getsize(path)} bytes, {e_ms:.1f} ms")
+    summary, s_ms = counted(session.forest_summary,
+                            ("jump_flood_grid",) + INVENTORY_KERNELS,
+                            "forest_summary")
+    if not (0.9 * N_TREES <= summary["n_trees"] <= max_segments
+            and 0.0 < summary["canopy_cover"] < 1.0
+            and all(np.isfinite(v) for v in summary.values())):
+        raise AssertionError(f"forest_summary: {summary}")
+    log(f"  forest_summary(): {s_ms:.2f} ms (inventory + rasters("
+        f"{RASTER_CELLS[0]})); {json.dumps(summary)}")
+
+    # (e) change detection between the two epochs
+    inv_a, ia_ms = counted(session.inventory, INVENTORY_KERNELS,
+                           "inventory of epoch A")
+    inv_b, _ = counted(epoch_b.inventory, INVENTORY_KERNELS,
+                       "inventory of epoch B")
+    (diff, (xll, yll), c_cell), c_ms = counted(
+        lambda: change.chm_change(session, epoch_b, cell=RASTER_CELLS[0]),
+        ("jump_flood_grid",), "chm_change")
+    self_diff, _, _ = change.chm_change(session, session,
+                                        cell=RASTER_CELLS[0])
+    valid = diff != change.NODATA
+    if not np.all((self_diff == 0.0) | (self_diff == change.NODATA)):
+        raise AssertionError("chm_change of an epoch with itself is not null")
+    if not (float(diff[valid].mean()) > 0.0
+            and float(diff[valid].min()) < -1.0):
+        raise AssertionError("chm_change shows no growth or no felled tree")
+    changes, t_ms = counted(lambda: change.tree_changes(
+        inv_a, inv_b, max_dist=CHANGE_MAX_DIST), (), "tree_changes")
+    null = change.tree_changes(inv_a, inv_a, max_dist=CHANGE_MAX_DIST)
+    if (len(null["lost"]["segment"]) or len(null["new"]["segment"])
+            or any((null["matched"][f"delta_{t}"] != 0).any()
+                   for t in change.DELTA_TRAITS)):
+        raise AssertionError("tree_changes of an epoch with itself is not "
+                             "null")
+    felled = stem(pts[:ppt]) * (1.0, -1.0)
+    new_stem = (stem(pts[ppt:2 * ppt]) + np.array(PLANT_SHIFT)[[0, 2]]) * (
+        1.0, -1.0)
+
+    def nearest(table, at):
+        if not len(table["segment"]):
+            return float("inf")
+        return float(np.hypot(table["stem_easting"] - at[0],
+                              table["stem_northing"] - at[1]).min())
+
+    d_lost = nearest(changes["lost"], felled)
+    d_new = nearest(changes["new"], new_stem)
+    matched = changes["matched"]
+    dh = matched["delta_tree_height"]
+    dn = np.abs(matched["delta_n_points"]) / np.maximum(
+        matched["n_points_a"], 1)
+    same_tree = dn <= SAME_TREE_POINTS
+    grown_share = float((dh > 0).mean()) if len(dh) else 0.0
+    if d_lost > STEM_TOLERANCE or d_new > STEM_TOLERANCE:
+        raise AssertionError(f"the felled tree's nearest lost stem is "
+                             f"{d_lost:.2f} m away, the planted tree's "
+                             f"nearest new stem {d_new:.2f} m")
+    if not (2 * same_tree.sum() >= len(dh) and (dh[same_tree] > 0).all()):
+        raise AssertionError(
+            f"{int(same_tree.sum())} of {len(dh)} matched trees keep their "
+            f"points within {SAME_TREE_POINTS}; of those "
+            f"{int((dh[same_tree] <= 0).sum())} did not grow")
+    stand = change.stand_changes(summary, epoch_b.forest_summary(inv_b))
+    if not stand["max_height"]["delta"] > 0:
+        raise AssertionError(f"stand_changes: {stand['max_height']}")
+    log(f"  chm_change: {diff.shape[0]}x{diff.shape[1]} cells of "
+        f"{c_cell} m, corner ({xll:.3f}, {yll:.3f}), {c_ms:.2f} ms; mean "
+        f"change {float(diff[valid].mean()):.4f} m over {int(valid.sum())} "
+        f"cells, min {float(diff[valid].min()):.3f}, max "
+        f"{float(diff[valid].max()):.3f}; the self-compare is null")
+    log(f"  tree_changes: {t_ms:.2f} ms (inventory {ia_ms:.2f} ms an epoch); "
+        f"{len(dh)} matched, {len(changes['lost']['segment'])} lost (nearest "
+        f"to the felled stem {d_lost:.2f} m), {len(changes['new']['segment'])}"
+        f" new (nearest to the planted stem {d_new:.2f} m); all "
+        f"{int(same_tree.sum())} that keep their points within "
+        f"{SAME_TREE_POINTS} grew (height delta min "
+        f"{float(dh[same_tree].min()):.3f} m); of all matched "
+        f"{grown_share:.4f} grew, median {float(np.median(dh)):.3f} m, min "
+        f"{float(dh.min()):.3f} m, the others' point counts changed by >= "
+        f"{float(dn[dh <= 0].min()) if (dh <= 0).any() else 0.0:.4f}; the "
+        f"self-compare is null; stand: n_trees "
+        f"{stand['n_trees']['delta']:+d}, max_height "
+        f"{stand['max_height']['delta']:+.3f} m, canopy_cover "
+        f"{stand['canopy_cover']['delta']:+.4f}")
+    for k in raster_launches:
+        launches[k] += raster_launches[k]
+    log(f"  launches over the phase: {raster_launches}; peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; phase "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    del session, epoch_b, hag, plain_hag, checked_hag, prop, frames
 
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(card_line())

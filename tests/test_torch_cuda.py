@@ -17,18 +17,23 @@ image edges and empty images, the dilation's two shortcuts, eye-dome widths
 that are no multiple of 4, cumsum lengths around the block size, runs across hundreds
 of blocks, every block size class and widths beyond shared memory, jump-flood grids of 1 to 384 cells a side with
 no seed or a seed in every cell, and 64 busy bands on both sides of its
-shared-memory route's edge with duplicate slots and exact ties; a launch
-that CUDA refuses.  Each output must equal the plain
+shared-memory route's edge with duplicate slots and exact ties; the
+rasters' grid flood at H != W, H or W of 1, 127, 129 and 4096, wrapped
+sources on the far edge, empty and full grids and steps longer than an
+axis; a launch that CUDA refuses.  Each output must equal the plain
 version's bit for bit, and each call must count the launches its design
 makes: one, or ceil(radius / passes per launch) for the dilation.  The
 segmentation and the inventory must repeat bit for bit on the card, and
-the card's frame must match the CPU's.
+the card's frame must match the CPU's; the rasters and the height above
+ground must repeat and equal the CPU's bit for bit.
 
 Needs a card, so it skips on a machine without one.  On the card, where JAX
 is absent, run it without the suite's conftest:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 """
+
+import ctypes
 
 import numpy as np
 import pytest
@@ -37,6 +42,7 @@ import torch
 from treee_tpu_torch import characteristics as tch
 from treee_tpu_torch import config as tconfig
 from treee_tpu_torch import pipeline as tpl
+from treee_tpu_torch import rasters as trs
 from treee_tpu_torch import segmentation as tsg
 from treee_tpu_torch.io import las as tlas
 from treee_tpu_torch.ops import eigen as teig
@@ -46,6 +52,10 @@ from treee_tpu_torch.ops import octree as toctree
 from treee_tpu_torch.ops.kernels import build
 from treee_tpu_torch.render import Camera
 from treee_tpu_torch.render import splat
+
+import torch_threads
+
+torch_threads.share_cores()
 
 pytestmark = pytest.mark.cuda
 IBIG = 0x7FFFFFFF
@@ -400,6 +410,85 @@ def test_jump_flood_kernel_busy_bands_both_routes(dev, g, kind):
     assert kernels.jump_flood_clusters(g) > 0
 
 
+def _raster_flood(h, w, kind, dev):
+    """The rasters' flood input at h x w (each seed its cell's flat index,
+    seeds and centres at (row, col)) with the rasters' step list:
+    ``sparse`` one cell in a hundred and one more, ``far_edge`` seeds on
+    the last row and column only (each cell's nearest seed also arrives
+    through the wrapped sources), ``empty`` no seed, ``full`` every cell."""
+    rng = np.random.default_rng(h * 7919 + w)
+    if kind == "sparse":
+        have = rng.random((h, w)) < 0.01
+        have[rng.integers(h), rng.integers(w)] = True
+    elif kind == "far_edge":
+        have = np.zeros((h, w), bool)
+        have[-1, rng.integers(w, size=3)] = True
+        have[rng.integers(h, size=3), -1] = True
+    else:
+        have = np.full((h, w), kind == "full")
+    slot = np.where(have, np.arange(h * w).reshape(h, w), -1).astype(np.int32)
+    ij = np.stack(np.meshgrid(np.arange(h), np.arange(w), indexing="ij"), -1)
+    at = torch.from_numpy(ij.astype(np.float32)).to(dev)
+    return torch.from_numpy(slot).to(dev), at, trs.jfa_steps(h, w)
+
+
+@pytest.mark.parametrize("h,w", [
+    (1, 1), (1, 127), (127, 1), (1, 129), (129, 1), (127, 129), (129, 127),
+    (128, 384), (512, 512), (1, 4096), (4096, 1), (4096, 129)])
+@pytest.mark.parametrize("kind", ["sparse", "far_edge", "empty", "full"])
+def test_jump_flood_grid_kernel_equals_plain(dev, h, w, kind):
+    """The grid flood at H != W, H or W of 1, 127, 129 and 4096, wrapped
+    sources on the far edge, an empty and a fully seeded grid: one call of
+    the entry a flood, the plain version's slots bit for bit."""
+    slot, at, steps = _raster_flood(h, w, kind, dev)
+    got = kernels.jump_flood_grid(slot, at, at, steps)
+    _same(got, kernels.jump_flood_grid_plain(slot, at, at, steps))
+    assert kernels.jump_flood_grid.launches == 1
+    assert bool((got >= 0).all()) == (kind != "empty")
+    if kind == "full":
+        assert torch.equal(got, slot)
+
+
+@pytest.mark.parametrize("steps", [[1], [3, 5, 1000], [4096, 2, 1], []])
+def test_jump_flood_grid_kernel_takes_any_steps(dev, steps):
+    """Steps longer than an axis wrap modulo its size; no step leaves the
+    seeds as they are.  Also 4096x4096, the largest raster, once."""
+    slot, at, _ = _raster_flood(37, 211, "sparse", dev)
+    _same(kernels.jump_flood_grid(slot, at, at, steps),
+          kernels.jump_flood_grid_plain(slot, at, at, steps))
+    if not steps:
+        slot, at, steps = _raster_flood(4096, 4096, "sparse", dev)
+        _same(kernels.jump_flood_grid(slot, at, at, steps),
+              kernels.jump_flood_grid_plain(slot, at, at, steps))
+
+
+def test_rasters_repeat_on_the_card(dev):
+    """The DTM, DSM and CHM and the height above ground of a small scene:
+    two card runs give the same bits, and they equal the port's CPU run
+    bit for bit (integer min/max, an exact flood, elementwise f32)."""
+    pts = tlas.synthetic_forest(n_trees=16, points_per_tree=2000,
+                                ground_points=8000, seed=1)
+    ref = tpl.Session.from_points(pts, SMALL_CFG, device="cpu")
+    ref.segment(0.75)
+    runs = []
+    for device in ("cpu", dev, dev):
+        s = tpl.Session.from_points(pts, SMALL_CFG, device=device)
+        s.cloud = s.cloud.replace(
+            segment=ref.cloud.segment.to(device),
+            classification=ref.cloud.classification.to(device))
+        kernels.reset_launches()
+        grids, ll, cell = s.rasters(0.25)
+        hag = s.height_above_ground().cpu()
+        if device != "cpu":
+            assert kernels.jump_flood_grid.launches == 2
+        runs.append((grids, ll, cell, hag))
+    for grids, ll, cell, hag in runs[1:]:
+        assert (ll, cell) == runs[0][1:3]
+        assert hag.view(torch.int32).equal(runs[0][3].view(torch.int32))
+        for k, g in grids.items():
+            assert g.tobytes() == runs[0][0][k].tobytes(), k
+
+
 def test_wrappers_raise_on_bad_input_on_the_card(dev):
     lbl = torch.zeros(1, 8, 8, dtype=torch.int32, device=dev)
     with pytest.raises(ValueError):
@@ -413,6 +502,9 @@ def test_wrappers_raise_on_bad_input_on_the_card(dev):
     with pytest.raises(ValueError):
         kernels.jump_flood(lbl, torch.zeros(1, 8, 8, 2, device=dev),
                            torch.zeros(8, 8, 1, device=dev))
+    with pytest.raises(ValueError):
+        kernels.jump_flood_grid(lbl[0], torch.zeros(8, 8, 2, device=dev),
+                                torch.zeros(8, 8, 2, device=dev), [2, 0])
     assert sum(kernels.launches().values()) == 0
 
 
@@ -431,6 +523,17 @@ def test_launch_helper_raises_on_a_refused_launch(dev):
     slot, pos, cc = _busy_flood(2, 96, "ties", dev)
     _same(kernels.jump_flood(slot, pos, cc),
           kernels.jump_flood_plain(slot, pos, cc))
+    # the grid flood's entry refuses steps without its scratch plane
+    slot, at, steps = _raster_flood(16, 24, "sparse", dev)
+    out = torch.empty_like(slot)
+    host = (ctypes.c_int * 1)(1)
+    with pytest.raises(RuntimeError, match="jump_flood_grid: CUDA error"):
+        build.launch(build.library().treee_jump_flood_grid,
+                     "jump_flood_grid", slot, slot.data_ptr(), at.data_ptr(),
+                     at.data_ptr(), out.data_ptr(), 0, ctypes.addressof(host),
+                     1, 16, 24)
+    _same(kernels.jump_flood_grid(slot, at, at, steps),
+          kernels.jump_flood_grid_plain(slot, at, at, steps))
     tab = torch.rand(8, 128, device=dev)
     idx = torch.randint(0, 8, (8, 128), dtype=torch.int32, device=dev)
     _same(kernels.take_along_axis(tab, idx, 0),

@@ -43,6 +43,10 @@ from treee_tpu_torch.config import RenderConfig as TRC
 from treee_tpu_torch.config import SegmentationConfig as TSC
 from treee_tpu_torch.render import Camera as TCamera
 
+import torch_threads
+
+torch_threads.share_cores()
+
 FRAME = dict(width=160, height=120)
 EPS = float(np.finfo(np.float32).eps)
 TABLE_INT = ("present", "count", "n_slices")

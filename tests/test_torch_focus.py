@@ -86,6 +86,10 @@ from treee_tpu_torch.ops import kernels
 from treee_tpu_torch.ops import neighbors as tnb
 from treee_tpu_torch.render import Camera as TCamera
 
+import torch_threads
+
+torch_threads.share_cores()
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 INF = 3.0e38
 SEG = dict(grid_size=128, max_bands=16, max_segments=256,
@@ -566,8 +570,10 @@ def _frames_close(got, ref, min_share=MIN_FRAME_MATCH):
     return close
 
 
+# the hag display is held byte for byte against JAX op by op in
+# tests/test_torch_rasters.py, beside the rasters it reads
 FOCUS_VIEWS = {
-    **{d: dict(display=d) for d in tpl.FOCUS_DISPLAYS},
+    **{d: dict(display=d) for d in tpl.FOCUS_DISPLAYS if d != "hag"},
     "overlays_average_max": dict(show_hull=True, show_rbv=True,
                                  show_axis=True),
     "overlays_lowhigh_mean": dict(show_hull=True, show_rbv=True,
@@ -599,8 +605,6 @@ def test_render_focus_matches_jax(scene, view):
 
 def test_render_focus_raises_for_later_slices(scene):
     ts = _port_session(scene)
-    with pytest.raises(NotImplementedError, match="slice 7"):
-        ts.render_focus(scene["sid"], display="hag")
     with pytest.raises(NotImplementedError, match="slice 8a"):
         ts.render_focus(scene["sid"], display="intensity")
     with pytest.raises(ValueError, match="unknown display"):

@@ -43,6 +43,10 @@ from treee_tpu_torch.cloud import PointCloud as TPointCloud
 from treee_tpu_torch.ops import kernels
 from treee_tpu_torch.ops import sums as tsums
 
+import torch_threads
+
+torch_threads.share_cores()
+
 INV_SEG = dict(grid_size=128, max_bands=16, max_segments=64,
                max_trees_per_band=16)
 RTOL = 1e-5

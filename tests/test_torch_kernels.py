@@ -28,6 +28,10 @@ from treee_tpu_torch.ops.kernels.jump_flood import CLUSTER_CTAS, INF
 from treee_tpu_torch.render import Camera
 from treee_tpu_torch.render import splat as tsplat
 
+import torch_threads
+
+torch_threads.share_cores()
+
 IBIG = 0x7FFFFFFF
 
 
@@ -1164,6 +1168,9 @@ def test_wrappers_take_plain_path_on_cpu_and_count_no_launch():
                      _flood_case("g16", np.random.default_rng(0)))
     assert torch.equal(kernels.jump_flood(slot, pos, cc),
                        kernels.jump_flood_plain(slot, pos, cc))
+    assert torch.equal(kernels.jump_flood_grid(slot[0], pos[0], cc, [4, 2, 1]),
+                       kernels.jump_flood_grid_plain(slot[0], pos[0], cc,
+                                                     [4, 2, 1]))
     cols = key[:, None] % 4                                  # i32[100,1]
     assert torch.equal(kernels.take_along_axis(val, cols, 1),
                        kernels.take_along_axis_plain(val, cols, 1))
@@ -1176,7 +1183,8 @@ def test_wrappers_take_plain_path_on_cpu_and_count_no_launch():
     assert kernels.launches() == {"cc_sweep": 0, "match_scan": 0,
                                   "segmented_cummax": 0, "dilate": 0,
                                   "eye_dome": 0, "segmented_cumsum": 0,
-                                  "jump_flood": 0, "take_along_axis": 0}
+                                  "jump_flood": 0, "take_along_axis": 0,
+                                  "jump_flood_grid": 0}
 
 
 def test_wrappers_refuse_devices_without_a_kernel():
@@ -1196,6 +1204,8 @@ def test_wrappers_refuse_devices_without_a_kernel():
                      _flood_case("g16", np.random.default_rng(0)))
     with pytest.raises(ValueError, match="device"):
         kernels.jump_flood(slot, pos, cc)
+    with pytest.raises(ValueError, match="device"):
+        kernels.jump_flood_grid(slot[0], pos[0], cc, [1])
     with pytest.raises(ValueError, match="device"):
         kernels.take_along_axis(meta[4], meta[3][:, None] % 4, 1)
     assert sum(kernels.launches().values()) == 0

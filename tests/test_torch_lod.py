@@ -46,6 +46,10 @@ from treee_tpu_torch.ops import octree as toctree
 from treee_tpu_torch.render import Camera as TCamera
 from treee_tpu_torch.render import splat as tsplat
 
+import torch_threads
+
+torch_threads.share_cores()
+
 FRAME = dict(width=160, height=120)
 ASPECT = FRAME["width"] / FRAME["height"]
 MIN_KEY_AGREEMENT = 0.999

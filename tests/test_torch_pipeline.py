@@ -47,6 +47,10 @@ from treee_tpu_torch.config import SegmentationConfig as TSC
 from treee_tpu_torch.ops import kernels
 from treee_tpu_torch.ops import octree as toctree
 
+import torch_threads
+
+torch_threads.share_cores()
+
 SMALL_SEG = dict(grid_size=128, max_bands=32, cc_occupied_cap=1 << 14)
 SMALL_CH = dict(max_slices=64)
 TPU_DEFAULT = dict(use_pallas_cc=True, use_pallas_match=True)

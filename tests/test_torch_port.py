@@ -25,6 +25,10 @@ from treee_tpu_torch.io import las as tlas
 from treee_tpu_torch.ops import morton as tmorton
 from treee_tpu_torch.ops import octree as toctree
 
+import torch_threads
+
+torch_threads.share_cores()
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 _IMPORT_ALL = """
@@ -50,14 +54,15 @@ def test_port_and_chip_smoke_import_no_jax():
     assert out.returncode == 0, out.stderr
     mods, bad = out.stdout.splitlines()
     mods = set(mods.split())
-    assert len(mods) >= 33
-    # the interactive and focused views' modules among them
+    assert len(mods) >= 36
+    # the interactive and focused views' and the rasters' modules among them
     assert {"treee_tpu_torch.interactive", "treee_tpu_torch.ops.octree",
             "treee_tpu_torch.ops.morton", "treee_tpu_torch.cloud",
             "treee_tpu_torch.characteristics",
             "treee_tpu_torch.pipeline", "treee_tpu_torch.ops.eigen",
             "treee_tpu_torch.ops.neighbors", "treee_tpu_torch.hull3d",
-            "treee_tpu_torch.geo"} <= mods
+            "treee_tpu_torch.geo", "treee_tpu_torch.rasters",
+            "treee_tpu_torch.change", "treee_tpu_torch.io.exports"} <= mods
     assert bad.strip() == "[]"
 
 
@@ -275,3 +280,35 @@ def test_support_directions_match_jax(k):
 
     np.testing.assert_array_equal(tch._support_directions(k, "cpu").numpy(),
                                   np.asarray(jch._support_directions(k)))
+
+
+def test_exports_copy_is_byte_equal():
+    """The port's io/exports.py is the JAX package's (numpy only), byte for
+    byte."""
+    with open(os.path.join(REPO, "treee_tpu", "io", "exports.py"), "rb") as f:
+        ref = f.read()
+    with open(os.path.join(REPO, "treee_tpu_torch", "io", "exports.py"),
+              "rb") as f:
+        assert f.read() == ref
+
+
+def test_change_copy_matches_jax():
+    """The port's change.py holds the JAX package's host functions: each one
+    that reads no session has the same source, and the constants agree;
+    ``_map_bounds`` and ``chm_change`` read the port's sessions and are
+    held against the JAX package by tests/test_torch_rasters.py."""
+    import inspect
+
+    from treee_tpu import change as jchange
+    from treee_tpu import rasters as jrasters
+    from treee_tpu_torch import change as tchange
+    from treee_tpu_torch import rasters as trasters
+
+    for name in ("_positions", "match_trees", "_subset", "_tree_rows",
+                 "tree_changes", "stand_changes", "chm_change"):
+        assert (inspect.getsource(getattr(tchange, name))
+                == inspect.getsource(getattr(jchange, name))), name
+    assert tchange.DELTA_TRAITS == jchange.DELTA_TRAITS
+    assert tchange.NODATA == jchange.NODATA == trasters.NODATA == jrasters.NODATA
+    assert inspect.getsource(trasters.grid_dims) == inspect.getsource(
+        jrasters.grid_dims)

@@ -59,6 +59,10 @@ from treee_tpu_torch.render import lines as tlines
 from treee_tpu_torch.render import palettes as tpal
 from treee_tpu_torch.render import splat as tsplat
 
+import torch_threads
+
+torch_threads.share_cores()
+
 IBIG = 0x7FFFFFFF
 MIN_KEY_AGREEMENT = 0.999
 SMALL = dict(width=128, height=96, point_size=0.5)
@@ -430,6 +434,10 @@ def sessions(request):
                    characteristics=TCC(**SMALL_CH), render=TRC(**FRAME))
     js = jpl.Session.from_points(pts, jcfg)
     ts = tpl.Session.from_points(pts, tcfg, device="cpu")
+    # segmented once for every test of the scene: each view reads the same
+    # ids (preview_frame draws the raw cloud)
+    js.segment(0.75)
+    ts.segment(0.75)
     return js, ts
 
 
@@ -451,8 +459,6 @@ def _raw_keys(js, ts, jc, tc, show_deleted):
 @pytest.mark.parametrize("view", ["rotated", "default_show_deleted"])
 def test_session_render_matches_jax(sessions, view):
     js, ts = sessions
-    js.segment(0.75)
-    ts.segment(0.75)
     np.testing.assert_array_equal(ts.cloud.segment.numpy(),
                                   np.asarray(js.cloud.segment))
     show_deleted = view == "default_show_deleted"

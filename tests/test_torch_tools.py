@@ -13,6 +13,10 @@ from jax.experimental import pallas as pl
 from treee_tpu_torch.ops import kernels
 from treee_tpu_torch.tools import probe_extract
 
+import torch_threads
+
+torch_threads.share_cores()
+
 N = 5000
 
 

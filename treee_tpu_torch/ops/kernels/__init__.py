@@ -10,6 +10,7 @@ from .cc_sweep import cc_sweep, cc_sweep_plain
 from .dilate import dilate, dilate_plain
 from .eye_dome import eye_dome, eye_dome_plain
 from .jump_flood import jump_flood, jump_flood_plain
+from .jump_flood import jump_flood_grid, jump_flood_grid_plain
 from .jump_flood import CLUSTER_CTAS as JUMP_FLOOD_CLUSTER_CTAS
 from .jump_flood import resident_clusters as jump_flood_clusters
 from .jump_flood import route as jump_flood_route
@@ -20,7 +21,7 @@ from .seg_cumsum import segmented_cumsum, segmented_cumsum_plain
 from .take_along import take_along_axis, take_along_axis_plain
 
 WRAPPERS = (cc_sweep, match_scan, segmented_cummax, dilate, eye_dome,
-            segmented_cumsum, jump_flood, take_along_axis)
+            segmented_cumsum, jump_flood, take_along_axis, jump_flood_grid)
 
 
 def reset_launches() -> None:

@@ -63,6 +63,18 @@
 // (two columns a lane) did not move the time.  The own distance is
 // recomputed each direction: keeping it in a third shared plane (which fits
 // only up to G = 392) was 2-4% faster, not worth a third route.
+//
+// The grid flood (treee_jump_flood_grid) runs the same cell update over ONE
+// rectangular [h, w] grid with the caller's step list: the raster flood of
+// treee_tpu/rasters.py::jfa_fill (XLA rolls in the JAX package, no TPU
+// kernel of its own), whose schedule is next_pow2(max(h, w))/2, ..., 1, 2, 1
+// and whose grids reach 4096 x 4096.  One cluster a band would put 8 of the
+// card's 132 SMs on up to 16.7M cells, so it launches once per direction
+// over the whole grid instead, one thread a cell, the origins ping-ponging
+// between `out` and `tmp` in device memory (two more launches: the start
+// and the slot lookup).  Each direction moves ~12 bytes a cell, so it is
+// bound by device memory and the launches, not by the compares; each axis
+// wraps modulo its own size, for any step length.
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
@@ -271,6 +283,57 @@ jump_flood_cluster(const int* __restrict__ seed_slot,
   cluster.sync();  // no CTA leaves while another may read its shared memory
 }
 
+// The grid flood (treee_jump_flood_grid): one [h, w] grid, whole-grid
+// launches.  A cell's state is its origin, as in the cluster kernel.
+constexpr int kGridThreads = 256;
+
+__global__ void __launch_bounds__(kGridThreads)
+grid_start(const int* __restrict__ seed_slot, int* cur, int n) {
+  const int k = blockIdx.x * kGridThreads + threadIdx.x;
+  if (k < n) cur[k] = seed_slot[k] >= 0 ? k : -1;
+}
+
+// One direction: cell (i, j) looks at ((i - dy) mod h, (j - dx) mod w),
+// given as the shifts sh = (dy mod h) and sw = (dx mod w) in [0, h) x
+// [0, w), and takes the source's origin where that seed is strictly nearer
+// than its own, as the cluster kernel's cell update does.
+__global__ void __launch_bounds__(kGridThreads)
+grid_direction(const float2* __restrict__ seed_pos,
+               const float2* __restrict__ center, const int* __restrict__ cur,
+               int* __restrict__ nxt, int h, int w, int sh, int sw) {
+  const int k = blockIdx.x * kGridThreads + threadIdx.x;
+  if (k >= h * w) return;
+  const int i = k / w;
+  const int j = k - i * w;
+  int si = i - sh;
+  if (si < 0) si += h;
+  int sj = j - sw;
+  if (sj < 0) sj += w;
+  const int co = cur[si * w + sj];
+  int o = cur[k];
+  if (co >= 0 && co != o) {
+    const float2 c = center[k];
+    const float cd = sq_dist(__ldg(seed_pos + co), c);
+    const float d = o >= 0 ? sq_dist(__ldg(seed_pos + o), c) : kInf;
+    if (cd < d) o = co;
+  }
+  nxt[k] = o;
+}
+
+// The origins in `out` become their seeds' slots, in place.
+__global__ void __launch_bounds__(kGridThreads)
+grid_finish(const int* __restrict__ seed_slot, int* out, int n) {
+  const int k = blockIdx.x * kGridThreads + threadIdx.x;
+  if (k >= n) return;
+  const int o = out[k];
+  out[k] = seed_slot[o >= 0 ? o : k];
+}
+
+int positive_mod(int a, int m) {
+  const int r = a % m;
+  return r < 0 ? r + m : r;
+}
+
 cudaLaunchConfig_t config(int b, size_t smem, cudaStream_t stream,
                           cudaLaunchAttribute* attr) {
   attr->id = cudaLaunchAttributeClusterDimension;
@@ -360,4 +423,53 @@ extern "C" int treee_jump_flood_clusters(int g, int shared) {
   return err == cudaSuccess ? n : -failed(err);
 }
 
+// The grid flood: seed_slot i32[h,w] (negative where no seed), seed_pos
+// f32[h,w,2], cell_center f32[h,w,2], read only; out i32[h,w]; tmp i32[h,w]
+// scratch (may be null when n_steps is 0); `steps` a HOST array of n_steps
+// step lengths (each >= 1), taken in order, 8 directions each as in the
+// cluster kernel.  2 + 8 * n_steps launches on `stream`; h * w < 2^31.
+// Returns the first CUDA error, or 0.
+extern "C" int treee_jump_flood_grid(const int* seed_slot,
+                                     const float* seed_pos,
+                                     const float* cell_center, int* out,
+                                     int* tmp, const int* steps, int n_steps,
+                                     int h, int w, cudaStream_t stream) {
+  if (h <= 0 || w <= 0 || n_steps < 0 ||
+      static_cast<long long>(h) * w > 0x7FFFFFFFLL ||
+      (n_steps > 0 && (steps == nullptr || tmp == nullptr)))
+    return cudaErrorInvalidValue;
+  for (int q = 0; q < n_steps; ++q)
+    if (steps[q] < 1) return cudaErrorInvalidValue;
+  const int n = h * w;
+  const int blocks = (n + kGridThreads - 1) / kGridThreads;
+  const auto pos = reinterpret_cast<const float2*>(seed_pos);
+  const auto cc = reinterpret_cast<const float2*>(cell_center);
+  grid_start<<<blocks, kGridThreads, 0, stream>>>(seed_slot, out, n);
+  cudaError_t err = cudaGetLastError();
+  int* cur = out;
+  int* nxt = tmp;
+  for (int q = 0; q < n_steps && err == cudaSuccess; ++q) {
+    const int s = steps[q];
+    for (int dy = -s; dy <= s && err == cudaSuccess; dy += s) {
+      for (int dx = -s; dx <= s && err == cudaSuccess; dx += s) {
+        if (dy == 0 && dx == 0) continue;
+        grid_direction<<<blocks, kGridThreads, 0, stream>>>(
+            pos, cc, cur, nxt, h, w, positive_mod(dy, h),
+            positive_mod(dx, w));
+        err = cudaGetLastError();
+        int* done = nxt;
+        nxt = cur;
+        cur = done;
+      }
+    }
+  }
+  // 8 directions a step: the last one wrote `out`
+  if (err == cudaSuccess) {
+    grid_finish<<<blocks, kGridThreads, 0, stream>>>(seed_slot, out, n);
+    err = cudaGetLastError();
+  }
+  return err;
+}
+
 TREEE_PACKED(treee_jump_flood)
+TREEE_PACKED(treee_jump_flood_grid)

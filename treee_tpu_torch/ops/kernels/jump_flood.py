@@ -3,10 +3,14 @@ version.
 
 Counterpart of ``jump_flood_pallas`` (``treee_tpu/ops/pallas_kernels.py``),
 batched over bands as ``segmentation._jump_flood`` is: each cell of each band
-ends with the slot of the nearest seed its flood reached.
+ends with the slot of the nearest seed its flood reached.  The same flood of
+one rectangular grid with its own step list, :func:`jump_flood_grid`, is the
+rasters' hole fill (``treee_tpu/rasters.py::jfa_fill``).
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -18,18 +22,18 @@ BLOCK_SHARED_BYTES = 232_448     # shared memory one block may opt into (H100)
 
 
 def _check(seed_slot: torch.Tensor, seed_pos: torch.Tensor,
-           cell_center: torch.Tensor) -> None:
+           cell_center: torch.Tensor, square: bool = True) -> None:
     if seed_slot.dtype != torch.int32 or seed_slot.dim() != 3:
-        raise ValueError(f"jump_flood: need i32[B,G,G] seed slots, got "
+        raise ValueError(f"jump_flood: need i32[B,H,W] seed slots, got "
                          f"{seed_slot.dtype}{list(seed_slot.shape)}")
-    b, g, g2 = seed_slot.shape
-    if g != g2:
-        raise ValueError(f"jump_flood: bands must be square, got {g}x{g2}")
-    if seed_pos.dtype != torch.float32 or seed_pos.shape != (b, g, g, 2):
-        raise ValueError(f"jump_flood: need f32[{b},{g},{g},2] seed "
+    b, h, w = seed_slot.shape
+    if square and h != w:
+        raise ValueError(f"jump_flood: bands must be square, got {h}x{w}")
+    if seed_pos.dtype != torch.float32 or seed_pos.shape != (b, h, w, 2):
+        raise ValueError(f"jump_flood: need f32[{b},{h},{w},2] seed "
                          f"positions, got {seed_pos.dtype}{list(seed_pos.shape)}")
-    if cell_center.dtype != torch.float32 or cell_center.shape != (g, g, 2):
-        raise ValueError(f"jump_flood: need f32[{g},{g},2] cell centres, got "
+    if cell_center.dtype != torch.float32 or cell_center.shape != (h, w, 2):
+        raise ValueError(f"jump_flood: need f32[{h},{w},2] cell centres, got "
                          f"{cell_center.dtype}{list(cell_center.shape)}")
     if not seed_slot.device == seed_pos.device == cell_center.device:
         raise ValueError("jump_flood: inputs on different devices")
@@ -45,18 +49,22 @@ def steps(g: int) -> list[int]:
 
 
 def jump_flood_plain(seed_slot: torch.Tensor, seed_pos: torch.Tensor,
-                     cell_center: torch.Tensor) -> torch.Tensor:
-    """Nearest-seed slot of every cell, i32[B,G,G]; -1 where no seed reached.
+                     cell_center: torch.Tensor,
+                     step_list: list[int] | None = None) -> torch.Tensor:
+    """Nearest-seed slot of every cell, i32[B,H,W]; -1 where no seed reached.
 
-    ``seed_slot`` i32[B,G,G] (-1 where a cell holds no seed), ``seed_pos``
-    f32[B,G,G,2] the seeds' absolute (x, z), ``cell_center`` f32[G,G,2].
-    For each step s of :func:`steps`, 8 directions in the order dy in
+    ``seed_slot`` i32[B,H,W] (-1 where a cell holds no seed), ``seed_pos``
+    f32[B,H,W,2] the seeds' absolute (x, z), ``cell_center`` f32[H,W,2].
+    For each step s of ``step_list`` (default :func:`steps` of max(H, W),
+    the segmentation's G/2, G/4, ..., 1), 8 directions in the order dy in
     (-s, 0, s), dx in (-s, 0, s), skipping (0, 0); each direction is one
     whole-grid update that reads the state the previous one left: cell
-    (i, j) takes the seed of cell ((i - dy) mod G, (j - dx) mod G) where its
+    (i, j) takes the seed of cell ((i - dy) mod H, (j - dx) mod W) where its
     squared distance (sx - cx)^2 + (sz - cz)^2 is strictly smaller.
     """
-    _check(seed_slot, seed_pos, cell_center)
+    _check(seed_slot, seed_pos, cell_center, square=False)
+    if step_list is None:
+        step_list = steps(max(seed_slot.shape[1:]))
     cx, cz = cell_center[..., 0], cell_center[..., 1]
 
     def dist(slot, sx, sz):
@@ -67,7 +75,7 @@ def jump_flood_plain(seed_slot: torch.Tensor, seed_pos: torch.Tensor,
     slot = seed_slot
     sx, sz = seed_pos[..., 0], seed_pos[..., 1]
     d = dist(slot, sx, sz)
-    for s in steps(seed_slot.shape[-1]):
+    for s in step_list:
         for dy in (-s, 0, s):
             for dx in (-s, 0, s):
                 if dy == 0 and dx == 0:
@@ -128,4 +136,59 @@ def resident_clusters(g: int) -> int:
     return n
 
 
+def _check_grid(seed_slot: torch.Tensor, seed_pos: torch.Tensor,
+                cell_center: torch.Tensor) -> None:
+    if seed_slot.dim() != 2 or seed_pos.dim() != 3:
+        raise ValueError(f"jump_flood_grid: need an i32[H,W] grid, got "
+                         f"{seed_slot.dtype}{list(seed_slot.shape)}")
+    _check(seed_slot[None], seed_pos[None], cell_center, square=False)
+
+
+def jump_flood_grid_plain(seed_slot: torch.Tensor, seed_pos: torch.Tensor,
+                          cell_center: torch.Tensor,
+                          step_list: list[int]) -> torch.Tensor:
+    """:func:`jump_flood_plain` of one rectangular grid with an explicit
+    step list: ``seed_slot`` i32[H,W], ``seed_pos`` and ``cell_center``
+    f32[H,W,2]; returns i32[H,W]."""
+    _check_grid(seed_slot, seed_pos, cell_center)
+    return jump_flood_plain(seed_slot[None], seed_pos[None], cell_center,
+                            list(step_list))[0]
+
+
+def jump_flood_grid(seed_slot: torch.Tensor, seed_pos: torch.Tensor,
+                    cell_center: torch.Tensor,
+                    step_list: list[int]) -> torch.Tensor:
+    """The flood of one grid (see :func:`jump_flood_grid_plain`): the
+    kernel's grid entry on CUDA tensors, the plain version on CPU tensors.
+    One call of the entry, 2 + 8 * len(step_list) launches."""
+    _check_grid(seed_slot, seed_pos, cell_center)
+    step_list = [int(s) for s in step_list]
+    if any(s < 1 for s in step_list):
+        raise ValueError(f"jump_flood_grid: steps must be >= 1, got "
+                         f"{step_list}")
+    if not build.on_cuda(seed_slot, "jump_flood_grid"):
+        return jump_flood_grid_plain(seed_slot, seed_pos, cell_center,
+                                     step_list)
+    h, w = seed_slot.shape
+    if h * w >= 2**31:
+        raise ValueError(f"jump_flood_grid: {h}x{w} cells do not fit i32")
+    out = torch.empty((h, w), dtype=torch.int32, device=seed_slot.device)
+    if h * w == 0:
+        return out
+    tmp = torch.empty_like(out) if step_list else None
+    seed_slot = seed_slot.contiguous()
+    seed_pos = build.aligned(seed_pos)
+    cell_center = build.aligned(cell_center)
+    host_steps = (ctypes.c_int * len(step_list))(*step_list)
+    lib = build.library()
+    build.launch(lib.treee_jump_flood_grid, "jump_flood_grid", seed_slot,
+                 seed_slot.data_ptr(), seed_pos.data_ptr(),
+                 cell_center.data_ptr(), out.data_ptr(),
+                 0 if tmp is None else tmp.data_ptr(),
+                 ctypes.addressof(host_steps), len(step_list), h, w)
+    jump_flood_grid.launches += 1
+    return out
+
+
 jump_flood.launches = 0
+jump_flood_grid.launches = 0

@@ -33,7 +33,7 @@ def _check(key: torch.Tensor, val: torch.Tensor) -> None:
 NAN_ORDER = 0x7FC00000
 
 
-def _order(val: torch.Tensor) -> torch.Tensor:
+def order(val: torch.Tensor) -> torch.Tensor:
     """f32 -> i32 whose signed order is the floats' order, with -0.0 just
     below +0.0 and every NaN at one place above +inf.  An integer max over
     these picks the same bits in any grouping."""
@@ -42,8 +42,8 @@ def _order(val: torch.Tensor) -> torch.Tensor:
     return torch.where(torch.isnan(val), NAN_ORDER, key)
 
 
-def _unorder(key: torch.Tensor) -> torch.Tensor:
-    """Inverse of :func:`_order` (a NaN comes back as 0x7FC00000)."""
+def unorder(key: torch.Tensor) -> torch.Tensor:
+    """Inverse of :func:`order` (a NaN comes back as 0x7FC00000)."""
     return (key ^ ((key >> 31) & 0x7FFFFFFF)).view(torch.float32)
 
 
@@ -53,13 +53,13 @@ def segmented_cummax_plain(key: torch.Tensor, val: torch.Tensor) -> torch.Tensor
     passes, each combining an element with the one ``s`` rows back when both
     lie in the same run.
 
-    The max is taken over :func:`_order` of the values, so its result does
+    The max is taken over :func:`order` of the values, so its result does
     not depend on the order of combination: of +0.0 and -0.0 it is +0.0 (as
     XLA's maximum gives), and from the first NaN of a run on it is the NaN
     0x7FC00000."""
     _check(key, val)
     n = key.shape[0]
-    out = _order(val)
+    out = order(val)
     s = 1
     while s < n:
         same = key[s:] == key[:-s]
@@ -68,7 +68,7 @@ def segmented_cummax_plain(key: torch.Tensor, val: torch.Tensor) -> torch.Tensor
         tail = torch.where(same, torch.maximum(out[s:], out[:-s]), out[s:])
         out = torch.cat([out[:s], tail])
         s *= 2
-    return _unorder(out)
+    return unorder(out)
 
 
 def segmented_cummax(key: torch.Tensor, val: torch.Tensor) -> torch.Tensor:

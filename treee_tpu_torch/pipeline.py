@@ -1,11 +1,12 @@
 """The main path of the port: segmentation + characteristics, the full-cloud
 frame, the octree LOD and screen-adaptive frames, the sphere edits with ray
-picking, the whole-forest inventory, the focused single-tree view, and the
-part of ``Session`` that drives them (``treee_tpu/pipeline.py``).
+picking, the whole-forest inventory, the focused single-tree view, the
+terrain and canopy rasters with the height above ground (the ``hag``
+display) and the forest summary, and the part of ``Session`` that drives
+them (``treee_tpu/pipeline.py``).
 
-Rasters (and with them the focused view's ``hag`` display), ingest and its
-source attributes (the attribute displays), checkpoints, exports, the
-forest summary and the mesh mode are not ported yet.
+Ingest and its source attributes (the attribute displays), checkpoints,
+point exports and the mesh mode are not ported yet.
 """
 
 from __future__ import annotations
@@ -19,18 +20,21 @@ from . import characteristics as ch
 from . import geo
 from . import hull3d
 from . import interactive as edit
+from . import rasters as rs
 from . import rbv as rbv_mod
 from . import trunk_axis
 from .cloud import CLASS_TRUNK, DELETED_SEGMENT, PointCloud, include_mask
 from .config import Config, DEFAULT_CONFIG, RenderConfig
 from .device import DEFAULT_DEVICE, resolve
+from .io import exports
 from .ops import octree as octree_mod
 from .render import Camera, lines, palettes, splat
-from .segmentation import SegmentationResult, segment_points
+from .segmentation import SegmentationResult, scene_bounds, segment_points
 
-# the focused view's own displays; "hag" and the scan's source attributes
-# (io/las.decode_attributes in the JAX package) come with later slices
-FOCUS_DISPLAYS = ("classification", "expansion", "height", "curve", "shaded")
+# the focused view's displays; the scan's source attributes
+# (io/las.decode_attributes in the JAX package) come with a later slice
+FOCUS_DISPLAYS = ("classification", "hag", "expansion", "height", "curve",
+                  "shaded")
 SOURCE_ATTRIBUTES = ("intensity", "file_classification", "return_number",
                      "rgb", "gps_time", "nir")
 # Lambert light of the shaded display, unit, y-up
@@ -150,6 +154,10 @@ class Session:
         # the focused view's caches; membership-derived, so every edit of
         # membership, segment() and characteristics() clear them
         self._clear_focus()
+        # hag_prop per raster cell size; the DTM follows the live set and
+        # the ground class, so segment(), characteristics(), membership
+        # edits and reclassify_sphere drop it
+        self._hag_cache: dict[float, torch.Tensor] = {}
 
     def _clear_focus(self) -> None:
         """Drop the focused view's caches:
@@ -221,6 +229,7 @@ class Session:
         self._bbox_full = False
         self._counts_stale = False
         self._clear_focus()
+        self._hag_cache = {}    # ground classification re-derived
         self._next_id = None
         self._lod = None    # the subset's colours and membership follow ids
         if bool(res.occupied_overflow):
@@ -361,6 +370,7 @@ class Session:
         self._bbox_full = True
         self._counts_stale = False
         self._clear_focus()
+        self._hag_cache = {}    # ground classification re-derived
         return table
 
     def full_table(self) -> ch.SegmentTable:
@@ -532,10 +542,6 @@ class Session:
         not depend on the rows' order or padding, so the frame equals the
         full cloud's.  A grid-path segment draws from the full cloud.
         """
-        if display == "hag":
-            raise NotImplementedError(
-                "display 'hag' needs the height-above-ground rasters, which "
-                "the port does not have yet (slice 7)")
         if display in SOURCE_ATTRIBUTES:
             raise NotImplementedError(
                 f"display {display!r} needs the scan's source attributes, "
@@ -563,7 +569,10 @@ class Session:
             f_pos = cloud.pos[idx]
             f_cls = cloud.classification[idx]
 
-        if display == "classification":
+        if display == "hag":
+            prop = self.hag_prop()      # the cached full-cloud property
+            f_prop = prop if use_grid else prop[idx]
+        elif display == "classification":
             # Ground, Trunk, Crown -> 1/8, 3/8, 6/8 of the palette
             # (mod.rs:1031-1039)
             f_prop = torch.tensor([1 / 8, 3 / 8, 6 / 8], dtype=torch.float32,
@@ -703,6 +712,105 @@ class Session:
                          .astype(np.float64))
         return out
 
+    def forest_summary(self, inventory: dict | None = None,
+                       chm_cell: float = 0.5,
+                       cover_threshold: float = 2.0) -> dict:
+        """Stand-level aggregates from the per-tree inventory and the CHM:
+        stems/ha, basal area/ha, canopy cover, quadratic mean diameter.
+
+        A "tree" is a segment with trunk-classified points; ``area_ha`` is
+        the live points' bounding rectangle (an approximation for irregular
+        stands).  Canopy cover is the share of CHM cells at least
+        ``cover_threshold`` m above the hole-filled DTM."""
+        inv = inventory if inventory is not None else self.inventory()
+        _, lo, hi = self._live_bounds()
+        area_m2 = float(hi[0] - lo[0]) * float(hi[2] - lo[2])
+        area_ha = max(area_m2 / 1e4, 1e-12)
+
+        tree = inv["n_trunk"] > 0
+        n_trees = int(tree.sum())
+        dbh = inv["diameter_breast_height"][tree]
+        heights = inv["tree_height"][tree]
+        basal = float(inv["trunk_cross_area"][tree].sum())
+
+        grids, _, _ = self.rasters(chm_cell)
+        chm = grids["chm"]
+        valid_cells = chm != rs.NODATA
+        cover = (float((chm[valid_cells] >= cover_threshold).mean())
+                 if valid_cells.any() else 0.0)
+
+        return {
+            "n_trees": n_trees,
+            "area_ha": area_ha,
+            "stems_per_ha": n_trees / area_ha,
+            "mean_dbh": float(dbh.mean()) if n_trees else 0.0,
+            # quadratic mean diameter: the DBH of the tree of mean basal area
+            "quadratic_mean_dbh": (
+                float(np.sqrt((dbh**2).mean())) if n_trees else 0.0),
+            "mean_height": float(heights.mean()) if n_trees else 0.0,
+            "max_height": float(heights.max()) if n_trees else 0.0,
+            "basal_area_per_ha": basal / area_ha,
+            "canopy_cover": cover,
+            "total_crown_volume": float(inv["crown_volume"][tree].sum()),
+            "total_stem_volume": float(inv["stem_volume"][tree].sum()),
+            "total_wood_volume": float(inv["wood_volume"][tree].sum()),
+        }
+
+    # ---- rasters -----------------------------------------------------------
+
+    def _live_bounds(self) -> tuple[torch.Tensor, np.ndarray, np.ndarray]:
+        """(live mask, lo, hi): the live points and their bounds on the
+        host (the unit box when no point is live)."""
+        live = self.cloud.alive
+        lo, hi = (a.cpu().numpy() for a in scene_bounds(self.cloud.pos, live))
+        return live, lo, hi
+
+    def rasters(self, cell: float = 0.5, cap: int = 4096):
+        """DTM / DSM / CHM height rasters over the live cloud
+        (:func:`rasters.compute_rasters`).  Returns (grids dict of host
+        arrays, (xll, yll) LAS map corner, cell)."""
+        live, lo, hi = self._live_bounds()
+        grids, (rows, _), cell = rs.compute_rasters(
+            self.cloud.pos, self.cloud.classification, live, lo, hi, cell,
+            cap=cap, y_offset=float(self.world_offset[1]))
+        # lower-left corner in LAS map coords: easting = x + off_x, northing
+        # = -(z + off_z), so yll comes from the GRID's max-z edge, not the
+        # point bounds' (the grid over-covers by up to one cell)
+        xll = float(lo[0]) + float(self.world_offset[0])
+        yll = -(float(lo[2]) + rows * cell) - float(self.world_offset[2])
+        return grids, (xll, yll), cell
+
+    def height_above_ground(self, cell: float = 1.0,
+                            cap: int = 4096) -> torch.Tensor:
+        """Per-point height above the hole-filled DTM, f32[N] on the
+        session's device (:func:`rasters.height_above_ground`)."""
+        live, lo, hi = self._live_bounds()
+        (rows, cols), shape, cell = rs.grid_dims(lo, hi, cell, cap=cap)
+        pos = self.cloud.pos
+        return rs.height_above_ground(
+            pos, self.cloud.classification, live, rs.f32(lo[0], pos),
+            rs.f32(lo[2], pos), rs.f32(1.0 / cell, pos), shape, (rows, cols))
+
+    def hag_prop(self, cell: float = 1.0) -> torch.Tensor:
+        """The height above ground divided by its maximum (at least 1e-6),
+        f32[N] in [0, 1] for ``render(prop=...)`` and the ``hag`` focus
+        display; cached per cell size until an edit or a re-segmentation."""
+        if cell not in self._hag_cache:
+            hag = self.height_above_ground(cell)
+            self._hag_cache[cell] = torch.div(
+                hag, torch.clamp(hag.amax(), min=1e-6))
+        return self._hag_cache[cell]
+
+    def export_raster(self, path, which: str = "chm", cell: float = 0.5,
+                      cap: int = 4096) -> tuple[int, int]:
+        """Write one raster as an ESRI ASCII grid; returns (rows, cols)."""
+        grids, (xll, yll), cell = self.rasters(cell, cap=cap)
+        if which not in grids:
+            raise ValueError(f"unknown raster {which!r} (dtm|dsm|chm)")
+        with open(path, "w") as fh:
+            exports.save_ascii_grid(fh, grids[which], xll, yll, cell)
+        return grids[which].shape
+
     # ---- edits -------------------------------------------------------------
 
     def _alloc_id(self) -> int:
@@ -718,10 +826,11 @@ class Session:
         the cloud, so ``full_table()`` must recompute, and the focused
         view's routing must not trust the table's counts (a combine() that
         folds a large segment into a small id would otherwise send it to
-        the O(N^2) brute force).  (The height-above-ground cache, which
-        slice 7 adds, is cleared here too once it exists.)"""
+        the O(N^2) brute force).  The live set may have changed, and with
+        it the DTM, so the height-above-ground cache goes too."""
         self._counts_stale = True
         self._clear_focus()
+        self._hag_cache = {}
 
     def _radius(self, radius) -> float:
         return (radius if radius is not None
@@ -751,6 +860,7 @@ class Session:
         self.cloud = edit.change_classification(
             self.cloud, center, self._radius(radius), classification, segment)
         self._clear_focus()
+        self._hag_cache = {}    # ground membership drives the DTM
         if self.table is not None:
             self.update_separators_from_classes(segment)
 
