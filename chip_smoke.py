@@ -112,6 +112,33 @@ Phases, each of which raises on failure:
    grown; a null self-compare) and ``stand_changes``.  Times of each call and stage, the
    floods' CUDA launches.
 
+17. Ingest: the 15M scan written as a LAS 1.4 PDRF 7 file (intensity, RGB,
+   GPS time), ``Session.from_las`` through the native codec with and
+   without preview frames, the source attributes' properties and frames,
+   ``export_las`` to .las and .laz, ``save`` / ``open`` as .npz,
+   ``add_session`` of one tree's .ipc, ``export_points_ply`` of a tree and
+   of the live cloud; each read back and held against its source.
+
+18. The front ends on phase 17's scan file, the counters zeroed before and
+   read after each call: the CLI (``treee_tpu_torch.app.main``: the scan,
+   8 orbit frames and the info, inventory, summary, CHM, traits, hull and
+   RBV exports of the largest tree) must print the segment count of a
+   ``Session.from_las`` + ``segment(0.75)`` built the same way, its PNG
+   frames must equal ``Session.render`` at the same cameras, its inventory
+   CSV and CHM the session's own, byte for byte; ``--demo --save`` and the
+   checkpoint reopened with ``--no-segment --frames 1`` must draw the same
+   frame.  A ``Repl`` over the session takes a scripted command stream
+   (the auto view's adaptive cut, a click, a combine, right-drag deletes, a
+   left-drag, LOD levels, the hag and intensity displays, a focus frame
+   with the hull, a re-segment at 0.5 with its preview, the panels, a .ply
+   export): no command may print an error, and the ids after the edits,
+   the dragged camera and the re-segment's ids must equal the same
+   ``Session`` and ``Camera`` calls made directly.  The browser viewer
+   (``serve.ViewerServer``) over the session: its page, ``/info``, and
+   frames that equal ``Session.render`` / ``render_focus`` byte for byte;
+   a burst of 20 drag commands must cost fewer renders than commands;
+   ``shutdown()`` must end its threads.  Each command's host-clock time.
+
 Phase 12 also holds the small scene's focused view card against CPU:
 eigen, both k-NNs, properties, curvature, normals, the axes, RBVs, hull
 candidates and frames.
@@ -127,15 +154,19 @@ import concurrent.futures
 import contextlib
 import dataclasses
 import importlib.util
+import io
 import json
 import os
 import re
 import shutil
 import statistics
+import struct
 import subprocess
 import sys
 import tempfile
 import time
+import urllib.request
+import zlib
 
 import numpy as np
 import torch
@@ -281,6 +312,9 @@ SLAB_POINTS = 4_000_000
 LAZ_BUDGET_S = 30.0
 # the ASPRS classes export_las writes for ground, trunk and crown
 ASPRS = (2, 4, 5)
+# the front ends (phase 18): the REPL's orbit distance, outside the 15M
+# stand (about 214 m a side, centred on the origin)
+REPL_ORBIT = 250.0
 
 
 def log(*args) -> None:
@@ -1270,6 +1304,373 @@ def nearest_trees(table, sid: int, need: int) -> list[int]:
         chosen.append(i)
         total += int(counts[i])
     return chosen
+
+
+def decode_png(data: bytes) -> np.ndarray:
+    """u8[H,W,3] of an RGB8 PNG whose rows all have filter 0, as
+    ``serve.png_encode`` writes them; anything else raises."""
+    if data[:8] != b"\x89PNG\r\n\x1a\n":
+        raise AssertionError("not a PNG")
+    pos, idat, w, h = 8, b"", None, None
+    while pos < len(data):
+        (length,) = struct.unpack(">I", data[pos:pos + 4])
+        tag = data[pos + 4:pos + 8]
+        payload = data[pos + 8:pos + 8 + length]
+        if tag == b"IHDR":
+            w, h, depth, ctype = struct.unpack(">IIBB", payload[:10])
+            if (depth, ctype) != (8, 2):
+                raise AssertionError(f"PNG depth {depth}, colour type {ctype}")
+        elif tag == b"IDAT":
+            idat += payload
+        pos += 12 + length
+    raw = np.frombuffer(zlib.decompress(idat), np.uint8).reshape(h, 1 + w * 3)
+    if raw[:, 0].any():
+        raise AssertionError("a PNG row has a filter other than 0")
+    return raw[:, 1:].reshape(h, w, 3)
+
+
+def hit_pixels(session, need: int, width: int, height: int) -> list:
+    """``need`` pixels of the session's camera whose ray picks a point, each
+    of another segment, from a 20-pixel grid over the frame taken nearest
+    the centre first (the ground near the camera takes the segment of the
+    tree nearest it, so neighbouring rays often share one); as
+    ``[(x, y, segment)]``."""
+    grid = [(x + 0.5, y + 0.5) for x in range(10, width, 20)
+            for y in range(10, height, 20)]
+    grid.sort(key=lambda p: (p[0] - width / 2.0) ** 2
+              + (p[1] - height / 2.0) ** 2)
+    found, seen = [], set()
+    for x, y in grid:
+        seg, _, hit = session.pick(x, y)
+        if hit and seg not in seen:
+            seen.add(seg)
+            found.append((x, y, seg))
+            if len(found) == need:
+                return found
+    raise AssertionError(f"only {len(found)} of {need} pixels hit a segment")
+
+
+def ray_hit(session, x: float, y: float) -> np.ndarray:
+    """The point a pick through pixel (x, y) hits, on the host."""
+    rcfg = session.config.render
+    seg, dist, hit = session.pick(x, y)
+    if not hit:
+        raise AssertionError(f"pixel ({x}, {y}) hits nothing")
+    cam = session.camera
+    d = cam.ray_direction(x, y, rcfg.width, rcfg.height).cpu().numpy()
+    return cam.position.cpu().numpy() + d * dist
+
+
+def http(port: int, path: str, body: bytes | None = None):
+    """(status, headers, body) of a request to the loopback viewer."""
+    req = urllib.request.Request(f"http://127.0.0.1:{port}{path}", data=body,
+                                 method="POST" if body is not None else "GET")
+    with urllib.request.urlopen(req, timeout=120) as r:
+        return r.status, r.headers, r.read()
+
+
+def front_ends(src: str, n: int, tmp: str, dev, counted, pipeline,
+               Camera) -> None:
+    """Phase 18: the CLI, the REPL and the browser viewer on the scan that
+    phase 17 wrote, on the card; raises on the first check that fails."""
+    from treee_tpu_torch import app, serve
+    from treee_tpu_torch import repl as repl_mod
+    from treee_tpu_torch.io import exports
+    from treee_tpu_torch.utils import profiling
+
+    # (a) the CLI: the session it builds, built here the same way
+    out = os.path.join(tmp, "cli")
+    frames_dir = os.path.join(out, "frames")
+    os.makedirs(out)
+    ref, ms = counted(lambda: pipeline.Session.from_las(src, device=dev), (),
+                      "from_las")
+    res, seg_ms = counted(lambda: ref.segment(MAX_DISTANCE),
+                          MAIN_PATH_KERNELS, "segment()")
+    n_seg = int(res.n_segments)
+    counts = ref.table.count.cpu().numpy().astype(np.int64)
+    counts[0] = 0
+    sid = int(np.argmax(counts))
+    argv = [src, "--frames", str(N_FRAMES), "--out-dir", frames_dir,
+            "--export-info", os.path.join(out, "info.json"),
+            "--export-inventory", os.path.join(out, "inv.csv"),
+            "--export-summary", os.path.join(out, "summary.json"),
+            "--export-chm", os.path.join(out, "chm.asc"),
+            "--segment-id", str(sid),
+            "--export-traits", os.path.join(out, "traits.json"),
+            "--export-hull-ply", os.path.join(out, "hull.ply"),
+            "--export-rbv", os.path.join(out, "rbv.json"), "-v"]
+    args = app.build_parser().parse_args(argv)
+    if app.build_config(args) != ref.config:
+        raise AssertionError("the CLI's configuration is not the default")
+    profiling.reset_timings()
+    printed = io.StringIO()
+    with contextlib.redirect_stdout(printed):
+        rc, cli_ms = counted(lambda: app.main(argv),
+                             MAIN_PATH_KERNELS + FRAME_KERNELS
+                             + ("jump_flood_grid",), "the CLI")
+    text = printed.getvalue()
+    for line in text.splitlines():
+        log(f"  | {line}")
+    if rc != 0 or f"segments: {n_seg}\n" not in text:
+        raise AssertionError(f"the CLI returned {rc} and did not print "
+                             f"segments: {n_seg}")
+    cam = Camera.orbital(distance=args.orbit_distance, device=dev)
+    for i in range(N_FRAMES):
+        cam = cam.rotate_orbital(2 * np.pi / N_FRAMES / 0.002, 0.0)
+        with open(os.path.join(frames_dir, f"frame_{i:03d}.png"), "rb") as fh:
+            got = decode_png(fh.read())
+        if not np.array_equal(got, ref.render(cam)):
+            raise AssertionError(f"the CLI's frame {i} differs from "
+                                 "Session.render at its camera")
+    inv_ref = io.StringIO()
+    exports.save_inventory_csv(inv_ref, ref.inventory(
+        **app._inventory_kwargs(args)))
+    with open(os.path.join(out, "inv.csv")) as fh:
+        if fh.read() != inv_ref.getvalue():
+            raise AssertionError("the CLI's inventory CSV differs from "
+                                 "save_inventory_csv(Session.inventory())")
+    chm_ref = os.path.join(out, "chm_ref.asc")
+    ref.export_raster(chm_ref, "chm", cell=args.raster_cell)
+    with open(os.path.join(out, "chm.asc"), "rb") as a, \
+            open(chm_ref, "rb") as b:
+        if a.read() != b.read():
+            raise AssertionError("the CLI's chm.asc differs from "
+                                 "Session.export_raster('chm')")
+    with open(os.path.join(out, "info.json")) as fh:
+        info = json.load(fh)
+    with open(os.path.join(out, "traits.json")) as fh:
+        traits = json.load(fh)
+    with open(os.path.join(out, "rbv.json")) as fh:
+        rbv = json.load(fh)
+    present = int(ref.table.present.sum())
+    if not (len(info) == present and list(traits) == [str(sid)]
+            and all(np.isfinite(v) for v in traits[str(sid)].values())
+            and np.isfinite(rbv["distances"]).all()):
+        raise AssertionError("the CLI's info, traits or RBV export is off")
+    phases = profiling.timings()
+    log(f"  CLI: {cli_ms / 1e3:.2f} s, rc 0, {n_seg} segments as "
+        f"from_las ({ms / 1e3:.2f} s) + segment ({seg_ms:.1f} ms) give; "
+        f"{N_FRAMES} PNG frames byte-equal to Session.render, the inventory "
+        f"CSV and chm.asc byte-equal to the session's own; info of "
+        f"{len(info)} segments, traits, hull and RBV of segment {sid}; "
+        "phase_timer: " + ", ".join(f"{k} {min(v) * 1e3:.1f} ms"
+                                    for k, v in phases.items()))
+
+    # (a') --save and reopen on a small scene
+    small = os.path.join(tmp, "small")
+    ckpt = os.path.join(small, "demo.npz")
+    os.makedirs(small)
+    with contextlib.redirect_stdout(io.StringIO()):
+        rc1, save_ms = counted(lambda: app.main(
+            ["--demo", "--save", ckpt, "--frames", "1", "--out-dir",
+             os.path.join(small, "a")]), MAIN_PATH_KERNELS + FRAME_KERNELS,
+            "the CLI's --demo --save")
+        rc2, open_ms = counted(lambda: app.main(
+            [ckpt, "--no-segment", "--frames", "1", "--out-dir",
+             os.path.join(small, "b")]), FRAME_KERNELS,
+            "the CLI's reopen")
+    with open(os.path.join(small, "a", "frame_000.png"), "rb") as a, \
+            open(os.path.join(small, "b", "frame_000.png"), "rb") as b:
+        same = a.read() == b.read()
+    if (rc1, rc2) != (0, 0) or not same:
+        raise AssertionError(f"--save + reopen: rc {rc1}, {rc2}; frames "
+                             f"{'equal' if same else 'differ'}")
+    log(f"  CLI --demo --save {save_ms / 1e3:.2f} s, reopen --no-segment "
+        f"--frames 1 {open_ms / 1e3:.2f} s: the reopened frame is the "
+        "first run's, byte for byte")
+
+    # (b) the REPL over the session, against the same Session calls made
+    # directly on a second session built the same way; the default camera
+    # stands inside the forest, a tree filling its view, so the script
+    # first backs off to see the stand's edge
+    par = pipeline.Session.from_las(src, device=dev)
+    par.segment(MAX_DISTANCE)
+    par.camera = Camera.orbital(distance=REPL_ORBIT, device=dev)
+    rcfg = ref.config.render
+    r = repl_mod.Repl(ref, out=io.StringIO())
+    previews = []
+    r.preview_hook = previews.append
+    times = []
+
+    def run(line, needed=()):
+        _, line_ms = counted(lambda: r.handle(line), needed, line)
+        times.append((line, line_ms))
+
+    run(f"camera orbit {REPL_ORBIT}")
+    (px, py, seg_p), (qx, qy, seg_q), (dx, dy, _) = hit_pixels(
+        ref, 3, rcfg.width, rcfg.height)
+    png = os.path.join(tmp, "repl.png")
+    run(f"render {png}", FRAME_KERNELS)
+    if not (r.use_lod and r.view_path.startswith("adaptive(tau=")):
+        raise AssertionError(f"the auto view took {r.view_path} at {n} "
+                             "points")
+    run(f"event down left {px} {py}")
+    run(f"event up left {px} {py}")
+    if r.selected != par.pick(px, py)[0] or r.selected != seg_p:
+        raise AssertionError(f"the click selected {r.selected}, "
+                             f"Session.pick gives {par.pick(px, py)[0]}")
+    run("mode combine")
+    for x, y in ((px, py), (qx, qy)):
+        run(f"event down left {x} {y}")
+        run(f"event up left {x} {y}")
+    par.combine(par.pick(qx, qy)[0], par.pick(px, py)[0])
+    run("mode delete")
+    strokes = [(dx, dy), (dx + 3, dy), (dx + 6, dy)]
+    run(f"event down right {dx} {dy}")
+    for x, y in strokes[1:]:
+        run(f"event move {x} {y}")
+    run(f"event up right {dx + 6} {dy}")
+    for x, y in strokes:
+        par.delete_sphere(ray_hit(par, x, y))
+    if not (torch.equal(r.s.cloud.segment, par.cloud.segment)
+            and torch.equal(r.s.cloud.classification,
+                            par.cloud.classification)):
+        raise AssertionError("the REPL's edits give other ids or classes "
+                             "than the same Session calls")
+    run("mode view")
+    run("event down left 100 100")
+    run("event move 140 110")
+    run("event move 180 120")
+    if not r._lod_dirty:
+        raise AssertionError("a drag left the adaptive subset fresh")
+    run("event up left 180 120")
+    # each move: 40 and 10 pixels of f32 mouse travel, times rotate_scale 4
+    step = np.float32(40.0) * 4.0, np.float32(10.0) * 4.0
+    want = Camera.orbital(REPL_ORBIT, device=dev).rotate_orbital(*step)
+    want = want.rotate_orbital(*step)
+    if not torch.equal(r.s.camera.transform, want.transform):
+        raise AssertionError("the drag gave another camera than "
+                             "rotate_orbital")
+    run(f"render {png}", FRAME_KERNELS)
+    for line in ("lod level 7", "lod adaptive", "display hag",
+                 "display intensity"):
+        run(line)
+        run(f"render {png}", FRAME_KERNELS)
+    run("display classification")
+    run("overlay hull on")
+    run(f"focusrender {png}", FRAME_KERNELS)
+    run("distance 0.5", MAIN_PATH_KERNELS)
+    par.segment(0.5)
+    if len(previews) != 1 or not torch.equal(r.s.cloud.segment,
+                                             par.cloud.segment):
+        raise AssertionError(f"distance 0.5: {len(previews)} previews; ids "
+                             "differ from Session.segment(0.5)")
+    ex, ey, seg_e = hit_pixels(r.s, 1, rcfg.width, rcfg.height)[0]
+    run(f"event down left {ex} {ey}")
+    run(f"event up left {ex} {ey}")
+    for line in ("info", "traits", "summary"):
+        run(line)
+    ply = os.path.join(tmp, "selected.ply")
+    run(f"export ply {ply}", ("segmented_cummax",))
+    run("quit")
+    text = r.out.getvalue()
+    with open(ply) as fh:
+        n_ply = int(fh.read(400).split("element vertex ")[1].split("\n")[0])
+    member = int((r.s.cloud.valid & (r.s.cloud.segment == seg_e)).sum())
+    if "error:" in text or r.selected != seg_e or n_ply != member:
+        raise AssertionError(f"the REPL printed an error or exported "
+                             f"{n_ply} of {member} points:\n{text}")
+    log(f"  REPL: {len(times)} commands, no error, ids and classes after "
+        "the click, combine and delete strokes equal the same Session calls,"
+        " the drag's camera rotate_orbital's, distance 0.5's ids "
+        "segment(0.5)'s; each command's host-clock ms after a synchronize:")
+    for line, line_ms in times:
+        log(f"    {line.replace(tmp + os.sep, '')}: {line_ms:.1f}")
+    del par
+
+    # (c) the browser viewer over the session
+    v = serve.ViewerServer(r.s, port=0)
+    http_thread = v.serve_background()
+    try:
+        status, _, page = http(v.port, "/")
+        _, _, body = http(v.port, "/info")
+        info = json.loads(body)
+        if status != 200 or b"/frame.png" not in page \
+                or info["points"] != n:
+            raise AssertionError(f"viewer page {status}, info {info}")
+        t0 = time.perf_counter()
+        _, hdr, body = http(v.port, "/frame.png")
+        first_ms = (time.perf_counter() - t0) * 1e3
+        _, _, raw = http(v.port, "/frame.rgb")
+        vr = v.repl
+        with v.lock:
+            want = vr.s.render(use_lod=vr.use_lod,
+                               show_deleted=vr.show_deleted)
+        if not (np.array_equal(decode_png(body), want)
+                and raw == want.tobytes()):
+            raise AssertionError("the viewer's frame differs from "
+                                 "Session.render on its view path")
+        renders = []
+        draw = v._frame_img_locked
+        v._frame_img_locked = lambda focus=False: (renders.append(1),
+                                                   draw(focus))[1]
+        seq = v.frame_seq
+        burst = (["event down left 300 300"]
+                 + [f"event move {300 + 5 * i} {300 + 2 * i}"
+                    for i in range(1, 19)] + ["event up left 390 336"])
+        t0 = time.perf_counter()
+        for line in burst:
+            http(v.port, "/cmd", line.encode())
+        t_last = time.perf_counter()
+        with v._frame_cond:
+            gen = v._req_gen
+        while True:   # until the served frame is the one after the burst
+            _, hdr, body = http(v.port, f"/frame.png?wait=1&seq={seq}")
+            seq = int(hdr["X-Frame-Seq"])
+            with v._frame_cond:
+                if v._done_gen >= gen and v._frame_seq == seq:
+                    break
+        to_frame_ms = (time.perf_counter() - t_last) * 1e3
+        burst_ms = (t_last - t0) * 1e3
+        with v.lock:
+            want = vr.s.render(use_lod=vr.use_lod,
+                               show_deleted=vr.show_deleted)
+        if not (np.array_equal(decode_png(body), want)
+                and 1 <= len(renders) < len(burst)):
+            raise AssertionError(f"after the burst: {len(renders)} renders "
+                                 f"for {len(burst)} commands, frame "
+                                 "differs from Session.render")
+        with v.lock:
+            fx, fy, fseg = hit_pixels(vr.s, 1, rcfg.width, rcfg.height)[0]
+        for line in (f"event down left {fx} {fy}", f"event up left {fx} {fy}",
+                     "focusview on"):
+            http(v.port, "/cmd", line.encode())
+        t0 = time.perf_counter()
+        png_focus = v.frame_png()
+        focus_ms = (time.perf_counter() - t0) * 1e3
+        with v.lock:
+            want = vr.s.render_focus(
+                fseg, display=vr.display, show_hull=vr.overlays["hull"],
+                show_rbv=vr.overlays["rbv"], show_axis=vr.overlays["axis"],
+                hull_include=vr.hull_include,
+                rbv_slices=vr.rbv_opts["slices"],
+                rbv_sectors=vr.rbv_opts["sectors"],
+                rbv_method=vr.rbv_opts["method"],
+                rbv_symmetric=vr.rbv_opts["symmetric"],
+                axis_algo=vr.axis_algo)
+        if vr.selected != fseg or not np.array_equal(decode_png(png_focus),
+                                                     want):
+            raise AssertionError("the viewer's focus frame differs from "
+                                 "Session.render_focus")
+        http(v.port, "/cmd", b"focusview off")
+        back = decode_png(v.frame_png())
+        with v.lock:
+            want = vr.s.render(use_lod=vr.use_lod,
+                               show_deleted=vr.show_deleted)
+        if not np.array_equal(back, want):
+            raise AssertionError("back from the focus view, the frame "
+                                 "differs from Session.render")
+    finally:
+        v.shutdown()
+    http_thread.join(timeout=60)
+    if v._render_thread.is_alive() or http_thread.is_alive():
+        raise AssertionError("the viewer's threads outlived shutdown()")
+    log(f"  viewer: first /frame.png {first_ms:.1f} ms ({vr.view_path}); "
+        f"a burst of {len(burst)} drag commands in {burst_ms:.1f} ms cost "
+        f"{len(renders)} renders, its frame {to_frame_ms:.1f} ms after the "
+        f"last command; focus frame of segment {fseg} {focus_ms:.1f} ms; "
+        "every frame byte-equal to Session.render / render_focus; shutdown "
+        "ended both threads")
 
 
 def main() -> int:
@@ -2694,14 +3095,36 @@ def main() -> int:
             f"{n_pa} points, {os.path.getsize(ply_all)} bytes, "
             f"{pa_ms / 1e3:.2f} s, of which the grid curvature alone takes "
             f"{gc_ms / 1e3:.2f} s")
-    finally:
+        os.unlink(ply_all)
+    except BaseException:
+        # phase 18 reads the scan file; after a failure nothing will
         shutil.rmtree(tmp, ignore_errors=True)
+        raise
     for k in ingest_launches:
         launches[k] += ingest_launches[k]
     log(f"  launches over the phase: {ingest_launches}; peak device memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; phase "
         f"{time.perf_counter() - t_phase:.1f} s")
     del session
+
+    # --- phase 18: the front ends on the scan phase 17 wrote ---
+    log("phase 18: the front ends on the scan file of phase 17: the CLI "
+        "(app.main, 8 frames and the exports; --save and reopen on the "
+        "demo scene), a REPL over the session fed a scripted command "
+        "stream, and the browser viewer over it")
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    front_launches = dict.fromkeys(launches, 0)
+    try:
+        front_ends(src, n, tmp, dev, launch_counter(kernels, front_launches),
+                   pipeline, Camera)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    for k in front_launches:
+        launches[k] += front_launches[k]
+    log(f"  launches over the phase: {front_launches}; peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; phase "
+        f"{time.perf_counter() - t_phase:.1f} s")
 
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(card_line())

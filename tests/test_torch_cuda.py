@@ -34,6 +34,7 @@ is absent, run it without the suite's conftest:
 """
 
 import ctypes
+import time
 
 import numpy as np
 import pytest
@@ -1159,3 +1160,94 @@ def test_ingest_checkpoint_and_export_on_the_card(dev, tmp_path):
     seg = card.cloud.segment[card.cloud.valid].cpu().numpy()
     assert (seg[n:] == top + 1).all() and len(seg) > n
     assert card.table is None and card.cloud.pos.device.type == "cuda"
+
+
+def test_cli_save_and_reopen_on_the_card(dev, tmp_path, monkeypatch):
+    """``python -m treee_tpu_torch --demo --save`` and then the checkpoint
+    reopened (``--no-segment --frames 1``) on the card: every frame kernel
+    runs, the reopened frame is the frame the first run drew, byte for byte,
+    and the checkpoint holds the card session's arrays."""
+    import contextlib
+    import io
+
+    from treee_tpu_torch import app
+
+    monkeypatch.setenv("TREEE_APP_CONFIG", "small")
+    ckpt, first, second = tmp_path / "s.npz", tmp_path / "a", tmp_path / "b"
+    frame = ["--frames", "1", "--width", "192", "--height", "108"]
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        assert app.main(["--demo", "--save", str(ckpt), "--out-dir",
+                         str(first), *frame]) == 0
+    assert "segments:" in out.getvalue()
+    assert kernels.launches()["dilate"] > 0
+    assert kernels.launches()["eye_dome"] > 0
+    kernels.reset_launches()
+    with contextlib.redirect_stdout(io.StringIO()):
+        assert app.main([str(ckpt), "--no-segment", "--out-dir", str(second),
+                         *frame]) == 0
+    assert kernels.launches()["dilate"] > 0
+    assert ((second / "frame_000.png").read_bytes()
+            == (first / "frame_000.png").read_bytes())
+    back = tpl.Session.open(str(ckpt), device=dev)
+    assert back.cloud.pos.device.type == "cuda" and back.cloud.count == 148_000
+    assert int(back.cloud.segment.max()) > 1
+
+
+def test_viewer_server_on_the_card(dev):
+    """The browser viewer over a small card session: /frame.rgb is
+    Session.render's frame byte for byte, a drag burst coalesces into fewer
+    renders than commands, and shutdown ends the render worker."""
+    import json
+    import urllib.request
+
+    from treee_tpu_torch.serve import ViewerServer
+
+    pts = tlas.synthetic_forest(n_trees=4, points_per_tree=4000,
+                                ground_points=4000, seed=3)
+    s = tpl.Session.from_points(pts, SMALL_CFG, device=dev)
+    s.segment(0.75)
+    v = ViewerServer(s, port=0)
+    v.serve_background()
+    try:
+        base = f"http://127.0.0.1:{v.port}"
+
+        def settle():
+            for _ in range(3000):
+                with v._frame_cond:
+                    if v._req_gen == v._done_gen:
+                        return
+                time.sleep(0.01)
+            raise AssertionError("render worker never settled")
+
+        def cmd(line):
+            req = urllib.request.Request(f"{base}/cmd", data=line.encode(),
+                                         method="POST")
+            with urllib.request.urlopen(req, timeout=120) as r:
+                return json.loads(r.read())
+
+        v.frame_png()
+        settle()
+        with urllib.request.urlopen(f"{base}/frame.rgb", timeout=60) as r:
+            h, w = int(r.headers["X-Height"]), int(r.headers["X-Width"])
+            img = np.frombuffer(r.read(), np.uint8).reshape(h, w, 3)
+        np.testing.assert_array_equal(img, s.render())
+        renders = []
+        orig = v._frame_img_locked
+        v._frame_img_locked = lambda focus=False: (renders.append(1),
+                                                   orig(focus))[1]
+        seq = v.frame_seq
+        assert cmd("event down left 10 10")["ok"]
+        for i in range(20):
+            assert cmd(f"event move {12 + 3 * i} 10")["ok"]
+        assert cmd(f"event up left {12 + 3 * 19} 10")["ok"]
+        png, seq2 = v.frame_wait(seq, timeout=60)
+        assert seq2 > seq and png[:4] == b"\x89PNG"
+        settle()
+        assert 1 <= len(renders) < 22
+        img, _ = v.frame_rgb()
+        with v.lock:
+            np.testing.assert_array_equal(img, s.render())
+    finally:
+        v.shutdown()
+    assert not v._render_thread.is_alive()

@@ -54,9 +54,9 @@ def test_port_and_chip_smoke_import_no_jax():
     assert out.returncode == 0, out.stderr
     mods, bad = out.stdout.splitlines()
     mods = set(mods.split())
-    assert len(mods) >= 42
-    # the interactive and focused views', the rasters' and ingest's modules
-    # among them
+    assert len(mods) >= 48
+    # the interactive and focused views', the rasters', ingest's and the
+    # front ends' modules among them
     assert {"treee_tpu_torch.interactive", "treee_tpu_torch.ops.octree",
             "treee_tpu_torch.ops.morton", "treee_tpu_torch.cloud",
             "treee_tpu_torch.characteristics",
@@ -66,7 +66,10 @@ def test_port_and_chip_smoke_import_no_jax():
             "treee_tpu_torch.change", "treee_tpu_torch.io.exports",
             "treee_tpu_torch.io.las", "treee_tpu_torch.io.laz_native",
             "treee_tpu_torch.io.native_build", "treee_tpu_torch.io.ipc",
-            "treee_tpu_torch.utils.errors"} <= mods
+            "treee_tpu_torch.utils.errors", "treee_tpu_torch.input",
+            "treee_tpu_torch.repl", "treee_tpu_torch.serve",
+            "treee_tpu_torch.app", "treee_tpu_torch.__main__",
+            "treee_tpu_torch.utils.profiling"} <= mods
     assert bad.strip() == "[]"
 
 
@@ -156,7 +159,9 @@ def _device_defaults():
 def test_entry_points_default_to_the_card(tmp_path):
     """The port runs on the card unless asked for the CPU: every entry
     point defaults to CUDA, and without a card it raises instead of running
-    on the CPU."""
+    on the CPU.  The CLI (``python -m treee_tpu_torch``) too: without
+    ``--cpu`` it runs on the card or raises."""
+    from treee_tpu_torch import app as tapp
     from treee_tpu_torch import device as tdevice
     from treee_tpu_torch import pipeline as tpl
     from treee_tpu_torch.render import Camera
@@ -172,6 +177,13 @@ def test_entry_points_default_to_the_card(tmp_path):
         tpl.Session()
     with pytest.raises(RuntimeError, match="device='cpu'"):
         tpl.Session.from_points(pts)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tapp.main(["--demo"])
+    proc = subprocess.run([sys.executable, "-m", "treee_tpu_torch", "--demo"],
+                          cwd=REPO, capture_output=True, text=True,
+                          timeout=120)
+    assert proc.returncode != 0 and "device='cpu'" in proc.stderr
+    assert "segments:" not in proc.stdout
     scan, ckpt = str(tmp_path / "s.las"), str(tmp_path / "s.npz")
     tlas.write_las(scan, pts)
     tpl.Session.from_points(pts, device="cpu").save(ckpt)

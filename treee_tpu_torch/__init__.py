@@ -1,9 +1,12 @@
 """treee-tpu on PyTorch and CUDA: the port of ``treee_tpu`` to one NVIDIA H100.
 
-Imports torch and numpy only, never JAX.  The main path (segmentation and
-characteristics) runs on any torch device; on a CUDA device its three
-hand-written kernels (``ops/kernels``) run, on the CPU their plain PyTorch
-versions do.
+Imports torch and numpy only, never JAX.  ``pipeline.Session`` holds a
+cloud on one device and drives everything on it; the front ends run it:
+``python -m treee_tpu_torch`` (``app.py``, the CLI), ``--repl``
+(``repl.py``) and ``--serve PORT`` (``serve.py``, the browser viewer).  On a
+CUDA device the hand-written kernels (``ops/kernels``) run; on the CPU,
+asked for with ``device="cpu"`` or ``--cpu``, their plain PyTorch versions
+do.
 """
 
 from .cloud import PointCloud

@@ -1,13 +1,15 @@
-"""The main path of the port: segmentation + characteristics, the full-cloud
+"""The port's ``Session`` (``treee_tpu/pipeline.py``): one point cloud on one
+device and everything the front ends (``app.py``, ``repl.py``,
+``serve.py``) drive on it — segmentation + characteristics, the full-cloud
 frame, the octree LOD and screen-adaptive frames, the sphere edits with ray
 picking, the whole-forest inventory, the focused single-tree view, the
 terrain and canopy rasters with the height above ground (the ``hag``
 display) and the forest summary, LAS/LAZ ingest with its preview frames and
 the scan's source attributes (the attribute displays), checkpoints and
-merges, the point exports, and the part of ``Session`` that drives them
-(``treee_tpu/pipeline.py``).
+merges, and the point exports.
 
-The mesh mode (one session over several cards) is not ported yet.
+The mesh mode (one session over several cards) is not ported yet; the
+CLI's ``--mesh auto`` raises over several cards.
 """
 
 from __future__ import annotations
