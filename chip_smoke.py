@@ -139,6 +139,24 @@ Phases, each of which raises on failure:
    a burst of 20 drag commands must cost fewer renders than commands;
    ``shutdown()`` must end its threads.  Each command's host-clock time.
 
+19. Surveys beyond one card, the counters zeroed before and read after each
+   call: ``parallel.sharding.sharded_session_step`` over a mesh of four
+   shards of the one card (``make_mesh(["cuda:0"] * 4)``) on the 15M scan,
+   whose ids, classes and table must equal the one-device step's bit for
+   bit, and ``sharded_rasters(0.5)`` equal to ``Session.rasters(0.5)``;
+   ``parallel.tiles.tiled_pipeline`` in 2 tiles over that mesh equal to 2
+   tiles without it on the scan widened in x; ``tools/bench_tiled.py``'s
+   100M survey in 4 tiles through the port's ``tools.bench_tiled`` (times
+   of generation, sort, each tile, the reconcile and the wall clock; each
+   tile's ``n_alloc`` and overflow; peak memory), its rasters at 1 m in 6
+   slabs equal to one ``compute_rasters`` of the survey on the card, and the
+   survey untiled through ``Session.from_points(...).segment(0.75)``; the
+   tiled ids against the survey's trees (``tools.survey_trees``: every
+   point labelled, no tile at a cap, the ids within [0.75, 1] x the trees,
+   trees cut by a core edge sharing ids across it); then
+   ``segmented_cummax`` against its plain version at the largest tile's and
+   a shard's shapes.
+
 Phase 12 also holds the small scene's focused view card against CPU:
 eigen, both k-NNs, properties, curvature, normals, the axes, RBVs, hull
 candidates and frames.
@@ -315,6 +333,16 @@ ASPRS = (2, 4, 5)
 # the front ends (phase 18): the REPL's orbit distance, outside the 15M
 # stand (about 214 m a side, centred on the origin)
 REPL_ORBIT = 250.0
+# surveys beyond one card (phase 19): four shards of the one card; the 15M
+# scan's first half moved 40 m west for the tiles over that mesh
+# (__graft_entry__.py:136-139); tools/bench_tiled.py's survey in 4 tiles;
+# its rasters at 1 m in slabs of 2^24 points (6 slabs)
+SHARDS = 4
+WIDEN_X = 40.0
+SURVEY_POINTS = 100_000_000
+SURVEY_TILES = 4
+SURVEY_CELL = 1.0
+SURVEY_SLAB = 1 << 24
 
 
 def log(*args) -> None:
@@ -1369,6 +1397,213 @@ def http(port: int, path: str, body: bytes | None = None):
         return r.status, r.headers, r.read()
 
 
+def table_columns_apart(a, b) -> list[str]:
+    """The columns of two SegmentTables that differ, floats by their bits."""
+    out = []
+    for f in dataclasses.fields(a):
+        x, y = getattr(a, f.name), getattr(b, f.name)
+        if x.dtype == torch.float32:
+            x, y = x.view(torch.int32), y.view(torch.int32)
+        if not torch.equal(x, y.to(x.device)):
+            out.append(f.name)
+    return out
+
+
+def same_grids(a: dict, b: dict) -> bool:
+    """DTM, DSM and CHM equal bit for bit."""
+    return all(np.array_equal(a[k].view(np.int32), b[k].view(np.int32))
+               for k in ("dtm", "dsm", "chm"))
+
+
+def surveys(pts, dev, kernels, counted, modules) -> None:
+    """Phase 19 on the card; raises on the first check that fails.
+
+    (a) ``sharded_session_step`` over four shards of the card against the
+    one-device step on the 15M scan, and ``sharded_rasters(0.5)`` against
+    ``Session.rasters(0.5)``; (b) ``tiled_pipeline`` in 2 tiles over that
+    mesh against 2 tiles without it on the scan widened in x; (c)
+    ``bench_tiled``'s 100M survey in 4 tiles, its ids held against the
+    survey's trees; (d) its rasters in slabs
+    against one ``compute_rasters`` of the survey uploaded whole; (e) the
+    survey untiled; (f) ``segmented_cummax`` against its plain version at
+    the largest tile's and a shard's shapes."""
+    (pipeline, rasters, segmentation, sharding, tiles, bench_tiled,
+     survey_trees) = modules
+    n = len(pts)
+    mesh = sharding.make_mesh([dev] * SHARDS)
+    cap = -(-n // (1024 * SHARDS)) * (1024 * SHARDS)
+
+    # (a) the sharded step and rasters against the one-device ones
+    single = pipeline.Session.from_points(pts, device=dev, capacity=cap)
+    one_ms = []
+    for _ in range(MAIN_PATH_REPS):
+        one, ms = counted(lambda: single.segment(MAX_DISTANCE),
+                          MAIN_PATH_KERNELS, "segment()")
+        one_ms.append(ms)
+    cloud = single.cloud
+    pos_s, valid_s = sharding.shard_points(mesh, cloud.pos, cloud.valid)
+    step = sharding.sharded_session_step(mesh)
+    shard_calls = []
+    with swapped(kernels, segmented_cummax=recorder(
+            kernels.segmented_cummax, shard_calls)):
+        counted(lambda: step(pos_s, valid_s, MAX_DISTANCE), MAIN_PATH_KERNELS,
+                "sharded_session_step")
+    sh_ms = []
+    for _ in range(MAIN_PATH_REPS):
+        (seg_s, cls_s, table, res), ms = counted(
+            lambda: step(pos_s, valid_s, MAX_DISTANCE), MAIN_PATH_KERNELS,
+            "sharded_session_step")
+        sh_ms.append(ms)
+        apart = table_columns_apart(table, single.table)
+        if not (torch.equal(torch.cat(seg_s), cloud.segment)
+                and torch.equal(torch.cat(cls_s), cloud.classification)
+                and not apart
+                and int(res.n_segments) == int(one.n_segments)
+                and torch.equal(res.tracked_pos, one.tracked_pos)
+                and bool(res.occupied_overflow) == bool(
+                    one.occupied_overflow)):
+            raise AssertionError("the sharded step differs from the "
+                                 f"one-device step (table columns {apart})")
+    log(f"  sharded_session_step over {SHARDS} shards of {cap // SHARDS} rows"
+        f" on {dev}: ids, classes and every table column equal the "
+        f"one-device step's bit for bit ({int(res.n_segments)} segments); "
+        f"host clock median {statistics.median(sh_ms):.1f} ms "
+        f"{[round(t, 1) for t in sh_ms]} against one device "
+        f"{statistics.median(one_ms):.1f} ms {[round(t, 1) for t in one_ms]}")
+    (grids, _, cell), r_ms = counted(lambda: single.rasters(0.5),
+                                     ("jump_flood_grid",), "rasters(0.5)")
+    live = cloud.alive
+    lo, hi = (a.cpu().numpy()
+              for a in segmentation.scene_bounds(cloud.pos, live))
+    (s_grids, _, s_cell), sr_ms = counted(
+        lambda: sharding.sharded_rasters(
+            mesh, pos_s, sharding.split(mesh, cloud.classification),
+            sharding.split(mesh, live), lo, hi, 0.5),
+        ("jump_flood_grid",), "sharded_rasters(0.5)")
+    if not (s_cell == cell and same_grids(s_grids, grids)):
+        raise AssertionError("sharded_rasters(0.5) differs from "
+                             "Session.rasters(0.5)")
+    log(f"  sharded_rasters(0.5): DTM, DSM and CHM equal Session.rasters"
+        f"(0.5)'s bit for bit; {sr_ms:.2f} ms against {r_ms:.2f} ms")
+    del single, one, cloud, pos_s, valid_s, seg_s, cls_s, table, res, live
+
+    # (b) tiles over the mesh against tiles without it
+    wide = pts.copy()
+    wide[:n // 2, 0] -= WIDEN_X
+    (t_seg, t_cls, _, t_info), t_ms = counted(
+        lambda: tiles.tiled_pipeline(wide, 2, MAX_DISTANCE, device=dev),
+        MAIN_PATH_KERNELS, "tiled_pipeline")
+    (m_seg, m_cls, _, m_info), m_ms = counted(
+        lambda: tiles.tiled_pipeline(wide, 2, MAX_DISTANCE, mesh=mesh),
+        MAIN_PATH_KERNELS, "tiled_pipeline(mesh=...)")
+    if not (np.array_equal(t_seg, m_seg) and np.array_equal(t_cls, m_cls)
+            and t_info["owners"] == m_info["owners"]
+            and t_info["n_alloc"] == m_info["n_alloc"]):
+        raise AssertionError("2 tiles over the mesh differ from 2 tiles "
+                             "without it")
+    log(f"  tiled_pipeline(2 tiles) of the scan widened by {WIDEN_X:.0f} m: "
+        f"{t_info['n_segments']} segments, capacity {t_info['capacity']} "
+        f"({m_info['capacity']} over the mesh), n_alloc {t_info['n_alloc']},"
+        f" overflow {t_info['occupied_overflow']}; over the mesh the same "
+        f"ids, classes and owners; {t_ms / 1e3:.2f} s, over the mesh "
+        f"{m_ms / 1e3:.2f} s (tiles {[round(a + b, 2) for a, b in m_info['tile_times']]}"
+        f" s against {[round(a + b, 2) for a, b in t_info['tile_times']]} s)")
+    del wide, t_seg, t_cls, m_seg, m_cls
+
+    # (c) tools/bench_tiled.py's survey through the port's tool code
+    pts100, gen_s = bench_tiled.survey(SURVEY_POINTS)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    tile_calls = []
+    with swapped(kernels, segmented_cummax=recorder(
+            kernels.segmented_cummax, tile_calls)):
+        (record, seg100, cls100, info), _ = counted(
+            lambda: bench_tiled.measure(pts100, SURVEY_TILES, dev, gen_s),
+            MAIN_PATH_KERNELS, "the tiled survey")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    kept = sum(a.numel() * a.element_size() for _, args in tile_calls
+               for a in args if torch.is_tensor(a)) / 2**30
+    log(f"  bench_tiled {json.dumps(record)}")
+    log(f"  the survey: {len(pts100)} points in {gen_s:.1f} s; x sort "
+        f"{info['sort_s']:.2f} s; tiles (slice, run+fetch) s "
+        f"{[(round(a, 2), round(b, 2)) for a, b in info['tile_times']]}; "
+        f"reconcile {info['reconcile_s']:.2f} s; wall {record['wall_s']} s, "
+        f"{record['value']} Mpts/s; n_alloc per tile {info['n_alloc']} of "
+        f"{pipeline.DEFAULT_CONFIG.segmentation.max_segments}, overflow "
+        f"{info['occupied_overflow']}; {info['n_segments']} segments, "
+        f"labelled share {record['labeled_frac']}; peak device memory "
+        f"{peak:.2f} GiB, of it {kept:.2f} GiB the recorded cummax inputs")
+    n_trees = int(len(pts100) * 0.75) // bench_tiled.POINTS_PER_TREE
+    trees = survey_trees.report(pts100, seg100, info, n_trees,
+                                bench_tiled.POINTS_PER_TREE)
+    log(f"  segments against the survey's trees: {json.dumps(trees)}")
+    max_segments = pipeline.DEFAULT_CONFIG.segmentation.max_segments
+    # every point labelled and no tile at a cap.  The ids within [0.75, 1]
+    # x the trees: the band cap of 256 clusters leaves about one tree in
+    # eight of a tile without a slot of its own, and the tiles allocate
+    # more ids than there are trees, so a reconcile that joins nothing ends
+    # above.  A tree cut by a core edge takes its two sides' ids from two
+    # tiles: a reconcile that joins nothing gives them no id in common, a
+    # working one about as often as a tree cut mid-core in one tile (less
+    # where a tile split the tree and only one piece joins)
+    if not ((seg100 > 0).all()
+            and not any(info["occupied_overflow"])
+            and max(info["n_alloc"]) < max_segments
+            and 0.75 * n_trees <= info["n_segments"] <= n_trees
+            and info["n_segments"] < sum(info["n_alloc"])
+            and trees["edge_trees"] > 0
+            and trees["edge_agreement"] >= 0.5 * trees["mid_agreement"]):
+        raise AssertionError("the tiled survey's ids do not hold")
+
+    # (d) its rasters in slabs against one compute_rasters of it whole
+    (t_grids, t_dims, t_cell), tr_ms = counted(
+        lambda: tiles.tiled_rasters(pts100, cls100, cell=SURVEY_CELL,
+                                    slab=SURVEY_SLAB, device=dev),
+        ("jump_flood_grid",), "tiled_rasters")
+    t0 = time.perf_counter()
+    lo, hi = pts100.min(axis=0), pts100.max(axis=0)
+    bounds_s = time.perf_counter() - t0
+    pos_t = torch.from_numpy(pts100).to(dev)
+    cls_t = torch.from_numpy(cls100).to(dev)
+    (w_grids, w_dims, w_cell), wr_ms = counted(
+        lambda: rasters.compute_rasters(
+            pos_t, cls_t, torch.ones(len(pts100), dtype=torch.bool,
+                                     device=dev), lo, hi, SURVEY_CELL),
+        ("jump_flood_grid",), "compute_rasters")
+    if not (t_dims == w_dims and t_cell == w_cell
+            and same_grids(t_grids, w_grids)):
+        raise AssertionError("tiled_rasters differs from compute_rasters")
+    log(f"  tiled_rasters(cell={SURVEY_CELL}, {-(-len(pts100) // SURVEY_SLAB)}"
+        f" slabs): {t_dims[0]}x{t_dims[1]} cells, bit-equal to one "
+        f"compute_rasters of the survey on the card; {tr_ms / 1e3:.2f} s "
+        f"(host slabs) against {wr_ms / 1e3:.2f} s (survey already on the "
+        f"card); the survey's bounds on the host, which tiled_rasters also "
+        f"takes, {bounds_s:.2f} s")
+    del pos_t, cls_t, seg100, cls100
+
+    # (e) the survey untiled
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    whole = pipeline.Session.from_points(pts100, device=dev)
+    torch.cuda.synchronize()
+    up_s = time.perf_counter() - t0
+    res, u_ms = counted(lambda: whole.segment(MAX_DISTANCE),
+                        MAIN_PATH_KERNELS, "segment() of the survey untiled")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    labelled = float((whole.cloud.segment[whole.cloud.valid] > 0).float()
+                     .mean())
+    log(f"  the survey untiled: from_points {up_s:.2f} s; segment(0.75) "
+        f"{u_ms:.1f} ms; n_alloc {int(res.n_segments)}, overflow "
+        f"{bool(res.occupied_overflow)}, labelled share {labelled:.4f}; peak "
+        f"device memory {peak:.2f} GiB of "
+        f"{torch.cuda.get_device_properties(0).total_memory / 2**30:.1f}")
+    del whole, res, pts100
+
+    # (f) the cummax at the largest tile's and a shard's shapes
+    check_kernel("segmented_cummax", kernels, tile_calls + shard_calls)
+
+
 def front_ends(src: str, n: int, tmp: str, dev, counted, pipeline,
                Camera) -> None:
     """Phase 18: the CLI, the REPL and the browser viewer on the scan that
@@ -1684,8 +1919,9 @@ def main() -> int:
     from treee_tpu_torch.io import las, native_build
     from treee_tpu_torch.ops import eigen, kernels, neighbors, octree
     from treee_tpu_torch.ops.kernels import build
+    from treee_tpu_torch.parallel import sharding, tiles
     from treee_tpu_torch.render import Camera, splat
-    from treee_tpu_torch.tools import probe_extract
+    from treee_tpu_torch.tools import bench_tiled, probe_extract, survey_trees
 
     t_start = time.perf_counter()
     dev = "cuda"
@@ -3124,6 +3360,21 @@ def main() -> int:
         launches[k] += front_launches[k]
     log(f"  launches over the phase: {front_launches}; peak device memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; phase "
+        f"{time.perf_counter() - t_phase:.1f} s")
+
+    # --- phase 19: surveys beyond one card ---
+    log(f"phase 19: surveys beyond one card: the sharded step and rasters "
+        f"over {SHARDS} shards of the card, tiles over that mesh, "
+        f"bench_tiled's {SURVEY_POINTS // 1_000_000}M survey in "
+        f"{SURVEY_TILES} tiles with its rasters, and the survey untiled")
+    t_phase = time.perf_counter()
+    survey_launches = dict.fromkeys(launches, 0)
+    surveys(pts, dev, kernels, launch_counter(kernels, survey_launches),
+            (pipeline, rasters, segmentation, sharding, tiles, bench_tiled,
+             survey_trees))
+    for k in survey_launches:
+        launches[k] += survey_launches[k]
+    log(f"  launches over the phase: {survey_launches}; phase "
         f"{time.perf_counter() - t_phase:.1f} s")
 
     log(f"total {time.perf_counter() - t_start:.1f} s")

@@ -25,7 +25,10 @@ version's bit for bit, and each call must count the launches its design
 makes: one, or ceil(radius / passes per launch) for the dilation.  The
 segmentation and the inventory must repeat bit for bit on the card, and
 the card's frame must match the CPU's; the rasters and the height above
-ground must repeat and equal the CPU's bit for bit.
+ground must repeat and equal the CPU's bit for bit.  The point-sharded
+step over four shards of the card, three of them all padding, must equal
+the card's one-device step bit for bit, and a tile of one point must go
+through the tiles with and without a mesh alike.
 
 Needs a card, so it skips on a machine without one.  On the card, where JAX
 is absent, run it without the suite's conftest:
@@ -51,6 +54,8 @@ from treee_tpu_torch.ops import kernels
 from treee_tpu_torch.ops import neighbors as tnb
 from treee_tpu_torch.ops import octree as toctree
 from treee_tpu_torch.ops.kernels import build
+from treee_tpu_torch.parallel import sharding as tsh
+from treee_tpu_torch.parallel import tiles as ttiles
 from treee_tpu_torch.render import Camera
 from treee_tpu_torch.render import splat
 
@@ -1251,3 +1256,54 @@ def test_viewer_server_on_the_card(dev):
     finally:
         v.shutdown()
     assert not v._render_thread.is_alive()
+
+
+def _sharded_equals_single(pos, valid, cfg, mesh):
+    """The sharded session step over ``mesh`` against full_pipeline on the
+    mesh's first device: ids, classes and table bit for bit."""
+    ref = tpl.full_pipeline(torch.from_numpy(pos).to(mesh.devices[0]),
+                            torch.from_numpy(valid).to(mesh.devices[0]),
+                            0.75, cfg)
+    pos_s, valid_s = tsh.shard_points(mesh, pos, valid)
+    got = tsh.sharded_session_step(mesh, cfg)(pos_s, valid_s, 0.75)
+    assert torch.equal(torch.cat(got[0]), ref[0])
+    assert torch.equal(torch.cat(got[1]), ref[1])
+    for f in ("present", "count", "n_slices", "lo", "hi", "areas",
+              "ground_sep", "crown_sep"):
+        a, b = getattr(got[2], f), getattr(ref[2], f)
+        assert torch.equal(a.view(torch.int32) if a.is_floating_point()
+                           else a, b.view(torch.int32)
+                           if b.is_floating_point() else b), f
+    assert int(got[3].n_segments) == int(ref[3].n_segments)
+
+
+def test_sharded_step_with_padding_shards_on_the_card(dev):
+    """Four shards on one card, three of them padding only, far from the
+    origin: bounds and the table's y grid take the identities."""
+    pts = tlas.synthetic_forest(n_trees=3, points_per_tree=1500,
+                                ground_points=1000, seed=13)
+    pts = pts + np.float32([400.0, 50.0, 400.0])
+    pos = np.zeros((4 * 8192, 3), np.float32)
+    pos[:len(pts)] = pts
+    valid = np.arange(len(pos)) < len(pts)
+    mesh = tsh.make_mesh([dev] * 4)
+    _sharded_equals_single(pos, valid, SMALL_CFG, mesh)
+    assert kernels.cc_sweep.launches > 0
+    assert kernels.segmented_cummax.launches > 0
+
+
+def test_tile_of_one_point_on_the_card(dev):
+    """A far point alone in the last tile: its tile's step runs on one
+    valid row, and the mesh path gives the mesh-free path's ids."""
+    pts = tlas.synthetic_forest(n_trees=4, points_per_tree=2000,
+                                ground_points=2000, seed=5)
+    pts = np.concatenate([pts, [[500.0, 1.0, 0.0]]]).astype(np.float32)
+    runs = [ttiles.tiled_pipeline(pts, 2, 0.75, SMALL_CFG, halo=5.0,
+                                  device=dev),
+            ttiles.tiled_pipeline(pts, 2, 0.75, SMALL_CFG, halo=5.0,
+                                  mesh=tsh.make_mesh([dev] * 4))]
+    for seg, cls, tables, info in runs:
+        assert info["n_alloc"][1] <= 1
+        assert (seg[:-1] > 0).mean() > 0.5
+    np.testing.assert_array_equal(runs[0][0], runs[1][0])
+    np.testing.assert_array_equal(runs[0][1], runs[1][1])

@@ -54,9 +54,9 @@ def test_port_and_chip_smoke_import_no_jax():
     assert out.returncode == 0, out.stderr
     mods, bad = out.stdout.splitlines()
     mods = set(mods.split())
-    assert len(mods) >= 48
-    # the interactive and focused views', the rasters', ingest's and the
-    # front ends' modules among them
+    assert len(mods) >= 53
+    # the interactive and focused views', the rasters', ingest's, the
+    # front ends' and the tiles' and shards' modules among them
     assert {"treee_tpu_torch.interactive", "treee_tpu_torch.ops.octree",
             "treee_tpu_torch.ops.morton", "treee_tpu_torch.cloud",
             "treee_tpu_torch.characteristics",
@@ -69,7 +69,11 @@ def test_port_and_chip_smoke_import_no_jax():
             "treee_tpu_torch.utils.errors", "treee_tpu_torch.input",
             "treee_tpu_torch.repl", "treee_tpu_torch.serve",
             "treee_tpu_torch.app", "treee_tpu_torch.__main__",
-            "treee_tpu_torch.utils.profiling"} <= mods
+            "treee_tpu_torch.utils.profiling", "treee_tpu_torch.parallel",
+            "treee_tpu_torch.parallel.tiles",
+            "treee_tpu_torch.parallel.sharding",
+            "treee_tpu_torch.tools.bench_tiled",
+            "treee_tpu_torch.tools.survey_trees"} <= mods
     assert bad.strip() == "[]"
 
 

@@ -44,6 +44,7 @@ from .config import CharacteristicsConfig
 from .device import DEFAULT_DEVICE
 from .ops import eigen, kernels, neighbors
 from .ops.kernels.dilate import full
+from .segmentation import run_alone
 
 INF = 3.0e38
 
@@ -185,6 +186,24 @@ def compute_segments(
     Returns:
       (SegmentTable with S=num_segments rows, classification i32[N]).
     """
+    return run_alone(compute_segments_shard(pos, segment, valid, num_segments,
+                                            cfg, full_bbox, across=False))
+
+
+def compute_segments_shard(pos, segment, valid, num_segments: int,
+                           cfg: CharacteristicsConfig, full_bbox: bool,
+                           across: bool):
+    """:func:`compute_segments` as a shard program (``parallel/sharding``):
+    a generator that returns (table, classification).
+
+    With ``across`` (the port's form of the JAX package's ``axis_name``),
+    the rows are one shard of a point-sharded cloud, and the program yields
+    each value that combines across the shards as ``(op, tensor)`` and
+    receives the combined tensor: the y quantisation grid (min, max), each
+    segment's count (sum) and y extent (min, max), and the support table
+    (max) before the areas.  Each shard then computes the same table and
+    its own points' classes.  Without ``across`` it yields nothing.
+    """
     s_cap = num_segments
     ms = cfg.max_slices
     sw = cfg.slice_width
@@ -204,8 +223,16 @@ def compute_segments(
     qmax = (1 << qbits) - 1
     y = pos[:, 1]
     any_valid = valid.any()
-    ylo = torch.where(any_valid, torch.where(valid, y, INF).amin(), 0.0)
-    yhi = torch.where(any_valid, torch.where(valid, y, -INF).amax(), 1.0)
+    ylo = torch.where(valid, y, INF).amin()
+    yhi = torch.where(valid, y, -INF).amax()
+    if across:
+        # one quantisation grid for every shard, so that slice buckets align;
+        # a shard of padding gives the identities
+        ylo = yield "min", ylo
+        yhi = yield "max", yhi
+        any_valid = yield "max", any_valid
+    ylo = torch.where(any_valid, ylo, 0.0)
+    yhi = torch.where(any_valid, yhi, 1.0)
     yext = torch.clamp(yhi - ylo, min=1e-6)
     qy = torch.clamp(((y - ylo) * torch.div(full(qmax, yext), yext))
                      .to(torch.int32), 0, qmax)
@@ -226,15 +253,26 @@ def compute_segments(
     count = (right - left).to(torch.int32)
     min_y_raw = torch.where(count > 0, y_s[left.clamp(0, n - 1)], INF)
     max_y_raw = torch.where(count > 0, y_s[(right - 1).clamp(0, n - 1)], -INF)
+    if across:
+        count = yield "sum", count
+        min_y_raw = yield "min", min_y_raw
+        max_y_raw = yield "max", max_y_raw
     present = count > 0
     min_y = torch.where(present, min_y_raw, 0.0)
     max_y = torch.where(present, max_y_raw, 0.0)
 
-    # each point's slice above its segment's min y: the run-start y filled
-    # down the run by a segmented cummax
-    is_start = torch.ones_like(live_s)
-    is_start[1:] = seg_s[1:] != seg_s[:-1]
-    min_y_pt = kernels.segmented_cummax(seg_s, torch.where(is_start, y_s, -INF))
+    # each point's slice above its segment's min y
+    if across:
+        # the segment's minimum may lie on another shard: read the combined
+        # table (the same quantised y as the run start's on one device)
+        min_y_pt = torch.cat([min_y, min_y.new_zeros(1)])[
+            seg_s.clamp(0, s_cap).long()]
+    else:
+        # the run-start y filled down the run by a segmented cummax
+        is_start = torch.ones_like(live_s)
+        is_start[1:] = seg_s[1:] != seg_s[:-1]
+        min_y_pt = kernels.segmented_cummax(
+            seg_s, torch.where(is_start, y_s, -INF))
     slice_s = torch.clamp(
         torch.floor(quot(y_s - min_y_pt, sw)).to(torch.int32), 0, ms - 1)
     bucket_s = torch.where(live_s, seg_s * ms + slice_s, s_cap * ms)
@@ -249,6 +287,8 @@ def compute_segments(
     cum = kernels.segmented_cummax(bucket_s, scores)
     idx, hit = _run_end_index(bucket_s, s_cap * ms)
     tab = torch.where(hit[:, None], cum[idx], -INF)
+    if across:
+        tab = yield "max", tab
     areas = _areas_from_supports(tab[:, :k_dirs], k_dirs).view(s_cap, ms)
 
     if full_bbox:

@@ -298,13 +298,26 @@ def _jump_flood_packed(seed_slot, seed_pos, cell_center, lo, s):
     return slot
 
 
+def scene_bounds_raw(pos: torch.Tensor, valid: torch.Tensor):
+    """(lo, hi) f32[3] over valid points, +INF / -INF where none is valid.
+
+    The form a cross-shard min / max takes: a shard that holds only padding
+    must give the identities, not the unit box of :func:`scene_bounds`,
+    which would pull the global box toward the origin."""
+    m = valid[:, None]
+    return (torch.where(m, pos, INF).amin(dim=0),
+            torch.where(m, pos, -INF).amax(dim=0))
+
+
+def scene_bounds_finalize(lo, hi, any_valid):
+    """The unit box where no point anywhere was valid."""
+    return torch.where(any_valid, lo, 0.0), torch.where(any_valid, hi, 1.0)
+
+
 def scene_bounds(pos: torch.Tensor, valid: torch.Tensor):
     """(lo, hi) f32[3] over valid points; the unit box if there are none."""
-    m = valid[:, None]
-    lo = torch.where(m, pos, INF).amin(dim=0)
-    hi = torch.where(m, pos, -INF).amax(dim=0)
-    any_valid = valid.any()
-    return torch.where(any_valid, lo, 0.0), torch.where(any_valid, hi, 1.0)
+    lo, hi = scene_bounds_raw(pos, valid)
+    return scene_bounds_finalize(lo, hi, valid.any())
 
 
 def cell_size(lo, hi, d, cfg: SegmentationConfig):
@@ -397,6 +410,16 @@ def assign_points(slot_grids, band, cx, cz, valid):
     return torch.where(valid & (slot >= 0), slot + 1, 0)
 
 
+def run_alone(program):
+    """What a shard program (``parallel/sharding``) returns when it runs on
+    one device and so asks for no cross-shard value."""
+    try:
+        program.send(None)
+    except StopIteration as done:
+        return done.value
+    raise AssertionError("a one-device program asked for a cross-shard value")
+
+
 def segment_points(pos: torch.Tensor, valid: torch.Tensor,
                    max_distance: float,
                    cfg: SegmentationConfig = SegmentationConfig(),
@@ -407,20 +430,51 @@ def segment_points(pos: torch.Tensor, valid: torch.Tensor,
       pos: f32[N,3] y-up positions; valid: bool[N], on one device.
       max_distance: minimum separation d between trees, in metres.
     """
+    return run_alone(segment_points_shard(pos, valid, max_distance, cfg,
+                                          across=False))
+
+
+def segment_points_shard(pos, valid, max_distance: float,
+                         cfg: SegmentationConfig, across: bool):
+    """:func:`segment_points` as a shard program: a generator that returns
+    the ``SegmentationResult`` (``segment`` the rows' own ids; the rest the
+    same on every shard).
+
+    With ``across`` the rows are one shard of a point-sharded cloud, and the
+    program yields each value that combines across the shards as ``(op,
+    value)`` and receives the combined value: the bounds from identity values
+    (a shard of padding must not pull the global box to the unit box), the
+    anchor histogram (summed over shards whose rows are multiples of its
+    stride, so the subsamples make up the one-device one), the band count
+    grids, and ``("once", fn)``, the band scan run once for all shards.
+    Without ``across`` it yields nothing.
+    """
     d = torch.tensor(max_distance, dtype=torch.float32, device=pos.device)
-    lo, hi = scene_bounds(pos, valid)
+    lo, hi = scene_bounds_raw(pos, valid)
+    any_valid = valid.any()
+    if across:
+        lo = yield "min", lo
+        hi = yield "max", hi
+        any_valid = yield "max", any_valid
+    lo, hi = scene_bounds_finalize(lo, hi, any_valid)
     s = cell_size(lo, hi, d, cfg)
     hist = anchor_histogram(pos, valid, lo[1], hi[1])
+    if across:
+        hist = yield "sum", hist
     top = band_anchor(hist, lo[1], hi[1], cfg)
     band, cx, cz = point_cells(pos, lo, s, top, cfg)
     cnt = moment_grids(valid, band, cx, cz, cfg)
-    slot_grids, n_alloc, tracked_pos_b, active_b = band_scan(
-        cnt, lo, s, max_distance, cfg)
-    n_occ = (cnt > 0).sum()
+    if across:
+        cnt = yield "sum", cnt
+
+    def scan():
+        return band_scan(cnt, lo, s, max_distance, cfg)
+    slot_grids, n_alloc, tracked_pos_b, active_b = (
+        (yield "once", scan) if across else scan())
     return SegmentationResult(
         segment=assign_points(slot_grids, band, cx, cz, valid),
         n_segments=n_alloc,
         tracked_pos=tracked_pos_b,
         tracked_active=active_b,
-        occupied_overflow=n_occ > cfg.cc_occupied_cap,
+        occupied_overflow=(cnt > 0).sum() > cfg.cc_occupied_cap,
     )
