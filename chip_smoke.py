@@ -157,6 +157,27 @@ Phases, each of which raises on failure:
    ``segmented_cummax`` against its plain version at the largest tile's and
    a shard's shapes.
 
+20. One ``Session`` over a mesh, the counters zeroed before and read after
+   each call: ``Session.from_points(pts, mesh=make_mesh(["cuda:0"] * 4))``
+   on the 15M scan beside a one-device ``Session`` fed its rows (Morton
+   order) at its capacity; ``segment(0.75)`` twice, ``characteristics()``
+   and ``full_table()`` (ids, classes, every table column bit for bit); the
+   8 orbit frames (byte-equal); ``build_lod()``, ``solve_adaptive_tau``
+   (budget of half the points), the adaptive cut and its 8 LOD frames (the
+   same indices, tau and frames); 8 strokes of ``delete_sphere`` /
+   ``draw_sphere`` / ``spawn`` / ``combine``, each with its LOD frame (ids
+   equal after each, the shards' octrees kept); ``pick`` at 4 hit pixels
+   (segments, hits, distance bits); ``rasters(0.5)`` (bit for bit); both
+   ``inventory()`` forms (integer and table columns exact, stem positions
+   within rtol 1e-4; the axes over the shards within 1e-4 of one device's,
+   and the traits equal to the one-device RBVs' and traits through the
+   mesh's axes: bit for bit for max grids, rtol 1e-3 for mean grids; their
+   distance from one device's own traits logged); the largest tree's ``curvature``,
+   ``normals`` and ``render_focus`` with hull and axis (equal); a ``Repl``
+   of 9 commands (the same text, the summary's decimals within rtol 1e-4)
+   and a loopback ``ViewerServer``; every call's host-clock time, the peak
+   memory.  Over ``make_mesh()`` too where torch sees several cards.
+
 Phase 12 also holds the small scene's focused view card against CPU:
 eigen, both k-NNs, properties, curvature, normals, the axes, RBVs, hull
 candidates and frames.
@@ -343,6 +364,17 @@ SURVEY_POINTS = 100_000_000
 SURVEY_TILES = 4
 SURVEY_CELL = 1.0
 SURVEY_SLAB = 1 << 24
+# one session over a mesh (phase 20): the inventory's columns that add
+# per-shard sums (the axes' band and layer sums, the mean grids) within the
+# JAX package's mesh tolerances (tests/test_sharding.py:537-547, 669-672):
+# stem positions rtol 1e-4 / atol 1e-5, axis directions 1e-4, mean RBV
+# grids 1e-3; pick at a few hit pixels; a short REPL script
+MESH_RTOL, MESH_ATOL = 1e-4, 1e-5
+MESH_AXIS_TOL = 1e-4
+MESH_RBV_TOL = 1e-3
+MESH_PICKS = 4
+MESH_REPL = ("mode view", "click 640 360", "info", "traits", "lod adaptive",
+             "display hag", "render {png}", "summary", "status")
 
 
 def log(*args) -> None:
@@ -1604,6 +1636,300 @@ def surveys(pts, dev, kernels, counted, modules) -> None:
     check_kernel("segmented_cummax", kernels, tile_calls + shard_calls)
 
 
+def mesh_session(pts, dev, counted, modules) -> None:
+    """Phase 20 on the card: one ``Session`` over a mesh of four shards of
+    the card against a one-device ``Session`` fed the mesh session's rows at
+    its capacity; raises on the first check that fails."""
+    pipeline, sharding, rbv, trunk_axis, repl, serve, Camera = modules
+    n = len(pts)
+    mesh = sharding.make_mesh([dev] * SHARDS)
+    times = {}
+
+    def one_way(what, fn, needed=()):
+        out, ms = counted(fn, needed, what)
+        times.setdefault(what, []).append(ms)
+        return out
+
+    sm = one_way("from_points(mesh=...)",
+                 lambda: pipeline.Session.from_points(pts, mesh=mesh))
+    rows = sm.cloud.to_numpy()["pos"]
+    one = one_way("from_points", lambda: pipeline.Session.from_points(
+        rows, device=dev, capacity=sm.cloud.capacity))
+    del rows
+    log(f"  Session.from_points over {SHARDS} shards of {sm.cloud.rows} rows"
+        f" of the card (rows in Morton order, capacity {sm.cloud.capacity}):"
+        f" {times['from_points(mesh=...)'][0] / 1e3:.2f} s; the one-device "
+        f"twin on its rows and capacity {times['from_points'][0] / 1e3:.2f} s")
+
+    def both(what, fn, needed=()):
+        """``fn`` of the mesh session, then of its twin, each counted and
+        timed."""
+        return (one_way(f"{what} over the mesh", lambda: fn(sm), needed),
+                one_way(what, lambda: fn(one), needed))
+
+    def same_cloud() -> bool:
+        return all(torch.equal(sharding.gather(sm.cloud.column(k)),
+                               getattr(one.cloud, k))
+                   for k in ("segment", "classification"))
+
+    # (a) the step, the table, full_table
+    for _ in range(2):
+        got, ref = both("segment(0.75)", lambda s: s.segment(MAX_DISTANCE),
+                        MAIN_PATH_KERNELS)
+        apart = table_columns_apart(sm.table, one.table)
+        if not (same_cloud() and not apart
+                and int(got.n_segments) == int(ref.n_segments)):
+            raise AssertionError(f"segment(0.75) over the mesh differs from "
+                                 f"one device's (table columns {apart})")
+    for what in ("characteristics", "full_table"):
+        both(f"{what}()", lambda s: getattr(s, what)(),
+             ("segmented_cummax",) if what == "characteristics" else ())
+        apart = table_columns_apart(sm.table, one.table)
+        if apart or not same_cloud():
+            raise AssertionError(f"{what}() over the mesh differs from one "
+                                 f"device's ({apart})")
+    log(f"  segment(0.75): {int(ref.n_segments)} segments; ids, classes and "
+        "every table column equal the one-device session's bit for bit; "
+        "so do characteristics() and full_table()")
+
+    # (b) the full frames over bench.py's orbit
+    cams = orbit_cameras(Camera, dev)
+    for cam in cams:
+        got, ref = both("render", lambda s: s.render(cam), FRAME_KERNELS)
+        if not np.array_equal(got, ref):
+            raise AssertionError("a frame over the mesh differs from one "
+                                 "device's")
+    log(f"  render over the {len(cams)} orbit cameras: byte-equal frames")
+
+    # (c) the LOD and the screen-adaptive cut, the tau solver, LOD frames
+    def same_lod() -> bool:
+        return (torch.equal(sm._lod[1], one._lod[1])
+                and int(sm._lod[2]) == int(one._lod[2])
+                and torch.equal(sm._lod[0], one._lod[0]))
+
+    both("build_lod(level=7)", lambda s: s.build_lod())
+    if not same_lod():
+        raise AssertionError("build_lod(level=7): other indices over the "
+                             "mesh")
+    lod7 = int(one._lod[2])
+    trees = sm._tree
+    tau, tau_one = both("solve_adaptive_tau",
+                        lambda s: s.solve_adaptive_tau(budget_rows=n // 2,
+                                                       camera=cams[0]))
+    if tau != tau_one:
+        raise AssertionError(f"solve_adaptive_tau: {tau} over the mesh, "
+                             f"{tau_one} on one device")
+    both("build_lod(adaptive)",
+         lambda s: s.build_lod(camera=cams[0], adaptive_tau_px=tau))
+    if not same_lod():
+        raise AssertionError("the adaptive cut: other indices over the mesh")
+    for cam in cams:
+        got, ref = both("render(use_lod=True)",
+                        lambda s: s.render(cam, use_lod=True), FRAME_KERNELS)
+        if not np.array_equal(got, ref):
+            raise AssertionError("an LOD frame over the mesh differs")
+    log(f"  build_lod(level=7): {lod7} rows; solve_adaptive_tau(budget "
+        f"{n // 2}) = {tau}; its cut {int(one._lod[2])} rows; the same "
+        "indices, positions and LOD frames as one device's")
+
+    # (d) strokes: delete, draw, spawn, combine; each with its LOD frame
+    sid = int(torch.argmax(one.table.count[1:])) + 1
+    for i, c in enumerate(EDIT_CENTERS):
+        kind = ("delete_sphere", "draw_sphere", "spawn", "combine")[i % 4]
+        if kind == "delete_sphere":
+            both(kind, lambda s: s.delete_sphere(c, EDIT_RADIUS))
+        elif kind == "draw_sphere":
+            both(kind, lambda s: s.draw_sphere(c, sid, EDIT_RADIUS,
+                                               include_deleted=True))
+        elif kind == "spawn":
+            nid, nid_one = both(kind, lambda s: s.spawn(c, EDIT_RADIUS))
+            if nid != nid_one:
+                raise AssertionError(f"spawn: id {nid}, one device {nid_one}")
+        else:
+            both(kind, lambda s: s.combine(nid, sid))
+        got, ref = both("stroke frame", lambda s: s.render(use_lod=True),
+                        FRAME_KERNELS)
+        if not (same_cloud() and np.array_equal(got, ref)):
+            raise AssertionError(f"stroke {i} ({kind}): ids or the LOD "
+                                 "frame differ over the mesh")
+    if sm._tree is not trees:
+        raise AssertionError("the strokes rebuilt the shards' octrees")
+    log(f"  {len(EDIT_CENTERS)} strokes (delete, draw, spawn, combine): ids, "
+        "classes and LOD frames equal after each; the shards' octrees kept")
+
+    # (e) pick, from the REPL's camera outside the stand
+    rcfg = one.config.render
+    for s in (sm, one):
+        s.camera = Camera.orbital(distance=REPL_ORBIT, device=dev)
+    for x, y, _ in hit_pixels(one, MESH_PICKS, rcfg.width, rcfg.height):
+        got, ref = both("pick", lambda s: s.pick(x, y))
+        if not (got[0] == ref[0] and got[2] == ref[2]
+                and np.float32(got[1]).view(np.int32)
+                == np.float32(ref[1]).view(np.int32)):
+            raise AssertionError(f"pick({x}, {y}): {got} over the mesh, "
+                                 f"{ref} on one device")
+    log(f"  pick at {MESH_PICKS} hit pixels: the same segments, hits and "
+        "distance bits")
+
+    # (f) rasters
+    (got, corner, _), (ref, corner_one, _) = both(
+        "rasters(0.5)", lambda s: s.rasters(0.5), ("jump_flood_grid",))
+    if not (same_grids(got, ref) and corner == corner_one):
+        raise AssertionError("rasters(0.5) over the mesh differ")
+    log("  rasters(0.5): DTM, DSM and CHM equal bit for bit")
+
+    # (g) both inventory forms.  Their traits bin each segment's points in
+    # its axis frame, and an axis whose float sums (per shard, then in
+    # shard order) differ in the last bits can move a point across a
+    # sector or slice edge: so the axes over the mesh are held to one
+    # device's within MESH_AXIS_TOL, and the mesh's traits to the
+    # one-device RBVs and traits through the mesh's own frames (after the
+    # strokes, full_table() first re-derives the classes the axes read)
+    for s in (sm, one):
+        s.full_table()
+    n_seg = one.table.present.shape[0]
+    cols_s = [sm.cloud.column(k)
+              for k in ("pos", "segment", "classification", "valid")]
+    live_s = [v & (g > 0) for g, v in zip(cols_s[1], cols_s[3])]
+    live = one.cloud.valid & (one.cloud.segment > 0)
+    mesh_axes, axis_apart = {}, 0.0
+    for form, extra in (("average_direction", 10), ("low_high_layer", 1.0)):
+        alone = getattr(trunk_axis, f"batched_{form}")(
+            one.cloud.pos, live & (one.cloud.classification == 1),
+            one.cloud.segment, n_seg)
+        axes = sharding.run(mesh, [
+            getattr(trunk_axis, f"batched_{form}_shard")(
+                p, m & (c == 1), g, n_seg, extra, True)
+            for p, g, c, m in zip(cols_s[0], cols_s[1], cols_s[2], live_s)])[0]
+        if not (torch.equal(axes.found, alone.found)
+                and torch.equal(axes.origin[:, 1], alone.origin[:, 1])
+                and torch.allclose(axes.direction, alone.direction,
+                                   rtol=MESH_AXIS_TOL, atol=MESH_AXIS_TOL)):
+            raise AssertionError(f"the {form} axes over the mesh differ")
+        axis_apart = max(axis_apart, float(
+            (axes.direction - alone.direction).abs().max()))
+        mesh_axes[form] = axes
+    trunk_cols = ("stem_easting", "stem_northing")
+    apart = {}
+    for kw in INVENTORY_CALLS:
+        got, ref = both("inventory", lambda s: s.inventory(**kw),
+                        INVENTORY_KERNELS)
+        floats = trunk_cols + tuple(rbv.TRAITS)
+        exact = same_columns({k: v for k, v in got.items()
+                              if k not in floats},
+                             {k: v for k, v in ref.items() if k not in floats})
+        exact += [k for k in trunk_cols if not np.allclose(
+            got[k], ref[k], rtol=MESH_RTOL, atol=MESH_ATOL)]
+        method = (rbv.METHOD_MEAN if kw.get("method") == "mean"
+                  else rbv.METHOD_MAX)
+        axes = mesh_axes["low_high_layer" if kw.get("axis_algo") == "lowhigh"
+                         else "average_direction"]
+        through = rbv.batched_traits(*rbv.batched_split_rbv(
+            one.cloud.pos, one.cloud.classification, live, one.cloud.segment,
+            n_seg, trunk_axis.batched_axis_transform(axes), method=method,
+            symmetric=kw.get("symmetric", False)))
+        ids = got["segment"]
+        for k in rbv.TRAITS:
+            want = getattr(through, k).cpu().numpy()[ids].astype(np.float64)
+            if not (np.array_equal(got[k], want) if method == rbv.METHOD_MAX
+                    else np.allclose(got[k], want, rtol=MESH_RBV_TOL,
+                                     atol=MESH_ATOL)):
+                exact.append(k)
+            rel = np.abs(got[k] - ref[k]) / (np.abs(ref[k]) + MESH_ATOL)
+            n_out, top = apart.get(k, (0, 0.0))
+            apart[k] = (max(n_out, int((rel > MESH_RTOL).sum())),
+                        max(top, float(rel.max())))
+        if exact:
+            raise AssertionError(f"inventory({kw}) over the mesh differs in "
+                                 f"{exact}")
+    log(f"  inventory() in both forms: {len(got['segment'])} trees; counts, "
+        "ids, boxes, heights, separators and axis_found equal, stem positions"
+        f" within rtol {MESH_RTOL}; the axes over the shards within "
+        f"{axis_apart:.2e} of one device's; the traits equal the one-device "
+        "RBVs' through the mesh's axes (max grids bit for bit, mean within "
+        f"rtol {MESH_RBV_TOL}); against one device's own traits (trees past "
+        "rtol 1e-4 of the worse form, largest relative difference): "
+        + ", ".join(f"{k} {n} {r:.2e}" for k, (n, r) in apart.items()))
+
+    # (h) the largest tree's focused view
+    sid = int(torch.argmax(one.table.count[1:])) + 1
+    for kind in ("curvature", "normals"):
+        got, ref = both(kind, lambda s: getattr(s, kind)(sid))
+        if not torch.equal(sharding.gather(got), ref):
+            raise AssertionError(f"{kind}({sid}) over the mesh differs")
+    centre = one.cloud.pos[one._member_mask(sid)].mean(dim=0)
+    eye = np.eye(4, dtype=np.float32)
+    eye[:3, 3] = centre.cpu().numpy() + [0.0, 0.0, FOCUS_DISTANCE]
+    focus_cam = Camera.from_numpy(eye, FOCUS_DISTANCE, device=dev)
+    got, ref = both("render_focus", lambda s: s.render_focus(
+        sid, focus_cam, show_hull=True, show_axis=True), FRAME_KERNELS)
+    if not np.array_equal(got, ref):
+        raise AssertionError("render_focus with hull and axis differs over "
+                             "the mesh")
+    log(f"  segment {sid}: curvature and normals equal bit for bit, "
+        "render_focus with the hull and the axis byte for byte")
+
+    # (i) a REPL and the viewer over the mesh session
+    texts = []
+    tmp = tempfile.mkdtemp(prefix="treee_mesh_")
+    for s in (sm, one):
+        r = repl.Repl(s, out=io.StringIO())
+        for line in MESH_REPL:
+            t0 = time.perf_counter()
+            r.handle(line.format(png=os.path.join(tmp, "frame.png")))
+            torch.cuda.synchronize()
+            times.setdefault(f"repl {line}" + (" over the mesh" if s is sm
+                                              else ""), []).append(
+                (time.perf_counter() - t0) * 1e3)
+        texts.append(r.out.getvalue().replace(tmp, "TMP"))
+    shutil.rmtree(tmp, ignore_errors=True)
+    num = r"-?\d+\.\d+(?:e[-+]?\d+)?"
+    if ("error" in texts[0] or re.split(num, texts[0])
+            != re.split(num, texts[1]) or not same_cloud()):
+        raise AssertionError(f"the REPL over the mesh: {texts[0]!r} against "
+                             f"{texts[1]!r}")
+    viewer = serve.ViewerServer(sm, port=0)
+    viewer.serve_background()
+    try:
+        _, _, body = http(viewer.port, "/info")
+        info = json.loads(body)
+        _, _, png = http(viewer.port, "/frame.png")
+        frame = decode_png(png)
+        _, _, body = http(viewer.port, "/cmd", b"status")
+    finally:
+        viewer.shutdown()
+    if not (info["points"] == n and json.loads(body)["ok"]
+            and frame.shape == (rcfg.height, rcfg.width, 3)):
+        raise AssertionError(f"the viewer over the mesh: {info}, "
+                             f"{frame.shape}")
+    log(f"  a REPL ({len(MESH_REPL)} commands) prints what it prints over "
+        "the one-device session and leaves the same ids; the viewer over the"
+        f" mesh serves /info ({info['points']} points), a frame and commands")
+    for what, ms in times.items():
+        log(f"  time {what}: median {statistics.median(ms):.2f} ms of "
+            f"{len(ms)} {[round(t, 2) for t in ms]}")
+    del sm, one
+
+    # (j) a mesh over several cards, where the machine has them
+    if torch.cuda.device_count() > 1:
+        cards = sharding.make_mesh()
+        sc = pipeline.Session.from_points(pts, mesh=cards)
+        sc_one = pipeline.Session.from_points(
+            sc.cloud.to_numpy()["pos"], device=dev,
+            capacity=sc.cloud.capacity)
+        sc.segment(MAX_DISTANCE)
+        sc_one.segment(MAX_DISTANCE)
+        ok = (torch.equal(sharding.gather(sc.cloud.column("segment")),
+                          sc_one.cloud.segment)
+              and np.array_equal(sc.render(cams[0]), sc_one.render(cams[0])))
+        log(f"  over make_mesh() ({cards.size} cards): ids and a frame "
+            f"{'equal' if ok else 'DIFFER'}")
+        if not ok:
+            raise AssertionError("the mesh over several cards differs")
+    else:
+        log("  a mesh over several cards: not run, torch sees one card")
+
+
 def front_ends(src: str, n: int, tmp: str, dev, counted, pipeline,
                Camera) -> None:
     """Phase 18: the CLI, the REPL and the browser viewer on the scan that
@@ -1915,7 +2241,7 @@ def main() -> int:
         return 1
     from treee_tpu_torch import config as tconfig
     from treee_tpu_torch import (change, characteristics, pipeline, rasters,
-                                 rbv, segmentation, trunk_axis)
+                                 rbv, repl, segmentation, serve, trunk_axis)
     from treee_tpu_torch.io import las, native_build
     from treee_tpu_torch.ops import eigen, kernels, neighbors, octree
     from treee_tpu_torch.ops.kernels import build
@@ -3375,6 +3701,24 @@ def main() -> int:
     for k in survey_launches:
         launches[k] += survey_launches[k]
     log(f"  launches over the phase: {survey_launches}; phase "
+        f"{time.perf_counter() - t_phase:.1f} s")
+
+    # --- phase 20: one session over a mesh ---
+    log(f"phase 20: one Session over a mesh of {SHARDS} shards of the card "
+        "(from_points(mesh=...)) against a one-device Session on its rows: "
+        "segment, table, frames, LOD and adaptive cuts, strokes, pick, "
+        "rasters, inventory, the focused view, a REPL and the viewer")
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    mesh_launches = dict.fromkeys(launches, 0)
+    mesh_session(pts, dev, launch_counter(kernels, mesh_launches),
+                 (pipeline, sharding, rbv, trunk_axis, repl, serve,
+                  Camera))
+    for k in mesh_launches:
+        launches[k] += mesh_launches[k]
+    log(f"  launches over the phase: {mesh_launches}; peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; phase "
         f"{time.perf_counter() - t_phase:.1f} s")
 
     log(f"total {time.perf_counter() - t_start:.1f} s")

@@ -298,15 +298,17 @@ def test_cli_mesh_auto_on_one_device_is_a_no_op(tmp_path):
 
 
 def test_cli_mesh_auto_over_several_cards_raises(tmp_path, monkeypatch):
-    """Several cards: the mesh mode is not ported, so ``--mesh auto`` must
-    not quietly run on one of them."""
-    from treee_tpu_torch import app as app_mod
+    """Several cards: ``--mesh auto`` shards the session over all of them
+    rather than quietly running on one; one card or the CPU is one device."""
+    from treee_tpu_torch.parallel import sharding
 
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 4)
-    with pytest.raises(NotImplementedError, match="slice 9"):
-        app_mod._check_mesh("auto", torch.device("cuda"))
-    app_mod._check_mesh(None, torch.device("cuda"))
-    app_mod._check_mesh("auto", torch.device("cpu"))
+    mesh = sharding.auto_mesh("cuda")
+    assert mesh.devices == tuple(torch.device("cuda", i) for i in range(4))
+    assert sharding.auto_mesh("cpu") is None
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    assert sharding.auto_mesh("cuda") is None
 
 
 def _small_checkpoint(tmp_path) -> str:

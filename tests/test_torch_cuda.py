@@ -28,7 +28,10 @@ the card's frame must match the CPU's; the rasters and the height above
 ground must repeat and equal the CPU's bit for bit.  The point-sharded
 step over four shards of the card, three of them all padding, must equal
 the card's one-device step bit for bit, and a tile of one point must go
-through the tiles with and without a mesh alike.
+through the tiles with and without a mesh alike.  The LOD and adaptive cuts
+over 2 and 8 shards of the card (nodes across shard edges, a shard of
+padding) and a pick tie across a shard edge must equal the card's
+one-device results.
 
 Needs a card, so it skips on a machine without one.  On the card, where JAX
 is absent, run it without the suite's conftest:
@@ -1307,3 +1310,79 @@ def test_tile_of_one_point_on_the_card(dev):
         assert (seg[:-1] > 0).mean() > 0.5
     np.testing.assert_array_equal(runs[0][0], runs[1][0])
     np.testing.assert_array_equal(runs[0][1], runs[1][1])
+
+
+def _spanning_rows(dev, seed=3, n_pad=4096):
+    """Morton-ordered rows with runs of 60 identical positions (leaf nodes
+    across shard edges), a third of them dead, padding at the end (the last
+    of 8 shards all padding), on the card."""
+    rng = np.random.default_rng(seed)
+    centers = rng.uniform(0, 40, (50, 3)).astype(np.float32)
+    pts = np.concatenate([np.repeat(centers, 60, axis=0),
+                          rng.uniform(0, 40, (500, 3)).astype(np.float32)])
+    pos = np.zeros((n_pad, 3), np.float32)
+    pos[:len(pts)] = pts
+    valid = np.arange(n_pad) < len(pts)
+    order = tsh.morton_order(torch.from_numpy(pos),
+                             torch.from_numpy(valid)).numpy()
+    live = valid[order].copy()
+    live[::3] = False
+    return (torch.from_numpy(pos[order]).to(dev),
+            torch.from_numpy(valid[order]).to(dev),
+            torch.from_numpy(live).to(dev))
+
+
+@pytest.mark.parametrize("d", [2, 8])
+def test_sharded_lod_carries_on_the_card(dev, d):
+    """The LOD and adaptive cuts over d shards of the card, their carries
+    crossing nodes that span shards and a shard of padding, equal the
+    card's one-device cuts bit for bit."""
+    pos, valid, live = _spanning_rows(dev)
+    mesh = tsh.make_mesh([dev] * d)
+    tree = toctree.build(pos, valid)
+    trees = tsh.sharded_octree(mesh)(tsh.split(mesh, pos),
+                                     tsh.split(mesh, valid))
+    live_s = tsh.split(mesh, live)
+    planes = Camera.orbital(distance=60.0, device=dev).frustum_planes(16 / 9)
+    for level, ppn, frustum in ((6, 2, None), (9, 1, None), (6, 1, planes)):
+        ref = toctree.lod_mask(tree, level, ppn, live=live, frustum=frustum)
+        got = tsh.sharded_lod_mask(mesh, level, ppn)(trees, live_s, frustum)
+        assert torch.equal(torch.cat(got), ref), (level, ppn)
+    cam_pos = torch.tensor([25.0, 30.0, 25.0], device=dev)
+    ref = toctree.adaptive_mask(tree, cam_pos, 870.0, tau_px=2.0, live=live)
+    got = tsh.sharded_adaptive_mask(mesh, 870.0, 2.0)(trees, live_s, cam_pos)
+    assert torch.equal(torch.cat(got), ref)
+    taus = tpl.Session.TAU_LADDER
+    assert torch.equal(
+        tsh.sharded_adaptive_counts(mesh, 870.0, taus)(trees, live_s,
+                                                       cam_pos),
+        toctree.adaptive_counts(tree, cam_pos, 870.0, taus, live=live))
+
+
+def test_sharded_pick_tie_on_the_card(dev):
+    """A ray through a run of identical points that crosses a shard edge:
+    the lowest row wins over 8 shards of the card, as on one device."""
+    from treee_tpu_torch import interactive as tedit
+    from treee_tpu_torch.cloud import PointCloud
+
+    pos, valid, _ = _spanning_rows(dev)
+    n = pos.shape[0]
+    seg = torch.arange(1, n + 1, dtype=torch.int32, device=dev)
+    cls_ = torch.zeros(n, dtype=torch.int32, device=dev)
+    mesh = tsh.make_mesh([dev] * 8)
+    rows = n // 8
+    keys = toctree.build(pos, valid).keys.cpu().numpy()
+    edge = next(k * rows for k in range(1, 8)
+                if keys[k * rows - 1] == keys[k * rows])
+    sharded = tsh.ShardedCloud(mesh, tuple(
+        PointCloud(pos=pos[k * rows:(k + 1) * rows],
+                   segment=seg[k * rows:(k + 1) * rows],
+                   classification=cls_[k * rows:(k + 1) * rows],
+                   valid=valid[k * rows:(k + 1) * rows]) for k in range(8)))
+    origin = pos[edge] + torch.tensor([0.0, 5.0, 0.0], device=dev)
+    down = torch.tensor([0.0, -1.0, 0.0], device=dev)
+    ref = tedit.pick(PointCloud(pos=pos, segment=seg, classification=cls_,
+                                valid=valid), origin, down, 0.01)
+    got = tsh.sharded_pick(mesh)(sharded, origin, down, 0.01)
+    assert bool(got[2]) and int(got[0]) == int(ref[0]) <= edge
+    assert float(got[1]) == float(ref[1])

@@ -54,7 +54,7 @@ def test_port_and_chip_smoke_import_no_jax():
     assert out.returncode == 0, out.stderr
     mods, bad = out.stdout.splitlines()
     mods = set(mods.split())
-    assert len(mods) >= 53
+    assert len(mods) >= 54
     # the interactive and focused views', the rasters', ingest's, the
     # front ends' and the tiles' and shards' modules among them
     assert {"treee_tpu_torch.interactive", "treee_tpu_torch.ops.octree",
@@ -72,6 +72,7 @@ def test_port_and_chip_smoke_import_no_jax():
             "treee_tpu_torch.utils.profiling", "treee_tpu_torch.parallel",
             "treee_tpu_torch.parallel.tiles",
             "treee_tpu_torch.parallel.sharding",
+            "treee_tpu_torch.parallel.program",
             "treee_tpu_torch.tools.bench_tiled",
             "treee_tpu_torch.tools.survey_trees"} <= mods
     assert bad.strip() == "[]"
@@ -336,9 +337,18 @@ def test_change_copy_matches_jax():
     from treee_tpu_torch import rasters as trasters
 
     for name in ("_positions", "match_trees", "_subset", "_tree_rows",
-                 "tree_changes", "stand_changes", "chm_change"):
+                 "tree_changes", "stand_changes"):
         assert (inspect.getsource(getattr(tchange, name))
                 == inspect.getsource(getattr(jchange, name))), name
+    # chm_change is the same source but for its one raster call, which
+    # asks the session for its rasters (one device or a mesh)
+    ref = inspect.getsource(jchange.chm_change).replace(
+        "    from . import rasters as rs\n\n", "").replace(
+        """rs.compute_rasters(
+            s.cloud.pos, s.cloud.classification, s.cloud.alive,
+            lo, hi, cell, cap=cap,
+        )""", "s._raster_grids(lo, hi, cell, cap=cap)")
+    assert inspect.getsource(tchange.chm_change) == ref
     assert tchange.DELTA_TRAITS == jchange.DELTA_TRAITS
     assert tchange.NODATA == jchange.NODATA == trasters.NODATA == jrasters.NODATA
     assert inspect.getsource(trasters.grid_dims) == inspect.getsource(

@@ -276,3 +276,306 @@ def test_mesh_devices_and_shard_checks():
     lo = tsh.all_min([torch.tensor([0.0, 1.0]), torch.tensor([-0.0, 2.0])])
     assert torch.equal(lo[0].view(torch.int32), lo[1].view(torch.int32))
     assert str(float(lo[0][0])) == "-0.0"
+
+
+# ---- the interactive half: octree cuts, pick, frame, inventory -----------
+#
+# Each sharded function against the port's one-device function on the same
+# (Morton-ordered) rows, over 1, 2 and 8 shards.  The scene (tests/
+# test_sharding.py:373's) has runs of 60 identical positions, so leaf nodes
+# span shard boundaries; 3,500 points in 4,096 rows leave the last of 8
+# shards all padding.
+
+from treee_tpu_torch import interactive as tedit        # noqa: E402
+from treee_tpu_torch import pipeline as tpl             # noqa: E402
+from treee_tpu_torch.cloud import PointCloud            # noqa: E402
+from treee_tpu_torch.ops import octree as toct          # noqa: E402
+from treee_tpu_torch.parallel.program import run_alone  # noqa: E402
+from treee_tpu_torch.render import Camera, palettes, splat  # noqa: E402
+
+SHARDS = [1, 2, 8]
+
+
+def _spanning_cloud(seed=3, n_pad=4096):
+    """Morton-ordered rows with runs of identical positions, a third of
+    them dead (not live), padding at the end."""
+    rng = np.random.default_rng(seed)
+    centers = rng.uniform(0, 40, (50, 3)).astype(np.float32)
+    pos = np.concatenate([np.repeat(centers, 60, axis=0),
+                          rng.uniform(0, 40, (500, 3)).astype(np.float32)])
+    out, valid = _padded(pos, n_pad)
+    order = tsh.morton_order(torch.from_numpy(out),
+                             torch.from_numpy(valid)).numpy()
+    live = valid.copy()
+    live[::3] = False
+    return out[order], valid[order], live[order]
+
+
+@pytest.fixture(scope="module")
+def spanning():
+    pos, valid, live = _spanning_cloud()
+    tree = toct.build(torch.from_numpy(pos), torch.from_numpy(valid))
+    return dict(pos=pos, valid=valid, live=live, tree=tree)
+
+
+def _trees(mesh, sc):
+    return tsh.sharded_octree(mesh)(tsh.split(mesh, sc["pos"]),
+                                    tsh.split(mesh, sc["valid"]))
+
+
+def test_spanning_scene_has_the_hard_cases(spanning):
+    """A level-6 node spans the boundary between two of the 8 shards, and
+    the last shard holds only padding."""
+    keys = spanning["tree"].keys.numpy()
+    rows = len(keys) // 8
+    coarse = keys >> (3 * (10 - 6))
+    n_real = int(spanning["valid"].sum())
+    assert any(coarse[k * rows - 1] == coarse[k * rows]
+               for k in range(1, 8) if k * rows < n_real)
+    assert not spanning["valid"][7 * rows:].any()
+
+
+@pytest.mark.parametrize("d", SHARDS)
+def test_sharded_octree_is_the_shards_of_the_global_sort(spanning, d):
+    """The shard-local sorts over the global box concatenate to the one
+    device's sorted real keys; the box is the one device's."""
+    mesh = _cpu_mesh(d)
+    trees = _trees(mesh, spanning)
+    ref = spanning["tree"]
+    n_real = int(spanning["valid"].sum())
+    keys = torch.cat([t.keys for t in trees])
+    real = keys != toct.INVALID_KEY
+    np.testing.assert_array_equal(keys[real].numpy(), ref.keys[:n_real].numpy())
+    rows = len(keys) // d
+    order = torch.cat([t.order.long() + k * rows
+                       for k, t in enumerate(trees)])
+    np.testing.assert_array_equal(order[real].numpy(),
+                                  ref.order[:n_real].numpy())
+    for t in trees:
+        assert torch.equal(t.lo, ref.lo) and torch.equal(t.hi, ref.hi)
+        assert t.rank is None and t.inv is None
+
+
+@pytest.mark.parametrize("d", SHARDS)
+@pytest.mark.parametrize("level,ppn,frustum",
+                         [(3, 1, False), (6, 2, False), (9, 1, False),
+                          (6, 1, True), (10, 3, True)])
+def test_sharded_lod_mask_equals_one_device(spanning, d, level, ppn, frustum):
+    mesh = _cpu_mesh(d)
+    planes = (Camera.orbital(distance=60.0, device="cpu")
+              .frustum_planes(16 / 9) if frustum else None)
+    live = torch.from_numpy(spanning["live"])
+    ref = toct.lod_mask(spanning["tree"], level, ppn, live=live,
+                        frustum=planes)
+    if frustum:
+        assert 0 < int(ref.sum()) < int(live.sum())
+    got = tsh.sharded_lod_mask(mesh, level, ppn)(
+        _trees(mesh, spanning), tsh.split(mesh, live), planes)
+    np.testing.assert_array_equal(torch.cat(got).numpy(), ref.numpy())
+
+
+@pytest.mark.parametrize("d", SHARDS)
+@pytest.mark.parametrize("frustum", [False, True])
+def test_sharded_adaptive_mask_and_counts_equal_one_device(spanning, d,
+                                                           frustum):
+    mesh = _cpu_mesh(d)
+    cam = Camera.orbital(distance=50.0, device="cpu")
+    planes = cam.frustum_planes(16 / 9) if frustum else None
+    cam_pos = torch.tensor([25.0, 30.0, 25.0])
+    px = 870.0
+    live = torch.from_numpy(spanning["live"])
+    trees, live_s = _trees(mesh, spanning), tsh.split(mesh, live)
+    ref = toct.adaptive_mask(spanning["tree"], cam_pos, px, tau_px=2.0,
+                             live=live, frustum=planes)
+    assert 0 < int(ref.sum()) < int(live.sum())
+    got = tsh.sharded_adaptive_mask(mesh, px, 2.0)(trees, live_s, cam_pos,
+                                                   planes)
+    np.testing.assert_array_equal(torch.cat(got).numpy(), ref.numpy())
+    taus = tpl.Session.TAU_LADDER
+    ref_c = toct.adaptive_counts(spanning["tree"], cam_pos, px, taus,
+                                 live=live, frustum=planes)
+    got_c = tsh.sharded_adaptive_counts(mesh, px, taus)(trees, live_s,
+                                                        cam_pos, planes)
+    np.testing.assert_array_equal(got_c.numpy(), ref_c.numpy())
+
+
+def test_sharded_compact_indices_equal_one_device(spanning):
+    mesh = _cpu_mesh(8)
+    live = torch.from_numpy(spanning["live"])
+    for cap in (64, 1000, 4096, 5000):
+        ref = toct.compact_indices(live, cap)
+        got = tsh.compact_indices(tsh.split(mesh, live), cap)
+        assert int(got[0]) == int(ref[0])
+        np.testing.assert_array_equal(got[1].numpy(), ref[1].numpy())
+    idx = ref[1][:int(ref[0])]
+    np.testing.assert_array_equal(
+        tsh.take(tsh.split(mesh, torch.from_numpy(spanning["pos"])),
+                 idx).numpy(), spanning["pos"][idx.numpy()])
+
+
+def _cloud(pos, valid, seg):
+    return PointCloud(pos=torch.from_numpy(pos), segment=torch.from_numpy(seg),
+                      classification=torch.zeros(len(seg), dtype=torch.int32),
+                      valid=torch.from_numpy(valid))
+
+
+@pytest.mark.parametrize("d", SHARDS)
+def test_sharded_pick_equals_one_device(spanning, d):
+    """Hits, a miss, and ties: a ray through a run of identical points
+    that spans shards hits the lowest row, as ``argmin`` does."""
+    mesh = _cpu_mesh(d)
+    pos, valid = spanning["pos"], spanning["valid"]
+    seg = (np.arange(len(pos)) + 1).astype(np.int32)   # a row's own id
+    cloud = _cloud(pos, valid, seg)
+    rows = len(pos) // d
+    sharded = tsh.ShardedCloud(mesh, tuple(
+        _cloud(pos[k * rows:(k + 1) * rows], valid[k * rows:(k + 1) * rows],
+               seg[k * rows:(k + 1) * rows]) for k in range(d)))
+    pick = tsh.sharded_pick(mesh)
+    keys = spanning["tree"].keys.numpy()
+    span = next(k * (len(pos) // 8) for k in range(1, 8)
+                if keys[k * (len(pos) // 8) - 1] == keys[k * (len(pos) // 8)])
+    down = torch.tensor([0.0, -1.0, 0.0])
+    rays = [(torch.tensor([20.0, 50.0, 20.0]), down, 1.5),
+            (torch.from_numpy(pos[span] + [0.0, 5.0, 0.0]), down, 0.01),
+            (torch.tensor([500.0, 500.0, 500.0]),
+             torch.tensor([0.0, 1.0, 0.0]), 0.5)]
+    hits = []
+    for origin, direction, scale in rays:
+        ref = tedit.pick(cloud, origin, direction, scale)
+        got = pick(sharded, origin, direction, scale)
+        assert int(got[0]) == int(ref[0]) and bool(got[2]) == bool(ref[2])
+        assert float(got[1]) == float(ref[1])
+        hits.append(bool(got[2]))
+    assert hits == [True, True, False]
+    # the tie: the run's first row, which lies before the boundary
+    first = np.flatnonzero((pos == pos[span]).all(1))[0]
+    assert int(pick(sharded, *rays[1])[0]) == first + 1 < span + 1
+
+
+@pytest.mark.parametrize("d", SHARDS)
+def test_sharded_render_equals_render_frame(scene, d):
+    """The composited key image is the one device's, so the frame is equal
+    bit for bit."""
+    mesh = _cpu_mesh(d)
+    seg = scene["ref"][0]
+    pos = torch.from_numpy(scene["pos"])
+    mask = torch.from_numpy(scene["valid"]) & (seg > 0)
+    prop = splat.prop_from_segment(seg)
+    pal = palettes.get(TCFG.render.palette, device="cpu")
+    for distance in (100.0, 40.0):
+        cam = Camera.orbital(distance=distance, device="cpu")
+        ref = splat.render_frame(pos, prop, mask, cam, pal, TCFG.render)
+        got = tsh.sharded_render(mesh, TCFG)(
+            tsh.split(mesh, pos), tsh.split(mesh, prop),
+            tsh.split(mesh, mask), cam, pal)
+        assert (ref < 0.999).any()
+        np.testing.assert_array_equal(got.numpy(), ref.numpy())
+
+
+@pytest.mark.parametrize("d", SHARDS)
+@pytest.mark.parametrize("kw", [
+    dict(method=0, symmetric=False, axis_algo="average"),
+    dict(method=1, symmetric=True, axis_algo="lowhigh")])
+def test_sharded_inventory_equals_one_device(scene, d, kw):
+    """Counts, ``found`` and the axes' y exact; the directions within 1e-4
+    and the traits within JAX's mesh tolerances
+    (tests/test_sharding.py:537-547, 669-672): the float sums add per shard,
+    then in shard order."""
+    mesh = _cpu_mesh(d)
+    seg, cls = scene["ref"][0], scene["ref"][1]
+    pos, valid = torch.from_numpy(scene["pos"]), torch.from_numpy(
+        scene["valid"])
+    n_seg = SEG["max_segments"] + 1
+    rbv_kw = dict(crown_slices=26, crown_sectors=32, trunk_slices=5,
+                  trunk_sectors=32)
+    ref = run_alone(tpl._inventory_shard(
+        pos, seg, cls, valid, n_seg, kw["method"], kw["symmetric"],
+        kw["axis_algo"], rbv_kw, across=False))
+    got = tsh.sharded_inventory(mesh, TCFG, kw["method"], kw["symmetric"],
+                                kw["axis_algo"], **rbv_kw)(
+        *(tsh.split(mesh, x) for x in (pos, seg, cls, valid)))
+    tr, counts, found, origin = got
+    np.testing.assert_array_equal(counts.numpy(), ref[1].numpy())
+    np.testing.assert_array_equal(found.numpy(), ref[2].numpy())
+    assert int(counts[1:].sum()) > 0 and bool(found.any())
+    np.testing.assert_array_equal(origin[:, 1].numpy(), ref[3][:, 1].numpy())
+    np.testing.assert_allclose(origin.numpy(), ref[3].numpy(), rtol=1e-4,
+                               atol=1e-4)
+    for name in tr.__dataclass_fields__:
+        np.testing.assert_allclose(getattr(tr, name).numpy(),
+                                   getattr(ref[0], name).numpy(), rtol=1e-4,
+                                   atol=1e-5, err_msg=name)
+
+
+@pytest.mark.parametrize("d", SHARDS)
+def test_sharded_rbv_grids_equal_one_device(scene, d):
+    """Through the same frames, the max grids and every y extent are equal
+    bit for bit over shards; the mean grids within rtol 1e-6."""
+    from treee_tpu_torch import rbv as trbv
+    from treee_tpu_torch import trunk_axis as tta
+
+    mesh = _cpu_mesh(d)
+    seg, cls = scene["ref"][0], scene["ref"][1]
+    pos, valid = torch.from_numpy(scene["pos"]), torch.from_numpy(
+        scene["valid"])
+    n_seg = SEG["max_segments"] + 1
+    live = valid & (seg > 0)
+    tfs = tta.batched_axis_transform(tta.batched_average_direction(
+        pos, live & (cls == 1), seg, n_seg))
+    split = [tsh.split(mesh, x) for x in (pos, cls, live, seg)]
+    for method in (trbv.METHOD_MAX, trbv.METHOD_MEAN):
+        ref = trbv.batched_split_rbv(pos, cls, live, seg, n_seg, tfs,
+                                     method=method)
+        got = tsh.run(mesh, [trbv.batched_split_rbv_shard(
+            p, c, m, s, n_seg, tfs, 26, 32, 5, 32, method, False,
+            across=True) for p, c, m, s in zip(*split)])[0]
+        for g, r in zip(got, ref):
+            assert torch.equal(g.min_y, r.min_y)
+            assert torch.equal(g.slice_height, r.slice_height)
+            if method == trbv.METHOD_MAX:
+                assert torch.equal(g.distances, r.distances)
+            else:
+                np.testing.assert_allclose(g.distances.numpy(),
+                                           r.distances.numpy(), rtol=1e-6,
+                                           atol=1e-6)
+
+
+@pytest.mark.parametrize("d", SHARDS)
+def test_sharded_height_above_ground_equals_one_device(scene, d):
+    mesh = _cpu_mesh(d)
+    seg, cls = scene["ref"][0], scene["ref"][1]
+    pos = torch.from_numpy(scene["pos"])
+    live = torch.from_numpy(scene["valid"]) & (seg > 0)
+    lo = scene["pos"][scene["valid"]].min(0)
+    hi = scene["pos"][scene["valid"]].max(0)
+    (rows, cols), shape, cell = trs.grid_dims(lo, hi, 1.0, cap=128)
+    ref = trs.height_above_ground(pos, cls, live, trs.f32(lo[0], pos),
+                                  trs.f32(lo[2], pos), trs.f32(1.0, pos),
+                                  shape, (rows, cols))
+    assert float(ref.max()) > 1.0
+    got = tsh.sharded_height_above_ground(
+        mesh, tsh.split(mesh, pos), tsh.split(mesh, cls),
+        tsh.split(mesh, live), lo, hi, 1.0, cap=128)
+    np.testing.assert_array_equal(_bits(torch.cat(got)), _bits(ref))
+
+
+def test_gather_request_stacks_in_shard_order():
+    """``("gather", t)`` replies to every shard with the shards' values
+    stacked [D, ...]; the carries fold the shards before and after."""
+    from treee_tpu_torch.parallel import program
+
+    mesh = _cpu_mesh(3)
+
+    def prog(i):
+        g = yield from program.gathered(torch.tensor([i, 10 * i]), True)
+        return (g, program.prev_max(g[:, 0], i, -1),
+                program.prev_sum(g[:, 1], i), program.next_min(g[:, 0], i, 99))
+    out = tsh.run(mesh, [prog(i) for i in range(3)])
+    for i, (g, pmax, psum, nmin) in enumerate(out):
+        assert g.tolist() == [[0, 0], [1, 10], [2, 20]]
+        assert int(pmax) == (i - 1 if i else -1)
+        assert int(psum) == sum(10 * k for k in range(i))
+        assert int(nmin) == (i + 1 if i < 2 else 99)
+    alone = run_alone(program.gathered(torch.tensor([5]), False))
+    assert alone.tolist() == [[5]]

@@ -47,8 +47,7 @@ def build_parser() -> argparse.ArgumentParser:
                    help="cap loaded points (webdemo caps at 15M, laz.rs:49-62)")
     p.add_argument("--mesh", choices=["auto"], default=None,
                    help="run the session point-sharded over ALL attached "
-                        "devices (single device = no-op; the mesh mode over "
-                        "several cards is not ported yet and raises)")
+                        "devices (Session mesh mode; single device = no-op)")
     p.add_argument("--add", action="append", default=[], metavar="SCAN",
                    help="merge another .las/.laz into the scene "
                         "(Loading::add, loading.rs:79-88)")
@@ -243,20 +242,6 @@ def build_config(args):
     )
 
 
-def _check_mesh(mesh, device) -> None:
-    """``--mesh auto`` over one device is a no-op, as in the JAX package;
-    over several cards it would shard the session, which the port does not
-    do yet: raise rather than quietly run on one card."""
-    import torch
-
-    if mesh == "auto" and device.type == "cuda" \
-            and torch.cuda.device_count() > 1:
-        raise NotImplementedError(
-            f"--mesh auto over {torch.cuda.device_count()} cards: the "
-            "sharded Session (slice 9 of the port) is not ported yet; run "
-            "on one card (CUDA_VISIBLE_DEVICES) without --mesh")
-
-
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
     logging.basicConfig(
@@ -283,21 +268,23 @@ def main(argv=None) -> int:
     # every session and camera of the run: the card, or the CPU on --cpu;
     # without a card (and without --cpu) this raises
     device = resolve("cpu" if args.cpu else DEFAULT_DEVICE)
-    _check_mesh(args.mesh, device)
+    # --mesh auto: every card when there are several, else one device
+    mesh = args.mesh
     if args.demo:
         pts = las.synthetic_forest(n_trees=16, points_per_tree=8000,
                                    ground_points=20000)
-        session = Session.from_points(pts, cfg, device=device)
+        session = Session.from_points(pts, cfg, device=device, mesh=mesh)
     elif args.input.endswith((".npz", ".ipc")):
         # .ipc: the reference app's own bincode session format
         # (io/ipc.read_reference_ipc) — a migrating user opens it directly
         with phase_timer("load-session", block_on=device):
-            session = Session.open(args.input, cfg, device=device)
+            session = Session.open(args.input, cfg, device=device,
+                                   mesh=mesh)
     else:
         with phase_timer("import", block_on=device):
             session = Session.from_las(args.input, cfg,
                                        max_points=args.max_points,
-                                       device=device)
+                                       device=device, mesh=mesh)
 
     for extra in args.add:
         with phase_timer(f"add[{extra}]", block_on=device):
@@ -470,14 +457,11 @@ def main(argv=None) -> int:
         else:
             out = {}
             sid = args.segment_id
-            member = session.cloud.valid & (session.cloud.segment == int(sid))
+            pos, cls_, member = session.segment_rows(int(sid))
             if bool(member.any()):
-                axis = axis_fn(
-                    session.cloud.pos,
-                    member & (session.cloud.classification == 1),
-                )
+                axis = axis_fn(pos, member & (cls_ == 1))
                 crown, trunk = rbv_mod.split_rbv(
-                    session.cloud.pos, session.cloud.classification, member,
+                    pos, cls_, member,
                     transform=trunk_axis.axis_transform(axis),
                     **rbv_kw,
                 )
@@ -588,15 +572,13 @@ def main(argv=None) -> int:
 
         if session.table is None:
             session.characteristics()
-        member = session.cloud.valid & (session.cloud.segment == args.segment_id)
+        pos, cls_, member = session.segment_rows(args.segment_id)
 
         if args.export_hull_ply:
             # device arrays straight through: the support reduction +
             # candidate gather stay on device (O(candidates) fetched)
             h = hull3d.convex_hull(
-                session.cloud.pos,
-                member & include_mask(session.cloud.classification,
-                                      args.hull_include),
+                pos, member & include_mask(cls_, args.hull_include),
                 device=device,
             )
             if h is None:
@@ -611,10 +593,7 @@ def main(argv=None) -> int:
             axis_fn = (trunk_axis.low_high_layer
                        if args.trunk_axis_algorithm == "lowhigh"
                        else trunk_axis.average_direction)
-            axis = axis_fn(
-                session.cloud.pos,
-                member & (session.cloud.classification == 1),
-            )
+            axis = axis_fn(pos, member & (cls_ == 1))
             tf = trunk_axis.axis_transform(axis)
             rbv_kw = dict(
                 transform=tf,
@@ -628,10 +607,7 @@ def main(argv=None) -> int:
             if args.rbv_sectors is not None:
                 rbv_kw.update(crown_sectors=args.rbv_sectors,
                               trunk_sectors=args.rbv_sectors)
-            crown, trunk = rbv_mod.split_rbv(
-                session.cloud.pos, session.cloud.classification, member,
-                **rbv_kw,
-            )
+            crown, trunk = rbv_mod.split_rbv(pos, cls_, member, **rbv_kw)
             if args.export_landmarks:
                 rows = rbv_mod.split_landmarks(crown, trunk)
                 with open(args.export_landmarks, "w") as fh:

@@ -1,8 +1,8 @@
 """Multi-epoch change detection: per-tree growth and stand deltas.
 
 The port's copy of ``treee_tpu/change.py``: the same host functions, which
-read the port's sessions (``_map_bounds`` copies the scene bounds from the
-device) and the port's rasters.
+read the port's sessions, on one device or over a mesh, through their own
+live bounds and rasters (``Session._live_bounds``, ``_raster_grids``).
 
 A treee-tpu addition beyond the reference (which has no multi-epoch
 product; its whole surface is one scan at a time,
@@ -152,10 +152,7 @@ def _map_bounds(session) -> tuple[float, float, float, float]:
     northing = -(z + off_z) (the io/las.py load swizzle), so the northing
     interval comes from the *negated* z interval.
     """
-    from . import segmentation as seg
-
-    lo, hi = (a.cpu().numpy() for a in
-              seg.scene_bounds(session.cloud.pos, session.cloud.alive))
+    _, lo, hi = session._live_bounds()
     off = session.world_offset
     e_lo, e_hi = float(lo[0] + off[0]), float(hi[0] + off[0])
     n_lo, n_hi = float(-(hi[2] + off[2])), float(-(lo[2] + off[2]))
@@ -173,8 +170,6 @@ def chm_change(session_a, session_b, cell: float = 0.5, cap: int = 4096):
     have returns and :data:`NODATA` elsewhere — ready for
     :func:`io.exports.save_ascii_grid`.
     """
-    from . import rasters as rs
-
     ea = _map_bounds(session_a)
     eb = _map_bounds(session_b)
     e_lo, e_hi = min(ea[0], eb[0]), max(ea[1], eb[1])
@@ -187,10 +182,7 @@ def chm_change(session_a, session_b, cell: float = 0.5, cap: int = 4096):
         # shared map box -> this session's local frame (z = -n - off_z)
         lo = np.array([e_lo - off[0], 0.0, -n_hi - off[2]])
         hi = np.array([e_hi - off[0], 0.0, -n_lo - off[2]])
-        g, (rows, cols), out_cell = rs.compute_rasters(
-            s.cloud.pos, s.cloud.classification, s.cloud.alive,
-            lo, hi, cell, cap=cap,
-        )
+        g, (rows, cols), out_cell = s._raster_grids(lo, hi, cell, cap=cap)
         # identical box + cell + cap on both passes => identical dims/cell
         # (hard error, not assert: -O must not turn a future divergence
         # into a silently misaligned subtraction)

@@ -44,7 +44,7 @@ from .config import CharacteristicsConfig
 from .device import DEFAULT_DEVICE
 from .ops import eigen, kernels, neighbors
 from .ops.kernels.dilate import full
-from .segmentation import run_alone
+from .parallel.program import run_alone
 
 INF = 3.0e38
 

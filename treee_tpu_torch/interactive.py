@@ -4,7 +4,8 @@ Sphere-brush removal and reassignment, restoring deleted points,
 reclassification, segment combine, spawning a new segment, and ray picking.
 Every edit is a masked elementwise update of the fixed SoA arrays on the
 cloud's device that returns a new ``PointCloud``; moving a point between
-segments is writing one i32.
+segments is writing one i32.  So an edit of a point-sharded cloud is the
+same edit of each shard (``ShardedCloud.map``); picking is a shard program.
 
 The JAX package jits these functions, so its sphere radius is traced and
 squared in f32; here the radius is made an f32 tensor and squared the same
@@ -16,8 +17,12 @@ from __future__ import annotations
 import torch
 
 from .cloud import DELETED_SEGMENT, PointCloud
+from .parallel.program import run_alone
 
 INF = 3.0e38
+# sentinels of a sharded pick's row and segment mins
+ROW_MAX = torch.iinfo(torch.int64).max
+SEGMENT_MAX = torch.iinfo(torch.int32).max
 
 
 def _f32(x, like: torch.Tensor) -> torch.Tensor:
@@ -93,6 +98,16 @@ def pick(cloud: PointCloud, origin: torch.Tensor, direction: torch.Tensor,
     f32 multiplies and sums, never a matrix product, so that TF32 cannot
     lower their precision (the JAX package runs its dot at HIGHEST).
     """
+    return run_alone(pick_shard(cloud, origin, direction, point_scale,
+                                include_deleted, across=False))
+
+
+def pick_shard(cloud: PointCloud, origin, direction, point_scale,
+               include_deleted: bool, across: bool, index: int = 0):
+    """:func:`pick` as a shard program of shard ``index`` (rows
+    ``index * capacity`` on): each shard's nearest hit, then three mins over
+    the shards (the distance, the lowest global row at it, that row's
+    segment), so the winner is the one-device winner."""
     eligible = cloud.valid
     if not include_deleted:
         eligible = eligible & (cloud.segment != DELETED_SEGMENT)
@@ -105,9 +120,15 @@ def pick(cloud: PointCloud, origin: torch.Tensor, direction: torch.Tensor,
     ok = eligible & (along >= 0.0) & (perp2 <= ps * ps)
     dist = torch.where(ok, along, INF)
     best = torch.argmin(dist)
-    found = dist[best] < INF
-    seg = torch.where(found, cloud.segment[best], -1)
-    return seg, dist[best], found
+    best_dist, seg = dist[best], cloud.segment[best]
+    if across:
+        row = best + index * cloud.capacity
+        gmin = yield "min", best_dist
+        win = yield "min", torch.where(best_dist == gmin, row, ROW_MAX)
+        seg = yield "min", torch.where(row == win, seg, SEGMENT_MAX)
+        best_dist = gmin
+    found = best_dist < INF
+    return torch.where(found, seg, -1), best_dist, found
 
 
 def segment_exists(cloud: PointCloud, seg: int) -> torch.Tensor:

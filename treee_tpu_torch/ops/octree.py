@@ -9,6 +9,14 @@
   view frustum.  Masks are in the points' original order.
 - *Tables and compaction*: padded per-level node tables, and the masked rows
   compacted to dense fixed-capacity buffers or original-order indices.
+- *Shards*: :func:`build_shard`, :func:`lod_mask_shard`,
+  :func:`adaptive_mask_shard` and :func:`adaptive_counts_shard` are shard
+  programs (``parallel/program.py``): the one-device functions run them
+  alone, ``parallel/sharding.py`` over the shards of a Morton-ordered
+  cloud, where the concatenated shard-local sorts are the global sort of
+  the real keys (each shard's padding sorts to its own end).  The scans
+  over sorted slots continue from shard to shard through gathered scalar
+  carries.
 
 The JAX package's blocked doubling scan, a TPU workaround, is
 ``torch.cummax``/``cummin`` here.  Every division by a constant divides two
@@ -22,6 +30,8 @@ import dataclasses
 
 import torch
 
+from ..parallel.program import (gathered, next_min, prev_max, prev_sum,
+                                run_alone)
 from . import morton
 from .kernels.dilate import full
 
@@ -55,12 +65,15 @@ class Octree:
     rank:   i32[N] rank of each sorted slot within its leaf node.
     inv:    i32[N] sorted slot per original point index (inverse permutation).
     lo, hi: f32[3] bounding cube used for quantization.
+
+    A shard's tree (:func:`build_shard`) leaves ``rank`` and ``inv`` out
+    (None): they would be the shard's own.
     """
 
     keys: torch.Tensor
     order: torch.Tensor
-    rank: torch.Tensor
-    inv: torch.Tensor
+    rank: torch.Tensor | None
+    inv: torch.Tensor | None
     lo: torch.Tensor
     hi: torch.Tensor
 
@@ -69,15 +82,20 @@ class Octree:
         return self.keys.shape[0]
 
 
-def _bounds_and_keys(pos: torch.Tensor, valid: torch.Tensor):
-    """(keys i32[N], lo f32[3], hi f32[3]): the valid points' bounding box
-    (the unit box when none is valid) and their Morton keys over it,
-    ``INVALID_KEY`` at the other rows.  The prologue of :func:`build` and
-    :func:`build_keys`, so that the two cannot drift apart."""
+def _bounds_and_keys(pos: torch.Tensor, valid: torch.Tensor, across: bool):
+    """Shard program -> (keys i32[N], lo f32[3], hi f32[3]): the valid
+    points' bounding box (with ``across``, every shard's; the unit box when
+    none is valid) and their Morton keys over it, ``INVALID_KEY`` at the
+    other rows.  The prologue of :func:`build` and :func:`build_keys`, so
+    that the two cannot drift apart."""
     m = valid[:, None]
     lo = torch.where(m, pos, _BIG).amin(dim=0)
     hi = torch.where(m, pos, -_BIG).amax(dim=0)
     any_valid = valid.any()
+    if across:
+        lo = yield "min", lo
+        hi = yield "max", hi
+        any_valid = yield "max", any_valid
     lo = torch.where(any_valid, lo, 0.0)
     hi = torch.where(any_valid, hi, 1.0)
     keys = torch.where(valid, morton.encode_positions(pos, lo, hi), INVALID_KEY)
@@ -89,21 +107,30 @@ def build_keys(pos: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
 
     A keys-only sort returns the same array whether stable or not, so the
     cheaper unstable sort is used."""
-    keys, _, _ = _bounds_and_keys(pos, valid)
+    keys, _, _ = run_alone(_bounds_and_keys(pos, valid, False))
     return torch.sort(keys, stable=False).values
+
+
+def build_shard(pos: torch.Tensor, valid: torch.Tensor, across: bool):
+    """Shard program -> Octree without ``rank`` and ``inv``: the keys over
+    the bounding box of every shard's valid points, sorted stably within the
+    shard."""
+    keys, lo, hi = yield from _bounds_and_keys(pos, valid, across)
+    slot = torch.arange(pos.shape[0], dtype=torch.int32, device=pos.device)
+    keys_sorted, order = morton.sort_by_key(keys, slot)
+    return Octree(keys=keys_sorted, order=order, rank=None, inv=None, lo=lo,
+                  hi=hi)
 
 
 def build(pos: torch.Tensor, valid: torch.Tensor) -> Octree:
     """The linear octree of f32[N,3] positions with a validity mask."""
-    keys, lo, hi = _bounds_and_keys(pos, valid)
+    tree = run_alone(build_shard(pos, valid, False))
     slot = torch.arange(pos.shape[0], dtype=torch.int32, device=pos.device)
-    keys_sorted, order = morton.sort_by_key(keys, slot)
     # rank within the leaf node: slots since the last key change
-    rank = slot - _cummax(torch.where(_starts(keys_sorted), slot, 0))
+    rank = slot - _cummax(torch.where(_starts(tree.keys), slot, 0))
     inv = torch.zeros_like(slot)
-    inv[order] = slot
-    return Octree(keys=keys_sorted, order=order, rank=rank, inv=inv, lo=lo,
-                  hi=hi)
+    inv[tree.order] = slot
+    return dataclasses.replace(tree, rank=rank, inv=inv)
 
 
 def _extent(tree: Octree) -> torch.Tensor:
@@ -121,20 +148,6 @@ def _cell_bounds(tree: Octree, coarse: torch.Tensor, level: int):
     cell_size = torch.div(extent, step) * (1 << (morton.MORTON_BITS - level))
     lo = tree.lo + torch.div(cell, step) * extent
     return lo, lo + cell_size
-
-
-def _node_ranks(new_node: torch.Tensor, live_sorted: torch.Tensor,
-                cum: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """(rank among the node's live slots, the node's live count) per slot,
-    from the inclusive cumulative live count ``cum``: its exclusive value at
-    the node's start carried forward, its value at the node's end carried
-    backward."""
-    start_excl = _cummax(torch.where(new_node,
-                                     cum - live_sorted.to(torch.int32), 0))
-    is_end = torch.cat([new_node[1:],
-                        torch.ones(1, dtype=torch.bool, device=cum.device)])
-    end_incl = _revcummin(torch.where(is_end, cum, INVALID_KEY))
-    return cum - 1 - start_excl, end_incl - start_excl
 
 
 def aabb_in_frustum(lo: torch.Tensor, hi: torch.Tensor,
@@ -159,6 +172,13 @@ def _live_sorted(tree: Octree, live: torch.Tensor | None) -> torch.Tensor:
     return has_key if live is None else live[tree.order] & has_key
 
 
+def _scatter_back(tree: Octree, keep_sorted: torch.Tensor) -> torch.Tensor:
+    """A per-slot mask in the points' original order."""
+    keep = torch.zeros_like(keep_sorted)
+    keep[tree.order] = keep_sorted
+    return keep
+
+
 def lod_mask(tree: Octree, level: int, points_per_node: int = 1,
              live: torch.Tensor | None = None,
              frustum: torch.Tensor | None = None) -> torch.Tensor:
@@ -171,20 +191,60 @@ def lod_mask(tree: Octree, level: int, points_per_node: int = 1,
     live sibling.  ``frustum`` (f32[6,4]) culls the nodes whose cell lies
     outside the view before the selection.
     """
-    coarse = tree.keys >> (3 * (morton.MORTON_BITS - level))
-    new_node = _starts(coarse)
+    return run_alone(lod_mask_shard(tree, level, points_per_node, live,
+                                    frustum, across=False))
+
+
+def lod_mask_shard(tree: Octree, level: int, points_per_node: int,
+                   live: torch.Tensor | None, frustum: torch.Tensor | None,
+                   across: bool, index: int = 0):
+    """:func:`lod_mask` as a shard program of shard ``index``.
+
+    A node's rank and live count come from the inclusive running live count
+    ``cum``: its exclusive value at the node's first real slot carried
+    forward (a running max), its value at the node's last real slot carried
+    backward (a running min).  Over shards, ``cum`` adds the live counts of
+    the shards before; a shard's first real slot starts a node unless the
+    last real key before it has the same prefix, its last real slot ends
+    one unless the next shard's first real key does (padding, at each
+    shard's end, must neither start nor end a node); the two running scans
+    continue from the shards before and after.
+    """
+    shift = 3 * (morton.MORTON_BITS - level)
+    keys = tree.keys
+    real = keys != INVALID_KEY
+    coarse = keys >> shift
     live_sorted = _live_sorted(tree, live)
     if frustum is not None:
         lo_c, hi_c = _cell_bounds(tree, coarse, level)
         live_sorted = live_sorted & aabb_in_frustum(lo_c, hi_c, frustum)
     cum = torch.cumsum(live_sorted, 0, dtype=torch.int32)
-    rank, count = _node_ranks(new_node, live_sorted, cum)
+    g = yield from gathered(torch.stack([
+        torch.where(real, keys, -1).amax(),
+        torch.where(real, keys, INVALID_KEY).amin(), cum[-1]]), across)
+    prev_coarse = prev_max(g[:, 0], index, -1) >> shift
+    next_coarse = next_min(g[:, 1], index, INVALID_KEY) >> shift
+    cum = cum + prev_sum(g[:, 2], index)
+
+    new_node = real & torch.cat([(coarse[:1] != prev_coarse),
+                                 coarse[1:] != coarse[:-1]])
+    start = _cummax(torch.where(new_node, cum - live_sorted.to(torch.int32),
+                                0))
+    slot = torch.arange(keys.shape[0], dtype=torch.int32, device=keys.device)
+    next_c = torch.cat([coarse[1:], coarse.new_full((1,), INVALID_KEY)])
+    next_c = torch.where(slot == real.sum(dtype=torch.int32) - 1, next_coarse,
+                         next_c)
+    is_end = real & (next_c != coarse)
+    end = _revcummin(torch.where(is_end, cum, INVALID_KEY))
+    g = yield from gathered(torch.stack([start[-1], end[0]]), across)
+    start = torch.maximum(start, prev_max(g[:, 0], index, 0))
+    end = torch.minimum(end, next_min(g[:, 1], index, INVALID_KEY))
+
+    rank = cum - 1 - start
+    count = end - start
     stride = torch.clamp((count + points_per_node - 1) // points_per_node,
                          min=1)
-    keep_sorted = live_sorted & (rank % stride == 0)
-    keep = torch.zeros_like(keep_sorted)
-    keep[tree.order] = keep_sorted
-    return keep
+    return _scatter_back(tree, live_sorted & (rank % stride == 0))
 
 
 def _level_proj(tree: Octree, lvl: int, cam_pos: torch.Tensor,
@@ -220,20 +280,36 @@ def _level_ring(proj: torch.Tensor, tau_px: float, lvl: int, level_min: int,
     return ring, near_all
 
 
-def _prev_live_key(tree: Octree, live_sorted: torch.Tensor) -> torch.Tensor:
-    """i32[N]: the full key of the last live slot before each slot (-1 where
-    none).  Keys are sorted, so "first live slot of its level-l node" is
-    ``(prev >> shift) < prefix`` at every level (-1 >> s is -1)."""
-    run_key = _cummax(torch.where(live_sorted, tree.keys, -1))
-    return torch.cat([run_key.new_full((1,), -1), run_key[:-1]])
+def _adaptive_keeps(tree: Octree, cam_pos, px_scale, taus, level_min: int,
+                    level_max: int, live, frustum, across: bool, index: int):
+    """Shard program -> one bool[N] keep mask per tau, in sorted order.
 
-
-def _adaptive_setup(tree: Octree, cam_pos, px_scale, live):
+    "First live slot of its level-l node" is ``(prev >> shift) < prefix``
+    at every level, where ``prev`` is the full key of the last live slot
+    before (-1 where none; -1 >> s is -1): keys are sorted, and over shards
+    the running max continues from the shards before."""
     dev = tree.keys.device
     live_sorted = _live_sorted(tree, live)
-    return (live_sorted, _prev_live_key(tree, live_sorted),
-            torch.as_tensor(cam_pos, dtype=torch.float32).to(dev),
-            torch.as_tensor(px_scale, dtype=torch.float32).to(dev))
+    run_key = torch.where(live_sorted, tree.keys, -1)
+    g = yield from gathered(run_key.amax(), across)
+    carry = prev_max(g, index, -1)
+    run_key = torch.maximum(_cummax(run_key), carry)
+    prev_key = torch.cat([carry[None], run_key[:-1]])
+    cam_pos = torch.as_tensor(cam_pos, dtype=torch.float32).to(dev)
+    px_scale = torch.as_tensor(px_scale, dtype=torch.float32).to(dev)
+    keeps = [torch.zeros_like(live_sorted) for _ in taus]
+    for lvl in range(level_min, level_max + 1):
+        shift, coarse, lo_c, hi_c, proj = _level_proj(tree, lvl, cam_pos,
+                                                      px_scale)
+        live_here = live_sorted
+        if frustum is not None:
+            live_here = live_here & aabb_in_frustum(lo_c, hi_c, frustum)
+        first_live = live_sorted & ((prev_key >> shift) < coarse)
+        for keep, tau in zip(keeps, taus):
+            ring, near_all = _level_ring(proj, tau, lvl, level_min, level_max)
+            keep |= live_here & ring & (first_live if near_all is None
+                                        else near_all | first_live)
+    return keeps
 
 
 def adaptive_mask(tree: Octree, cam_pos: torch.Tensor, px_scale,
@@ -248,22 +324,19 @@ def adaptive_mask(tree: Octree, cam_pos: torch.Tensor, px_scale,
     (its first live point); the finest level keeps every live point.  The
     level rings partition the live points.
     """
-    live_sorted, prev_key, cam_pos, px_scale = _adaptive_setup(
-        tree, cam_pos, px_scale, live)
-    keep_sorted = torch.zeros_like(live_sorted)
-    for lvl in range(level_min, level_max + 1):
-        shift, coarse, lo_c, hi_c, proj = _level_proj(tree, lvl, cam_pos,
-                                                      px_scale)
-        ring, near_all = _level_ring(proj, tau_px, lvl, level_min, level_max)
-        sel = live_sorted & ring
-        if frustum is not None:
-            sel &= aabb_in_frustum(lo_c, hi_c, frustum)
-        first_live = live_sorted & ((prev_key >> shift) < coarse)
-        keep_sorted |= sel & (first_live if near_all is None
-                              else near_all | first_live)
-    keep = torch.zeros_like(keep_sorted)
-    keep[tree.order] = keep_sorted
-    return keep
+    return run_alone(adaptive_mask_shard(tree, cam_pos, px_scale, tau_px,
+                                         level_min, level_max, live, frustum,
+                                         across=False))
+
+
+def adaptive_mask_shard(tree: Octree, cam_pos, px_scale, tau_px: float,
+                        level_min: int, level_max: int, live, frustum,
+                        across: bool, index: int = 0):
+    """:func:`adaptive_mask` as a shard program of shard ``index``."""
+    (keep,) = yield from _adaptive_keeps(tree, cam_pos, px_scale, (tau_px,),
+                                         level_min, level_max, live, frustum,
+                                         across, index)
+    return _scatter_back(tree, keep)
 
 
 def adaptive_counts(tree: Octree, cam_pos: torch.Tensor, px_scale,
@@ -273,21 +346,24 @@ def adaptive_counts(tree: Octree, cam_pos: torch.Tensor, px_scale,
     """i32[len(taus)]: ``adaptive_mask(..., tau).sum()`` for every tau of a
     ladder in one pass; the per-level geometry is computed once and each
     tau adds only its ring compares."""
-    live_sorted, prev_key, cam_pos, px_scale = _adaptive_setup(
-        tree, cam_pos, px_scale, live)
-    keeps = [torch.zeros_like(live_sorted) for _ in taus]
-    for lvl in range(level_min, level_max + 1):
-        shift, coarse, lo_c, hi_c, proj = _level_proj(tree, lvl, cam_pos,
-                                                      px_scale)
-        live_here = live_sorted
-        if frustum is not None:
-            live_here = live_here & aabb_in_frustum(lo_c, hi_c, frustum)
-        first_live = live_sorted & ((prev_key >> shift) < coarse)
-        for keep, tau in zip(keeps, taus):
-            ring, near_all = _level_ring(proj, tau, lvl, level_min, level_max)
-            keep |= live_here & ring & (first_live if near_all is None
-                                        else near_all | first_live)
-    return torch.stack([k.sum(dtype=torch.int32) for k in keeps])
+    return run_alone(adaptive_counts_shard(tree, cam_pos, px_scale, taus,
+                                           level_min, level_max, live,
+                                           frustum, across=False))
+
+
+def adaptive_counts_shard(tree: Octree, cam_pos, px_scale,
+                          taus: tuple[float, ...], level_min: int,
+                          level_max: int, live, frustum, across: bool,
+                          index: int = 0):
+    """:func:`adaptive_counts` as a shard program of shard ``index``: the
+    shards' counts summed."""
+    keeps = yield from _adaptive_keeps(tree, cam_pos, px_scale, taus,
+                                       level_min, level_max, live, frustum,
+                                       across, index)
+    counts = torch.stack([k.sum(dtype=torch.int32) for k in keeps])
+    if across:
+        counts = yield "sum", counts
+    return counts
 
 
 @dataclasses.dataclass

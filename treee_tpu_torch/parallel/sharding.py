@@ -1,24 +1,27 @@
-"""Point-sharded steps over a list of devices: the PyTorch port of the step
-half of ``treee_tpu/parallel/sharding.py``.
+"""Point-sharded steps over a list of devices, and one ``Session`` over
+them: the PyTorch port of ``treee_tpu/parallel/sharding.py``.
 
 The JAX package runs its mesh mode under one controller: ``shard_map`` over
-a ``Mesh``, with ``psum`` / ``pmin`` / ``pmax`` between the shards.  The
-port keeps that shape in one process:
+a ``Mesh``, with ``psum`` / ``pmin`` / ``pmax`` / ``all_gather`` between the
+shards.  The port keeps that shape in one process:
 
 - a :class:`Mesh` is a tuple of ``torch.device``s.  A device may appear
   more than once: ``make_mesh(["cuda:0"] * 4)`` runs the whole shard logic
   on one card, ``make_mesh(["cpu"] * 4)`` on the CPU;
 - a sharded array is a list of per-shard tensors with equal rows, each on
-  its shard's device (:func:`shard_points`, :func:`shard_points_morton`);
-- a shard's step is a *shard program*: a generator that yields each value
-  to combine across the shards as ``(op, value)`` and receives the combined
-  value.  :func:`run` drives one program per shard in lockstep.  ``"min"``,
-  ``"max"`` and ``"sum"`` gather the shards' tensors to the first shard's
-  device, reduce them in shard order and copy the result back to each
-  shard's device (:func:`all_min`, :func:`all_max`, :func:`all_sum`);
-  ``"once"`` runs the first shard's callable on its device and copies what
-  it returns to the others (the replicated band scan: one run instead of
-  one a shard, the same result).
+  its shard's device (:func:`split`, :func:`shard_points`); a
+  :class:`ShardedCloud` holds one ``PointCloud`` a shard;
+- a shard's step is a *shard program* (``parallel/program.py``): a
+  generator that yields each value to combine across the shards as ``(op,
+  value)`` and receives the combined value.  :func:`run` drives one program
+  per shard in lockstep.  ``"min"``, ``"max"`` and ``"sum"`` gather the
+  shards' tensors to the first shard's device, reduce them in shard order
+  and copy the result back to each shard's device (:func:`all_min`,
+  :func:`all_max`, :func:`all_sum`); ``"gather"`` stacks them ``[D, ...]``
+  (:func:`all_gather`: the octree's carries, the previous and next shards'
+  scalars); ``"once"`` runs the first shard's callable on its device and
+  copies what it returns to the others (the replicated band scan, the DTM's
+  flood: one run instead of one a shard, the same result).
 
 Segmentation couples the shards through the global bounds, the anchor
 histogram and the band count grids; the table through the y grid, the
@@ -26,26 +29,36 @@ segments' counts and y extents and the support table.  Each is an integer
 sum or an f32 min or max, which do not depend on the order of the shards,
 so a sharded step equals the one-device step bit for bit.
 
-The interactive half of the JAX module (octree, LOD and adaptive masks,
-adaptive counts, pick, render and inventory, ``sharding.py:372-700``) and
-the ``Session``'s mesh mode are not ported yet (ROADMAP Queue 1).
+The interactive half needs a Morton-ordered cloud (the ``Session``'s mesh
+mode orders its rows once, at ingest, and splits them contiguously): each
+shard is then a run of ascending keys, and the shard-local octree sorts
+concatenate to the global sort of the real keys.  The LOD and adaptive
+masks continue their scans across shards through gathered carries
+(``ops/octree.py``'s shard programs), pick takes three mins, the frame one
+min of the shards' i32 key images before one dilation and eye-dome, and the
+inventory min / max extents and grids (exact) and sums of its float tables
+(each shard's own segmented sums, added in shard order, so within float
+rounding of one device's).
 """
 
 from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
 
 from .. import characteristics as ch
+from .. import interactive as edit
 from .. import rasters as rs
 from .. import segmentation as seg
-from ..cloud import CLASS_GROUND
+from ..cloud import CLASS_GROUND, PointCloud
 from ..config import Config, DEFAULT_CONFIG
 from ..device import resolve
-from ..ops import morton
+from ..ops import morton, octree
 from ..ops.kernels.seg_cummax import order as f32_order
 from ..ops.kernels.seg_cummax import unorder as f32_unorder
+from ..render import splat
 
 
 @dataclasses.dataclass(frozen=True)
@@ -77,6 +90,15 @@ def make_mesh(devices=None) -> Mesh:
     if not out:
         raise ValueError("a mesh needs at least one device")
     return Mesh(tuple(out))
+
+
+def auto_mesh(device) -> Mesh | None:
+    """``mesh="auto"`` (the CLI's ``--mesh auto``): a mesh over every CUDA
+    card when ``device`` is a card and torch sees several, else None, one
+    device (treee_tpu/pipeline.py:161-168)."""
+    if resolve(device).type == "cuda" and torch.cuda.device_count() > 1:
+        return make_mesh()
+    return None
 
 
 # --- collectives over the shards' tensors ----------------------------------
@@ -124,7 +146,14 @@ def all_sum(xs: list) -> list:
     return _to_each(_fold(xs, torch.add), xs)
 
 
-REDUCTIONS = {"min": all_min, "max": all_max, "sum": all_sum}
+def all_gather(xs: list) -> list:
+    """The shards' tensors stacked ``[D, ...]`` in shard order, one copy a
+    shard on its device."""
+    return _to_each(torch.stack([x.to(xs[0].device) for x in xs]), xs)
+
+
+REDUCTIONS = {"min": all_min, "max": all_max, "sum": all_sum,
+              "gather": all_gather}
 
 
 def _to(value, device: torch.device):
@@ -221,15 +250,147 @@ def shard_points_morton(mesh: Mesh, pos, valid):
     run of Z-order cells.  Padding rows sort to the end.
 
     Returns (pos shards, valid shards, order i64[N]): ``order`` maps a
-    shard row (shards concatenated) to the input row.  The anchor histogram
-    then subsamples other points than over the input order, so the band
-    anchor, and the ids with it, may differ from the one-device step's
-    (ROADMAP, slice 9b)."""
+    shard row (shards concatenated) to the input row.  A one-device run
+    equal to these shards' runs takes the reordered rows (``pos[order]``):
+    the anchor histogram's stride subsample follows the row order.  The
+    ``Session``'s mesh mode orders its rows so at ingest, once, and its
+    one-device twin is fed the same rows."""
     pos = torch.as_tensor(pos, dtype=torch.float32).cpu()
     valid = torch.as_tensor(valid, dtype=torch.bool).cpu()
     order = morton_order(pos, valid)
     pos_s, valid_s = shard_points(mesh, pos[order], valid[order])
     return pos_s, valid_s, order.numpy()
+
+
+def take(xs: list, idx: torch.Tensor) -> torch.Tensor:
+    """Rows ``idx`` (rows of the shards concatenated, on the first shard's
+    device) of a sharded array, on the first shard's device: each shard's
+    gather of every index, kept where the row is that shard's, so the
+    result is the one-device gather bit for bit."""
+    dev, rows = xs[0].device, xs[0].shape[0]
+    idx = idx.long()
+    shard = torch.div(idx, rows, rounding_mode="floor")
+    local = idx - shard * rows
+    out = None
+    for k, x in enumerate(xs):
+        got = x[local.to(x.device)].to(dev)
+        if out is None:
+            out = got
+        else:
+            at = (shard == k).view((-1,) + (1,) * (got.dim() - 1))
+            out = torch.where(at, got, out)
+    return out
+
+
+def put(fill: list, idx: torch.Tensor, keep: torch.Tensor,
+        values: torch.Tensor) -> list:
+    """A copy of the sharded array ``fill`` with ``values`` written at the
+    rows ``idx`` where ``keep`` (all on the first shard's device)."""
+    rows = fill[0].shape[0]
+    idx = idx.long()
+    out = []
+    for k, f in enumerate(fill):
+        dev = f.device
+        local = torch.where(keep & (torch.div(idx, rows, rounding_mode="floor")
+                                    == k), idx - k * rows, rows).to(dev)
+        o = torch.cat([f, f[:1]])
+        o[local] = values.to(dev)
+        out.append(o[:rows])
+    return out
+
+
+def compact_indices(masks: list, capacity: int):
+    """``ops/octree.compact_indices`` of a sharded mask -> (count, idx
+    i32[capacity]) on the first shard's device: each shard's masked rows
+    compacted with its row offset, in shard order, so the indices are the
+    one-device compaction's.  One sync of the shards' counts."""
+    dev, rows = masks[0].device, masks[0].shape[0]
+    counts = torch.stack([m.sum(dtype=torch.int32).to(dev)
+                          for m in masks]).tolist()
+    parts, left = [], capacity
+    for k, (m, c) in enumerate(zip(masks, counts)):
+        c = min(c, left)
+        if c > 0:
+            _, idx = octree.compact_indices(m, c)
+            parts.append(idx.to(dev) + k * rows)
+            left -= c
+    idx = torch.zeros(capacity, dtype=torch.int32, device=dev)
+    if parts:
+        head = torch.cat(parts)
+        idx[:head.shape[0]] = head
+    return (torch.tensor(capacity - left, dtype=torch.int32, device=dev),
+            idx)
+
+
+@dataclasses.dataclass(frozen=True)
+class ShardedCloud:
+    """A point cloud over a mesh: one ``PointCloud`` a shard, each of the
+    same capacity (a multiple of 1024), on its shard's device, in row order
+    (shard k holds rows ``k * rows`` on).  A column of it is a sharded
+    array (:meth:`column`)."""
+
+    mesh: Mesh
+    shards: tuple[PointCloud, ...]
+
+    @classmethod
+    def from_numpy(cls, mesh: Mesh, pos: np.ndarray, capacity: int,
+                   segment=None, classification=None) -> "ShardedCloud":
+        """Host rows padded to ``capacity`` (a multiple of 1024 x D) and
+        split into contiguous shards."""
+        if capacity % (1024 * mesh.size):
+            raise ValueError(f"capacity {capacity} is not a multiple of "
+                             f"1024 x {mesh.size}")
+        whole = PointCloud.from_numpy(pos, capacity=capacity, segment=segment,
+                                      classification=classification,
+                                      device="cpu")
+        cols = {f.name: split(mesh, getattr(whole, f.name))
+                for f in dataclasses.fields(PointCloud)}
+        return cls(mesh, tuple(PointCloud(**{k: v[i] for k, v in cols.items()})
+                               for i in range(mesh.size)))
+
+    @property
+    def rows(self) -> int:
+        """Rows a shard."""
+        return self.shards[0].capacity
+
+    @property
+    def capacity(self) -> int:
+        return self.rows * len(self.shards)
+
+    @property
+    def count(self) -> int:
+        """Number of valid points (as ``PointCloud.count``)."""
+        return sum(s.count for s in self.shards)
+
+    def column(self, name: str) -> list:
+        """The sharded array of one field (``pos``, ``segment``, ...)."""
+        return [getattr(s, name) for s in self.shards]
+
+    @property
+    def alive(self) -> list:
+        return [s.alive for s in self.shards]
+
+    def map(self, fn, *args, **kw) -> "ShardedCloud":
+        """``fn(shard, *args, **kw)`` of each shard, an elementwise edit of
+        ``interactive`` (no value crosses the shards)."""
+        return dataclasses.replace(self, shards=tuple(
+            fn(s, *args, **kw) for s in self.shards))
+
+    def replace(self, **cols) -> "ShardedCloud":
+        """Fields replaced by sharded arrays."""
+        return dataclasses.replace(self, shards=tuple(
+            s.replace(**{k: v[i] for k, v in cols.items()})
+            for i, s in enumerate(self.shards)))
+
+    def to_numpy(self) -> dict[str, np.ndarray]:
+        """Valid rows on the host, in row order (``PointCloud.to_numpy``)."""
+        parts = [s.to_numpy() for s in self.shards]
+        return {k: np.concatenate([p[k] for p in parts]) for k in parts[0]}
+
+    def gather(self) -> PointCloud:
+        """The cloud on the first shard's device, every row."""
+        return PointCloud(**{f.name: gather(self.column(f.name))
+                             for f in dataclasses.fields(PointCloud)})
 
 
 # --- shard programs and the steps built from them --------------------------
@@ -316,3 +477,135 @@ def sharded_rasters(mesh: Mesh, pos_s, classification_s, live_s, lo, hi,
     return (rs.finalize_rasters(_fold(dtm, minimum), _fold(dsm, maximum),
                                 rows, cols, y_offset=y_offset),
             (rows, cols), cell)
+
+
+# --- the interactive half: octree, LOD and adaptive cuts, pick, frame,
+# inventory, height above ground -----------------------------------------
+#
+# Every function takes the shards of a Morton-ordered cloud (rows split
+# contiguously after one Morton sort): the octree cuts need each shard to
+# hold a run of ascending keys.
+
+def sharded_octree(mesh: Mesh):
+    """The shard-local octrees, built once: ``(pos shards, valid shards) ->
+    [Octree]`` (sorted keys and order per shard, the box of every shard's
+    valid points; no rank, no inverse).  Positions never move under an
+    edit, so a ``Session`` keeps them across strokes."""
+    def step(pos_s, valid_s):
+        return run(mesh, [octree.build_shard(p, v, across=True)
+                          for p, v in zip(pos_s, valid_s)])
+    return step
+
+
+def sharded_lod_mask(mesh: Mesh, level: int, points_per_node: int = 1):
+    """``ops/octree.lod_mask`` over the shards: ``(trees, live shards,
+    frustum=None) -> keep shards``, bit-equal to the one-device mask of the
+    concatenated rows."""
+    def step(trees, live_s, frustum=None):
+        return run(mesh, [octree.lod_mask_shard(
+            t, level, points_per_node, live, frustum, across=True, index=i)
+            for i, (t, live) in enumerate(zip(trees, live_s))])
+    return step
+
+
+def sharded_adaptive_mask(mesh: Mesh, px_scale, tau_px: float = 1.5,
+                          level_min: int = 4, level_max: int = 10):
+    """``ops/octree.adaptive_mask`` over the shards: ``(trees, live
+    shards, cam_pos, frustum=None) -> keep shards``, bit-equal to one
+    device's."""
+    def step(trees, live_s, cam_pos, frustum=None):
+        return run(mesh, [octree.adaptive_mask_shard(
+            t, cam_pos, px_scale, tau_px, level_min, level_max, live,
+            frustum, across=True, index=i)
+            for i, (t, live) in enumerate(zip(trees, live_s))])
+    return step
+
+
+def sharded_adaptive_counts(mesh: Mesh, px_scale, taus: tuple[float, ...],
+                            level_min: int = 4, level_max: int = 10):
+    """``ops/octree.adaptive_counts`` over the shards: ``(trees, live
+    shards, cam_pos, frustum=None) -> i32[len(taus)]`` on the first
+    device, the whole tau ladder in one pass."""
+    def step(trees, live_s, cam_pos, frustum=None):
+        return run(mesh, [octree.adaptive_counts_shard(
+            t, cam_pos, px_scale, taus, level_min, level_max, live, frustum,
+            across=True, index=i)
+            for i, (t, live) in enumerate(zip(trees, live_s))])[0]
+    return step
+
+
+def sharded_pick(mesh: Mesh, include_deleted: bool = False):
+    """``interactive.pick`` over the shards: ``(ShardedCloud, origin,
+    direction, point_scale) -> (segment, distance, hit)`` on the first
+    device; ties go to the lowest row of the concatenated shards, as
+    ``argmin`` takes them on one device."""
+    def step(cloud: ShardedCloud, origin, direction, point_scale):
+        return run(mesh, [edit.pick_shard(c, origin, direction, point_scale,
+                                          include_deleted, across=True,
+                                          index=i)
+                          for i, c in enumerate(cloud.shards)])[0]
+    return step
+
+
+def sharded_render(mesh: Mesh, cfg: Config = DEFAULT_CONFIG):
+    """The splat frame over the shards: ``(pos shards, prop shards, mask
+    shards, camera, palette) -> f32[H,W,3]`` on the first device.
+
+    Each shard rasterizes its points into the packed (depth << 8 | palette)
+    i32 key image; one min over the shards composites them, the z-test
+    being a min of integer keys, so the image is the one-device image bit
+    for bit; the dilation and the eye-dome (their kernels) then run once on
+    it."""
+    rcfg = cfg.render
+
+    def step(pos_s, prop_s, mask_s, cam, palette):
+        kimg = _fold([splat.rasterize_keys(p, pr, m, cam, rcfg)
+                      for p, pr, m in zip(pos_s, prop_s, mask_s)], minimum)
+        color, z01, _ = splat.resolve_keys(kimg, cam, palette, rcfg)
+        return splat.eye_dome(color, z01, rcfg)
+    return step
+
+
+def sharded_inventory(mesh: Mesh, cfg: Config = DEFAULT_CONFIG,
+                      method: int = 0, symmetric: bool = False,
+                      axis_algo: str = "average", **rbv_kw):
+    """The whole forest's inventory over the shards: ``(pos, segment,
+    classification, valid shards) -> (Traits, counts i32[S,3], found
+    bool[S], origin f32[S,3])`` on the first device.
+
+    The batched axes and RBVs and the class counts are shard programs: the
+    extents and max grids combine by a min and a max (exact), the counts by
+    an integer sum, the axes' band and layer sums and the mean grids' sums
+    by one sum in shard order of each shard's own segmented sums."""
+    from ..pipeline import _inventory_shard
+
+    n_seg = cfg.segmentation.max_segments + 1
+
+    def step(pos_s, seg_s, cls_s, valid_s):
+        return run(mesh, [_inventory_shard(
+            p, s, c, v, n_seg, method, symmetric, axis_algo, rbv_kw,
+            across=True) for p, s, c, v in zip(pos_s, seg_s, cls_s,
+                                               valid_s)])[0]
+    return step
+
+
+def sharded_height_above_ground(mesh: Mesh, pos_s, classification_s, live_s,
+                                lo, hi, cell: float, cap: int = 4096) -> list:
+    """``rasters.height_above_ground`` over the shards -> f32 shards: one
+    min of the shards' raw DTMs, one flood of it, then each shard's points
+    read it; bit-equal to one device's."""
+    (rows, cols), shape, cell = rs.grid_dims(lo, hi, cell, cap=cap)
+    return run(mesh, [rs.height_above_ground_shard(
+        p, c, live, rs.f32(lo[0], p), rs.f32(lo[2], p),
+        rs.f32(1.0 / cell, p), shape, (rows, cols), across=True)
+        for p, c, live in zip(pos_s, classification_s, live_s)])
+
+
+def live_bounds(pos_s, live_s) -> tuple[torch.Tensor, torch.Tensor]:
+    """``segmentation.scene_bounds`` of the shards' live points, on the
+    first device: the shards' raw bounds folded by a min and a max."""
+    raw = [seg.scene_bounds_raw(p, live) for p, live in zip(pos_s, live_s)]
+    any_live = _fold([live.any() for live in live_s], maximum)
+    return seg.scene_bounds_finalize(_fold([r[0] for r in raw], minimum),
+                                     _fold([r[1] for r in raw], maximum),
+                                     any_live)

@@ -1,15 +1,36 @@
-"""The port's ``Session`` (``treee_tpu/pipeline.py``): one point cloud on one
-device and everything the front ends (``app.py``, ``repl.py``,
-``serve.py``) drive on it — segmentation + characteristics, the full-cloud
-frame, the octree LOD and screen-adaptive frames, the sphere edits with ray
-picking, the whole-forest inventory, the focused single-tree view, the
-terrain and canopy rasters with the height above ground (the ``hag``
-display) and the forest summary, LAS/LAZ ingest with its preview frames and
-the scan's source attributes (the attribute displays), checkpoints and
-merges, and the point exports.
+"""The port's ``Session`` (``treee_tpu/pipeline.py``): one point cloud and
+everything the front ends (``app.py``, ``repl.py``, ``serve.py``) drive on
+it — segmentation + characteristics, the full-cloud frame, the octree LOD
+and screen-adaptive frames, the sphere edits with ray picking, the
+whole-forest inventory, the focused single-tree view, the terrain and
+canopy rasters with the height above ground (the ``hag`` display) and the
+forest summary, LAS/LAZ ingest with its preview frames and the scan's
+source attributes (the attribute displays), checkpoints and merges, and the
+point exports.
 
-The mesh mode (one session over several cards) is not ported yet; the
-CLI's ``--mesh auto`` raises over several cards.
+**Mesh mode.** ``Session(config, mesh=...)`` (a ``parallel.sharding.Mesh``,
+or ``"auto"``: every CUDA card when there are several, else no mesh) holds
+its cloud as a ``ShardedCloud``.  Ingest orders the rows by Morton key once
+(the unpadded points' box, a stable sort; the attributes follow) and splits
+them contiguously into shards of equal rows, the capacity rounded to blocks
+of 1024 x D.  Every method then runs over the shards through
+``parallel/sharding.py`` and equals a one-device session fed the same rows
+at the same capacity: ids, classes, tables, LOD indices, picks, rasters,
+frames and the integer inventory columns bit for bit, the inventory's float
+columns within float rounding (sums added in shard order).  The edits run
+on each shard (``ShardedCloud.map``); a segment's member rows (the focused
+view, ``segment_rows``) are compacted shard by shard and concatenated in
+shard order, the rows one device compacts.  Per-point results over the
+whole cloud (``curvature``, ``normals``, ``properties``,
+``height_above_ground``, ``hag_prop``, ``attribute_prop``) come back as a
+list of one tensor a shard (``sharding.gather`` makes one tensor of them),
+and ``render(prop=...)`` takes that list or one tensor in row order.
+
+Gathers on the mesh: two paths copy whole columns to the first device and
+run the one-device function there — ``properties()`` (one sort over every
+row) and the grid path (a segment past ``NeighborConfig.brute_force_max``
+points: its k-NN, and its focused view, which reads it; also the live
+cloud's curvature of ``export_points_ply``).
 """
 
 from __future__ import annotations
@@ -31,6 +52,8 @@ from .config import Config, DEFAULT_CONFIG, RenderConfig
 from .device import DEFAULT_DEVICE, resolve
 from .io import exports, ipc, las
 from .ops import octree as octree_mod
+from .parallel import sharding
+from .parallel.program import run_alone
 from .render import Camera, lines, palettes, splat
 from .segmentation import SegmentationResult, scene_bounds, segment_points
 
@@ -74,34 +97,32 @@ def full_pipeline(pos: torch.Tensor, valid: torch.Tensor, max_distance: float,
     return res.segment, classification, table, res
 
 
-def _height_preview(pos: torch.Tensor, valid: torch.Tensor, cam: Camera,
-                    palette: torch.Tensor, cfg: RenderConfig) -> torch.Tensor:
-    """Un-segmented cloud coloured by normalized height (Session.preview_frame)."""
-    y = pos[:, 1]
-    big = 3.0e38
-    any_v = valid.any()
-    ylo = torch.where(any_v, torch.where(valid, y, big).amin(), 0.0)
-    yhi = torch.where(any_v, torch.where(valid, y, -big).amax(), 1.0)
-    prop = torch.clamp((y - ylo) / torch.clamp(yhi - ylo, min=1e-6), 0.0, 1.0)
-    return splat.render_frame(pos, prop, valid, cam, palette, cfg)
+def _height_prop(pos: torch.Tensor, lo: torch.Tensor,
+                 hi: torch.Tensor) -> torch.Tensor:
+    """Each point's height in [0, 1] between the bounds' y (the preview's
+    colouring)."""
+    ylo, yhi = lo[1].to(pos.device), hi[1].to(pos.device)
+    return torch.clamp((pos[:, 1] - ylo) / torch.clamp(yhi - ylo, min=1e-6),
+                       0.0, 1.0)
 
 
-def _lod_frame(pos_c: torch.Tensor, idx: torch.Tensor, count: torch.Tensor,
-               cloud: PointCloud, cam: Camera, palette: torch.Tensor,
-               cfg: RenderConfig, prop: torch.Tensor | None = None
-               ) -> torch.Tensor:
-    """One frame of the LOD subset, with the cloud's current state read
-    through the cached indices.
+def _lod_frame(pos_c: torch.Tensor, seg_c: torch.Tensor,
+               valid_c: torch.Tensor, count: torch.Tensor, cam: Camera,
+               palette: torch.Tensor, cfg: RenderConfig,
+               prop_c: torch.Tensor | None = None) -> torch.Tensor:
+    """One frame of the LOD subset, with the cloud's current segments and
+    validity (``seg_c``, ``valid_c``) read through the cached indices.
 
     Edits between frames only rewrite ``cloud.segment`` and ``cloud.valid``;
     a frame re-reads them with subset-sized gathers, so an edit needs no
-    compaction of the full cloud.  ``prop`` (f32[N], original order) colours
-    the points in place of their segment ids.
+    compaction of the full cloud.  ``prop_c`` (the subset's rows of a
+    property) colours the points in place of their segment ids.
     """
-    seg_c = cloud.segment[idx]
-    slot = torch.arange(idx.shape[0], dtype=torch.int32, device=idx.device)
-    mask_c = cloud.valid[idx] & (seg_c != DELETED_SEGMENT) & (slot < count)
-    prop_c = splat.prop_from_segment(seg_c) if prop is None else prop[idx]
+    slot = torch.arange(seg_c.shape[0], dtype=torch.int32,
+                        device=seg_c.device)
+    mask_c = valid_c & (seg_c != DELETED_SEGMENT) & (slot < count)
+    if prop_c is None:
+        prop_c = splat.prop_from_segment(seg_c)
     return splat.render_frame(pos_c, prop_c, mask_c, cam, palette, cfg)
 
 
@@ -126,14 +147,48 @@ def _segment_class_counts(segment, classification, mask,
     return counts[:-1].view(n_segments, 3)
 
 
+def _inventory_shard(pos, segment, classification, valid, n_segments: int,
+                     method: int, symmetric: bool, axis_algo: str,
+                     rbv_kw: dict, across: bool):
+    """The inventory's device part as a shard program
+    (``parallel/program.py``) -> (Traits, counts i32[S,3], axes' found and
+    origin): every segment's trunk axis, split RBVs, traits and class
+    counts.  ``Session.inventory`` runs it alone or over the shards
+    (``sharding.sharded_inventory``); the counts add across shards."""
+    live = (valid & (segment != DELETED_SEGMENT) & (segment >= 0)
+            & (segment < n_segments))
+    trunk = live & (classification == CLASS_TRUNK)
+    if axis_algo == "lowhigh":
+        axes = yield from trunk_axis.batched_low_high_layer_shard(
+            pos, trunk, segment, n_segments, 1.0, across)
+    else:
+        axes = yield from trunk_axis.batched_average_direction_shard(
+            pos, trunk, segment, n_segments, 10, across)
+    transforms = trunk_axis.batched_axis_transform(axes)
+    crown, trunk_rbv = yield from rbv_mod.batched_split_rbv_shard(
+        pos, classification, live, segment, n_segments, transforms,
+        rbv_kw.get("crown_slices", 26), rbv_kw.get("crown_sectors", 32),
+        rbv_kw.get("trunk_slices", 5), rbv_kw.get("trunk_sectors", 32),
+        method, symmetric, across)
+    counts = _segment_class_counts(segment, classification, live, n_segments)
+    if across:
+        counts = yield "sum", counts
+    return (rbv_mod.batched_traits(crown, trunk_rbv), counts, axes.found,
+            axes.origin)
+
+
 class Session:
-    """One point cloud on one device and the results computed from it."""
+    """One point cloud, on one device or over a mesh (module docstring),
+    and the results computed from it."""
 
     def __init__(self, config: Config = DEFAULT_CONFIG,
-                 device: str | torch.device = DEFAULT_DEVICE):
+                 device: str | torch.device = DEFAULT_DEVICE, mesh=None):
         self.config = config
-        self.device = resolve(device)
-        self.cloud: PointCloud | None = None
+        if mesh == "auto":
+            mesh = sharding.auto_mesh(device)
+        self.mesh: sharding.Mesh | None = mesh
+        self.device = mesh.devices[0] if mesh is not None else resolve(device)
+        self.cloud: PointCloud | sharding.ShardedCloud | None = None
         # shift from the cloud's frame to the scan's map frame (y-up)
         self.world_offset = np.zeros(3, np.float64)
         self.table: ch.SegmentTable | None = None
@@ -146,9 +201,10 @@ class Session:
         # set by membership edits; cleared when the table is recomputed
         self._counts_stale = False
         self._next_id: int | None = None    # host mirror of the id counter
-        # the octree of the cloud's positions, kept across edits (they never
-        # move a point), and the LOD subset (pos_c, idx, count)
-        self._tree: octree_mod.Octree | None = None
+        # the octree of the cloud's positions (over a mesh, one a shard),
+        # kept across edits (they never move a point), and the LOD subset
+        # (pos_c, idx, count) on the session's device
+        self._tree: octree_mod.Octree | list | None = None
         self._lod: tuple | None = None
         # the proj string that geo-references the map frame
         self.source_location = config.interactive.source_location
@@ -158,13 +214,57 @@ class Session:
         # hag_prop per raster cell size; the DTM follows the live set and
         # the ground class, so segment(), characteristics(), membership
         # edits and reclassify_sphere drop it
-        self._hag_cache: dict[float, torch.Tensor] = {}
+        self._hag_cache: dict[float, torch.Tensor | list] = {}
         # the scan's source point-record attributes (intensity, rgb, ...,
         # io/las.decode_attributes): host arrays padded to the cloud's
         # capacity, row-aligned with it (edits never reorder rows); their
         # display properties on the device, per name (attribute_prop)
         self.attributes: dict[str, np.ndarray] = {}
         self._attr_dev: dict[str, tuple] = {}
+
+    # ---- the two forms of a per-point value ----------------------------------
+
+    def _col(self, name: str):
+        """A field of the cloud: a tensor, or over a mesh its shards."""
+        if self.mesh is not None:
+            return self.cloud.column(name)
+        return getattr(self.cloud, name)
+
+    def _whole(self, x) -> torch.Tensor:
+        """A per-point value as one tensor (a mesh's shards gathered to the
+        session's device)."""
+        return sharding.gather(x) if isinstance(x, list) else x
+
+    def _split(self, x):
+        """A per-point value in the session's form: over a mesh its shards
+        (one tensor in row order is split), else one tensor on the
+        session's device."""
+        if self.mesh is not None:
+            return x if isinstance(x, list) else sharding.split(self.mesh, x)
+        return x.to(self.device)
+
+    def _take(self, x, idx: torch.Tensor) -> torch.Tensor:
+        """Rows ``idx`` of a per-point value, on the session's device."""
+        return sharding.take(x, idx) if isinstance(x, list) else x[idx]
+
+    def _each(self, fn, *xs):
+        """``fn`` of per-point values, elementwise: on each shard's tensors
+        over a mesh."""
+        if self.mesh is None:
+            return fn(*xs)
+        return [fn(*a) for a in zip(*xs)]
+
+    def _host(self, x) -> np.ndarray:
+        """A per-point value on the host, every row in row order."""
+        if isinstance(x, list):
+            return np.concatenate([t.cpu().numpy() for t in x])
+        return x.cpu().numpy()
+
+    def _count(self, mask) -> int:
+        if isinstance(mask, list):
+            return int(torch.stack([m.sum().to(self.device)
+                                    for m in mask]).sum())
+        return int(mask.sum())
 
     def _clear_focus(self) -> None:
         """Drop the focused view's caches:
@@ -183,17 +283,47 @@ class Session:
         self._focus_cnt_cache: dict[int, int] = {}
         self._focus_idx_cache: dict[int, tuple] = {}
         self._focus_prop_cache: dict[tuple, torch.Tensor] = {}
-        self._focus_grid_cache: dict[tuple, torch.Tensor] = {}
+        self._focus_grid_cache: dict[tuple, torch.Tensor | list] = {}
 
     def _install_cloud(self, pos, segment=None, classification=None,
                        attrs: dict | None = None,
                        capacity: int | None = None) -> None:
         """Put the points (and their source attributes) on the session's
         device, padded to ``capacity`` rows (a multiple of 1024 by
-        default)."""
-        self.cloud = PointCloud.from_numpy(
-            np.asarray(pos, np.float32), capacity=capacity, segment=segment,
-            classification=classification, device=self.device)
+        default).  Over a mesh the rows are first ordered by Morton key
+        (``sharding.morton_order`` over the points' box, a stable sort; the
+        other columns and the attributes follow), and the capacity is
+        rounded up to blocks of 1024 x D, so that each shard is a run of
+        ascending keys and a multiple of the anchor histogram's stride
+        (treee_tpu/pipeline.py:251-281)."""
+        pos = np.asarray(pos, np.float32)
+        self._tree = None
+        if self.mesh is None:
+            self.cloud = PointCloud.from_numpy(
+                pos, capacity=capacity, segment=segment,
+                classification=classification, device=self.device)
+        else:
+            n = len(pos)
+            if n:
+                p = torch.from_numpy(pos).to(self.device)
+                order = sharding.morton_order(
+                    p, torch.ones(n, dtype=torch.bool, device=self.device))
+                order = order.cpu().numpy()
+                del p
+                pos = pos[order]
+                if segment is not None:
+                    segment = np.asarray(segment)[order]
+                if classification is not None:
+                    classification = np.asarray(classification)[order]
+                if attrs is not None:
+                    attrs = {k: np.asarray(v)[order] for k, v in attrs.items()}
+            block = 1024 * self.mesh.size
+            cap = max(block, -(-n // block) * block)
+            if capacity is not None:
+                cap = max(cap, -(-capacity // block) * block)
+            self.cloud = sharding.ShardedCloud.from_numpy(
+                self.mesh, pos, cap, segment=segment,
+                classification=classification)
         self._attach_attributes(attrs if attrs is not None else {})
 
     def _drop_derived(self) -> None:
@@ -215,16 +345,18 @@ class Session:
                  max_points: int | None = None, preview_cb=None,
                  preview_points: int = 1 << 20,
                  slab_points: int = 4_000_000,
-                 device: str | torch.device = DEFAULT_DEVICE) -> "Session":
-        """A session on ``device`` holding a LAS/LAZ scan (a path or bytes),
-        recentred on its header bounds' centre (``world_offset``).
+                 device: str | torch.device = DEFAULT_DEVICE,
+                 mesh=None) -> "Session":
+        """A session on ``device`` (or over ``mesh``) holding a LAS/LAZ scan
+        (a path or bytes), recentred on its header bounds' centre
+        (``world_offset``).
 
         With ``preview_cb``, coarse height-coloured frames stream during the
         decode, as the reference draws chunks while loading
         (loading.rs:91-115): each decoded slab (about ``slab_points``,
         aligned to .laz chunks) adds to a fixed ``preview_points``
         subsample, and ``preview_cb(img u8[H,W,3])`` receives its frame."""
-        s = cls(config, device=device)
+        s = cls(config, device=device, mesh=mesh)
         if preview_cb is None:
             scan = las.load(source, max_points=max_points)
         else:
@@ -251,8 +383,9 @@ class Session:
             pos = torch.from_numpy(sub).to(self.device)
             valid = torch.arange(preview_points,
                                  device=self.device) < state["fill"]
-            img = _height_preview(pos, valid, self.camera, self.palette,
-                                  self.config.render)
+            img = splat.render_frame(
+                pos, _height_prop(pos, *scene_bounds(pos, valid)), valid,
+                self.camera, self.palette, self.config.render)
             # the host copy of the frame also waits for the frame's reads
             # of ``sub``, which the next slab overwrites
             preview_cb(_u8(img))
@@ -263,12 +396,12 @@ class Session:
     def from_points(cls, pos: np.ndarray, config: Config = DEFAULT_CONFIG,
                     world_offset: np.ndarray | None = None,
                     device: str | torch.device = DEFAULT_DEVICE,
-                    capacity: int | None = None) -> "Session":
-        """A session on ``device`` holding the f32[N,3] y-up points ``pos``,
-        padded to ``capacity`` rows (a multiple of 1024 by default);
-        ``world_offset`` f64[3] shifts them to the map frame (the
-        inventory's easting and northing)."""
-        s = cls(config, device=device)
+                    capacity: int | None = None, mesh=None) -> "Session":
+        """A session on ``device`` (or over ``mesh``) holding the f32[N,3]
+        y-up points ``pos``, padded to ``capacity`` rows (a multiple of 1024
+        by default); ``world_offset`` f64[3] shifts them to the map frame
+        (the inventory's easting and northing)."""
+        s = cls(config, device=device, mesh=mesh)
         s._install_cloud(pos, capacity=capacity)
         if world_offset is not None:
             s.world_offset = np.asarray(world_offset, np.float64)
@@ -297,7 +430,8 @@ class Session:
         the 3-3-2 cube index (``palettes.rgb_cube``); ``gps_time`` spans the
         f64 range of the valid nonzero rows (merged rows that lack the field
         are zero and fall below it); everything else is divided by its
-        maximum, like the reference's u32 lookup (lookup.rs:22-24)."""
+        maximum, like the reference's u32 lookup (lookup.rs:22-24).  Over a
+        mesh the property is the shards' list."""
         if name not in self.attributes:
             avail = ", ".join(sorted(self.attributes)) or "none in this scan"
             raise ValueError(f"no attribute {name!r} (available: {avail})")
@@ -318,7 +452,7 @@ class Session:
                 # in f64 before the cast; min/max and the normalisation run
                 # in chunks, with no [N]-sized f64 temporaries
                 a64 = np.asarray(a, np.float64)
-                valid = self.cloud.valid.cpu().numpy()
+                valid = self._host(self._col("valid"))
                 step = 1 << 22
                 vlo, vhi = np.inf, -np.inf
                 for i in range(0, len(a64), step):
@@ -338,8 +472,7 @@ class Session:
                 v = a.astype(np.float32)
                 ext = max(float(v.max(initial=0.0)), 1e-12)
                 prop = v / ext
-            self._attr_dev[name] = (torch.from_numpy(prop).to(self.device),
-                                    pal)
+            self._attr_dev[name] = (self._split(torch.from_numpy(prop)), pal)
         return self._attr_dev[name]
 
     def add_las(self, source, preview_cb=None,
@@ -355,7 +488,7 @@ class Session:
             scan = las.load_streaming(
                 source, self._ingest_preview_cb(preview_cb, preview_points),
                 center=self.world_offset, slab_points=slab_points)
-        valid = self.cloud.valid.cpu().numpy()
+        valid = self._host(self._col("valid"))
         data = self.cloud.to_numpy()
         n_new = len(scan.pos)
         pos = np.concatenate([data["pos"], scan.pos])
@@ -372,8 +505,31 @@ class Session:
         """Height-coloured frame of the raw cloud, before segmentation;
         u8[H,W,3]."""
         cam = camera if camera is not None else self.camera
-        return _u8(_height_preview(self.cloud.pos, self.cloud.valid, cam,
-                                   self.palette, self.config.render))
+        pos, valid = self._col("pos"), self._col("valid")
+        lo, hi = (sharding.live_bounds(pos, valid) if self.mesh is not None
+                  else scene_bounds(pos, valid))
+        return _u8(self._frame(pos, self._each(
+            lambda p: _height_prop(p, lo, hi), pos), valid, cam, self.palette))
+
+    def _frame(self, pos, prop, mask, cam: Camera,
+               palette: torch.Tensor) -> torch.Tensor:
+        """``splat.render_frame`` of per-point values (over a mesh
+        ``sharding.sharded_render``)."""
+        if self.mesh is not None:
+            return sharding.sharded_render(self.mesh, self.config)(
+                pos, prop, mask, cam, palette)
+        return splat.render_frame(pos, prop, mask, cam, palette,
+                                  self.config.render)
+
+    def _strided(self, name: str, stride: int) -> torch.Tensor:
+        """Every ``stride``-th row of a field, from row 0, on the session's
+        device (over a mesh, each shard's rows at those global rows)."""
+        x = self._col(name)
+        if self.mesh is None:
+            return x[::stride].contiguous()
+        rows = x[0].shape[0]
+        return torch.cat([t[(-k * rows) % stride::stride].to(self.device)
+                          for k, t in enumerate(x)])
 
     def segment(self, max_distance: float | None = None, preview_cb=None,
                 preview_stride: int = 64) -> SegmentationResult:
@@ -383,13 +539,15 @@ class Session:
         ``preview_cb(img)``: before the full cloud, every
         ``preview_stride``-th point is segmented and rendered segment-coloured
         with the session's camera, and the callback receives that u8[H,W,3]
-        frame.
+        frame (over a mesh on the session's device: the subsample is small).
+        Over a mesh the step is ``sharding.sharded_session_step``; the
+        result's ``segment`` is then the shards' list.
         """
         if max_distance is not None:
             self.max_distance = max_distance
         if preview_cb is not None:
-            sub_pos = self.cloud.pos[::preview_stride].contiguous()
-            sub_valid = self.cloud.valid[::preview_stride].contiguous()
+            sub_pos = self._strided("pos", preview_stride)
+            sub_valid = self._strided("valid", preview_stride)
             sub_seg, _, _, _ = full_pipeline(sub_pos, sub_valid,
                                              self.max_distance, self.config)
             img = splat.render_frame(
@@ -397,8 +555,14 @@ class Session:
                 sub_valid & (sub_seg != DELETED_SEGMENT), self.camera,
                 self.palette, self.config.render)
             preview_cb(_u8(img))
-        seg, classification, table, res = full_pipeline(
-            self.cloud.pos, self.cloud.valid, self.max_distance, self.config)
+        if self.mesh is not None:
+            seg, classification, table, res = sharding.sharded_session_step(
+                self.mesh, self.config)(self._col("pos"), self._col("valid"),
+                                        self.max_distance)
+        else:
+            seg, classification, table, res = full_pipeline(
+                self.cloud.pos, self.cloud.valid, self.max_distance,
+                self.config)
         self.cloud = self.cloud.replace(segment=seg,
                                         classification=classification)
         self.table = table
@@ -417,10 +581,15 @@ class Session:
             )
         return res
 
-    def _lod_tree(self) -> octree_mod.Octree:
+    def _lod_tree(self):
         """The cached octree, built at first use over ALL valid points,
-        deleted ones included: a restored point must find its place."""
-        if self._tree is None or self._tree.capacity != self.cloud.capacity:
+        deleted ones included: a restored point must find its place.  Over
+        a mesh, the shards' octrees (``sharding.sharded_octree``)."""
+        if self.mesh is not None:
+            if self._tree is None:
+                self._tree = sharding.sharded_octree(self.mesh)(
+                    self._col("pos"), self._col("valid"))
+        elif self._tree is None or self._tree.capacity != self.cloud.capacity:
             self._tree = octree_mod.build(self.cloud.pos, self.cloud.valid)
         return self._tree
 
@@ -439,6 +608,9 @@ class Session:
         A deleted representative is masked out per frame; its node hands
         over to a live sibling at the next rebuild.  ``capacity`` defaults
         to ``snug_capacity`` of the subset's true size (one host sync).
+        Over a mesh the cut is the shards' (``sharding.sharded_lod_mask`` /
+        ``sharded_adaptive_mask``) and the indices their compaction with
+        row offsets: the one-device indices.
         """
         if adaptive_tau_px is not None and camera is None:
             raise ValueError("adaptive_tau_px requires a camera")
@@ -448,17 +620,28 @@ class Session:
         frustum = None
         if camera is not None:
             frustum = camera.frustum_planes(rcfg.width / rcfg.height)
-        if adaptive_tau_px is not None:
-            lod = octree_mod.adaptive_mask(
-                tree, camera.position, _px_scale(camera, rcfg),
-                tau_px=adaptive_tau_px, live=mask, frustum=frustum)
+        if self.mesh is not None:
+            if adaptive_tau_px is not None:
+                lod = sharding.sharded_adaptive_mask(
+                    self.mesh, _px_scale(camera, rcfg), adaptive_tau_px)(
+                        tree, mask, camera.position, frustum)
+            else:
+                lod = sharding.sharded_lod_mask(
+                    self.mesh, level, points_per_node)(tree, mask, frustum)
+            compact = sharding.compact_indices
         else:
-            lod = octree_mod.lod_mask(tree, level, points_per_node, live=mask,
-                                      frustum=frustum)
+            if adaptive_tau_px is not None:
+                lod = octree_mod.adaptive_mask(
+                    tree, camera.position, _px_scale(camera, rcfg),
+                    tau_px=adaptive_tau_px, live=mask, frustum=frustum)
+            else:
+                lod = octree_mod.lod_mask(tree, level, points_per_node,
+                                          live=mask, frustum=frustum)
+            compact = octree_mod.compact_indices
         cap = capacity if capacity is not None else min(
-            cloud.capacity, octree_mod.snug_capacity(int(lod.sum())))
-        count, idx = octree_mod.compact_indices(lod, cap)
-        self._lod = (cloud.pos[idx], idx, count)
+            cloud.capacity, octree_mod.snug_capacity(self._count(lod)))
+        count, idx = compact(lod, cap)
+        self._lod = (self._take(self._col("pos"), idx), idx, count)
 
     #: candidate screen-error cuts for the auto-tau solver, finest first
     TAU_LADDER = (0.75, 1.0, 1.25, 1.5, 2.0, 2.5, 3.0, 4.0, 5.0, 6.0, 8.0)
@@ -469,8 +652,9 @@ class Session:
         """The screen-error tau for ``build_lod(adaptive_tau_px=...)``.
 
         - ``budget_rows``: the smallest ladder tau whose cut fits the row
-          budget, from one pass over the ladder (``adaptive_counts``);
-          the coarsest tau when none fits.
+          budget, from one pass over the ladder (``adaptive_counts``; over
+          a mesh ``sharding.sharded_adaptive_counts`` on the cached shards'
+          octrees); the coarsest tau when none fits.
         - ``match_floor``: the largest ladder tau whose frame matches at
           least this share of the full frame's pixels, by bisecting the
           ladder with real frames; the finest tau when none does.  The
@@ -481,10 +665,16 @@ class Session:
         cam = camera if camera is not None else self.camera
         rcfg = self.config.render
         if budget_rows is not None:
-            counts = octree_mod.adaptive_counts(
-                self._lod_tree(), cam.position, _px_scale(cam, rcfg),
-                self.TAU_LADDER, live=self.cloud.alive,
-                frustum=cam.frustum_planes(rcfg.width / rcfg.height))
+            frustum = cam.frustum_planes(rcfg.width / rcfg.height)
+            if self.mesh is not None:
+                counts = sharding.sharded_adaptive_counts(
+                    self.mesh, _px_scale(cam, rcfg), self.TAU_LADDER)(
+                        self._lod_tree(), self.cloud.alive, cam.position,
+                        frustum)
+            else:
+                counts = octree_mod.adaptive_counts(
+                    self._lod_tree(), cam.position, _px_scale(cam, rcfg),
+                    self.TAU_LADDER, live=self.cloud.alive, frustum=frustum)
             fits = np.nonzero(counts.cpu().numpy() <= budget_rows)[0]
             return (self.TAU_LADDER[int(fits[0])] if len(fits)
                     else self.TAU_LADDER[-1])
@@ -504,44 +694,50 @@ class Session:
         self._lod = lod_state
         return best
 
-    def render(self, camera: Camera | None = None,
-               prop: torch.Tensor | None = None, show_deleted: bool = False,
-               use_lod: bool = False,
+    def render(self, camera: Camera | None = None, prop=None,
+               show_deleted: bool = False, use_lod: bool = False,
                palette: torch.Tensor | None = None) -> np.ndarray:
         """Frame, u8[H,W,3]: segment-coloured unless ``prop`` (f32[N] in
-        [0,1]) is given; deleted points (segment 0) hidden unless
-        ``show_deleted``.  ``use_lod`` draws the LOD subset (built at level
-        7 if absent); with ``show_deleted`` the full cloud is drawn, since
-        the subset leaves deleted points out."""
+        [0,1]; over a mesh also the shards' list) is given; deleted points
+        (segment 0) hidden unless ``show_deleted``.  ``use_lod`` draws the
+        LOD subset (built at level 7 if absent); with ``show_deleted`` the
+        full cloud is drawn, since the subset leaves deleted points out.
+        Over a mesh the full frame is ``sharding.sharded_render``."""
         cam = camera if camera is not None else self.camera
         pal = (palette if palette is not None else self.palette).to(self.device)
         cloud = self.cloud
         if prop is not None:
-            prop = prop.to(self.device)
+            prop = self._split(prop)
         if use_lod and not show_deleted:
             if self._lod is None:
                 self.build_lod()
             pos_c, idx, count = self._lod
-            return _u8(_lod_frame(pos_c, idx, count, cloud, cam, pal,
-                                  self.config.render, prop))
+            return _u8(_lod_frame(
+                pos_c, self._take(self._col("segment"), idx),
+                self._take(self._col("valid"), idx), count, cam, pal,
+                self.config.render,
+                None if prop is None else self._take(prop, idx)))
         if prop is None:
-            prop = splat.prop_from_segment(cloud.segment)
-        mask = cloud.valid if show_deleted else cloud.alive
-        img = splat.render_frame(cloud.pos, prop, mask, cam, pal,
-                                 self.config.render)
-        return _u8(img)
+            prop = self._each(splat.prop_from_segment, self._col("segment"))
+        mask = self._col("valid") if show_deleted else cloud.alive
+        return _u8(self._frame(self._col("pos"), prop, mask, cam, pal))
 
     def characteristics(self) -> ch.SegmentTable:
         """Recompute the table, with full boxes, and the classes of the
-        current segments; deleted points keep their classes."""
-        cloud = self.cloud
-        table, classification = ch.compute_segments(
-            cloud.pos, cloud.segment, cloud.valid,
-            self.config.segmentation.max_segments + 1,
-            self.config.characteristics)
-        live = cloud.valid & (cloud.segment != DELETED_SEGMENT)
-        self.cloud = cloud.replace(classification=torch.where(
-            live, classification, cloud.classification))
+        current segments; deleted points keep their classes.  Over a mesh
+        through ``sharding.sharded_characteristics``."""
+        pos, seg, valid = (self._col(k) for k in ("pos", "segment", "valid"))
+        if self.mesh is not None:
+            table, classification = sharding.sharded_characteristics(
+                self.mesh, self.config)(pos, seg, valid)
+        else:
+            table, classification = ch.compute_segments(
+                pos, seg, valid, self.config.segmentation.max_segments + 1,
+                self.config.characteristics)
+        self.cloud = self.cloud.replace(classification=self._each(
+            lambda v, s, c, old: torch.where(v & (s != DELETED_SEGMENT), c,
+                                             old),
+            valid, seg, classification, self._col("classification")))
         self.table = table
         self._bbox_full = True
         self._counts_stale = False
@@ -561,20 +757,25 @@ class Session:
 
     # ---- the focused view ----------------------------------------------------
 
-    def properties(self) -> tuple[torch.Tensor, torch.Tensor]:
+    def properties(self):
         """Per-point (expansion, height) of the whole cloud, f32[N] each
-        (CalculationProperties, on demand)."""
+        (CalculationProperties, on demand).  Over a mesh the columns are
+        gathered to the session's device for the one sort over every row,
+        and the results come back as the shards' lists."""
         if self.table is None:
             self.characteristics()
-        cloud = self.cloud
-        return ch.segment_properties(
+        cloud = self.cloud if self.mesh is None else self.cloud.gather()
+        exp, hgt = ch.segment_properties(
             cloud.pos, cloud.segment, cloud.valid, cloud.classification,
             self.table, self.config.segmentation.max_segments + 1,
             self.config.characteristics)
+        return self._split(exp), self._split(hgt)
 
-    def _member_mask(self, segment_id: int) -> torch.Tensor:
-        """The full-cloud member mask of a segment."""
-        return self.cloud.valid & (self.cloud.segment == segment_id)
+    def _member_mask(self, segment_id: int):
+        """The full-cloud member mask of a segment (the shards' masks over
+        a mesh)."""
+        return self._each(lambda v, s: v & (s == segment_id),
+                          self._col("valid"), self._col("segment"))
 
     def _member_and_grid(self, segment_id: int):
         """(member mask or None, member count, use_grid): segments up to
@@ -595,16 +796,17 @@ class Session:
             cnt = _lru_get(self._focus_cnt_cache, segment_id)
         if cnt is None:
             member = self._member_mask(segment_id)
-            cnt = int(member.sum())
+            cnt = self._count(member)
             self._focus_cnt_cache[segment_id] = cnt
             _evict_oldest(self._focus_cnt_cache, 64)
         return member, cnt, cnt > self.config.neighbors.brute_force_max
 
     def _compact_member(self, segment_id: int, member, cnt: int):
         """(idx, sub_valid): the segment's member rows compacted into a snug
-        buffer, cached per segment.  The brute-force k-NN runs among these
-        rows (a [tile, N] distance tile over the whole cloud would not
-        fit), and a focused frame draws them."""
+        buffer, cached per segment (over a mesh each shard's rows with its
+        row offset, in shard order: the same rows).  The brute-force k-NN
+        runs among these rows (a [tile, N] distance tile over the whole
+        cloud would not fit), and a focused frame draws them."""
         cached = _lru_get(self._focus_idx_cache, segment_id)
         if cached is not None:
             return cached
@@ -612,12 +814,35 @@ class Session:
             member = self._member_mask(segment_id)
         cap = min(octree_mod.snug_capacity(max(int(cnt), 1), headroom=1.0),
                   self.cloud.capacity)
-        count, idx = octree_mod.compact_indices(member, cap)
+        compact = (sharding.compact_indices if self.mesh is not None
+                   else octree_mod.compact_indices)
+        count, idx = compact(member, cap)
         sub_valid = torch.arange(cap, dtype=torch.int32,
                                  device=idx.device) < count
         self._focus_idx_cache[segment_id] = (idx, sub_valid)
         _evict_oldest(self._focus_idx_cache, 8)
         return idx, sub_valid
+
+    def _focus_rows(self, segment_id: int, member, cnt: int):
+        """(idx, segment, member, pos, classification) of the compacted
+        member rows, on the session's device; ``member`` masks out the
+        padding slots and rows that left the segment."""
+        idx, sub_valid = self._compact_member(segment_id, member, cnt)
+        seg_sub = self._take(self._col("segment"), idx)
+        f_member = (sub_valid & self._take(self._col("valid"), idx)
+                    & (seg_sub == segment_id))
+        return (idx, seg_sub, f_member, self._take(self._col("pos"), idx),
+                self._take(self._col("classification"), idx))
+
+    def segment_rows(self, segment_id: int):
+        """A segment's member rows on the session's device, in either mode:
+        (pos f32[M,3], classification i32[M], member bool[M]), M a snug
+        capacity whose slots past the members ``member`` masks out.  The
+        front ends' single-tree axis, RBVs, traits and hull take them."""
+        member, cnt, _ = self._member_and_grid(segment_id)
+        _, _, f_member, f_pos, f_cls = self._focus_rows(segment_id, member,
+                                                        cnt)
+        return f_pos, f_cls, f_member
 
     def _focus_sub(self, kind: str, segment_id: int, member, cnt: int):
         """(sub, idx, sub_valid): the brute-path curvature ("curve") or
@@ -630,7 +855,8 @@ class Session:
         if sub is None:
             fn = (ch.segment_curvature if kind == "curve"
                   else ch.segment_normals)
-            sub = fn(self.cloud.pos[idx], sub_valid, k=k, use_grid=False)
+            sub = fn(self._take(self._col("pos"), idx), sub_valid, k=k,
+                     use_grid=False)
             self._focus_prop_cache[key] = sub
             _evict_oldest(self._focus_prop_cache, 16)
         return sub, idx, sub_valid
@@ -638,7 +864,10 @@ class Session:
     def _focus_grid(self, kind: str, segment_id: int, member=None):
         """The grid-path result of a large segment over the whole cloud,
         cached per (kind, segment, k) (at most 2: each is f32[N] or
-        f32[N,3]).  The member mask is built only on a miss."""
+        f32[N,3]).  The member mask is built only on a miss.  Over a mesh
+        the positions and the mask are gathered to the session's device
+        for the grid hash, and the result comes back as the shards'
+        list."""
         k = self.config.characteristics.neighbors
         key = (kind, segment_id, k)
         hit = _lru_get(self._focus_grid_cache, key)
@@ -647,30 +876,40 @@ class Session:
         if member is None:
             member = self._member_mask(segment_id)
         fn = ch.segment_curvature if kind == "curve" else ch.segment_normals
-        res = fn(self.cloud.pos, member, k=k, use_grid=True)
+        res = self._split(fn(self._whole(self._col("pos")),
+                             self._whole(member), k=k, use_grid=True))
         self._focus_grid_cache[key] = res
         _evict_oldest(self._focus_grid_cache, 2)
         return res
 
-    def _scatter_sub(self, sub: torch.Tensor, idx, sub_valid,
-                     fill: torch.Tensor) -> torch.Tensor:
+    def _scatter_sub(self, sub: torch.Tensor, idx, sub_valid, fill):
         """``fill`` with the compacted rows' values put back at their cloud
         rows; padding slots drop out."""
+        if self.mesh is not None:
+            return sharding.put(fill, idx, sub_valid, sub)
         out = torch.cat([fill, fill[:1]])
         out[torch.where(sub_valid, idx, fill.shape[0]).long()] = sub
         return out[:fill.shape[0]]
 
-    def curvature(self, segment_id: int) -> torch.Tensor:
+    def _fill(self, width: int | None, value=0.0):
+        """A per-point f32 value of the session's form, ``value`` everywhere
+        (``width`` channels, or none)."""
+        shape = () if width is None else (width,)
+        return self._each(
+            lambda v: torch.full((v.shape[0],) + shape, value,
+                                 dtype=torch.float32, device=v.device),
+            self._col("valid"))
+
+    def curvature(self, segment_id: int):
         """Per-point curvature of a segment, f32[N] (0 off the segment)."""
         member, cnt, use_grid = self._member_and_grid(segment_id)
         if use_grid:
             return self._focus_grid("curve", segment_id, member)
         sub, idx, sub_valid = self._focus_sub("curve", segment_id, member,
                                               cnt)
-        return self._scatter_sub(sub, idx, sub_valid, torch.zeros(
-            self.cloud.capacity, dtype=torch.float32, device=self.device))
+        return self._scatter_sub(sub, idx, sub_valid, self._fill(None))
 
-    def normals(self, segment_id: int) -> torch.Tensor:
+    def normals(self, segment_id: int):
         """Per-point unit surface normals of a segment, f32[N,3] (+y off the
         segment): the smallest eigenvector of the curvature neighbourhoods'
         covariance, a capability beyond the reference viewer."""
@@ -679,9 +918,8 @@ class Session:
             return self._focus_grid("normals", segment_id, member)
         sub, idx, sub_valid = self._focus_sub("normals", segment_id, member,
                                               cnt)
-        up = torch.zeros((self.cloud.capacity, 3), dtype=torch.float32,
-                         device=self.device)
-        up[:, 1] = 1.0
+        up = self._each(lambda f: f.index_fill(1, torch.tensor(
+            [1], device=f.device), 1.0), self._fill(3))
         return self._scatter_sub(sub, idx, sub_valid, up)
 
     def segment_coords(self, segment_id: int):
@@ -717,7 +955,8 @@ class Session:
         so the frame and its overlays cost the segment's size, not the
         cloud's; the scatter-min z-buffer and the overlays' reductions do
         not depend on the rows' order or padding, so the frame equals the
-        full cloud's.  A grid-path segment draws from the full cloud.
+        full cloud's.  A grid-path segment draws from the full cloud (over
+        a mesh its columns gathered to the session's device).
         """
         if display not in FOCUS_DISPLAYS and display not in self.attributes:
             raise ValueError(f"unknown display {display!r}")
@@ -729,28 +968,30 @@ class Session:
             # which the expansion's crown filter and the overlays read
             self.characteristics()
         member, cnt, use_grid = self._member_and_grid(segment_id)
-        cloud = self.cloud
         if use_grid:
-            f_pos = cloud.pos
-            f_member = (self._member_mask(segment_id) if member is None
-                        else member)
-            f_cls = cloud.classification
+            if member is None:
+                member = self._member_mask(segment_id)
+            f_pos = self._whole(self._col("pos"))
+            f_member = self._whole(member)
+            f_cls = self._whole(self._col("classification"))
+
+            def rows(x):
+                return self._whole(x)
         else:
-            idx, sub_valid = self._compact_member(segment_id, member, cnt)
-            seg_sub = cloud.segment[idx]
-            f_member = sub_valid & cloud.valid[idx] & (seg_sub == segment_id)
-            f_pos = cloud.pos[idx]
-            f_cls = cloud.classification[idx]
+            idx, seg_sub, f_member, f_pos, f_cls = self._focus_rows(
+                segment_id, member, cnt)
+
+            def rows(x):
+                return self._take(x, idx)
 
         if display in self.attributes:
             # the cached full-cloud property; rgb brings its own palette
             prop, pal_over = self.attribute_prop(display)
             if pal_over is not None:
                 pal = pal_over
-            f_prop = prop if use_grid else prop[idx]
+            f_prop = rows(prop)
         elif display == "hag":
-            prop = self.hag_prop()      # the cached full-cloud property
-            f_prop = prop if use_grid else prop[idx]
+            f_prop = rows(self.hag_prop())  # the cached full-cloud property
         elif display == "classification":
             # Ground, Trunk, Crown -> 1/8, 3/8, 6/8 of the palette
             # (mod.rs:1031-1039)
@@ -758,7 +999,7 @@ class Session:
                                   device=self.device)[f_cls.long()]
         elif display in ("expansion", "height"):
             if use_grid:
-                exp, hgt = self.properties()
+                exp, hgt = (self._whole(x) for x in self.properties())
             else:
                 # the slice areas are segment-local and the rows hold all
                 # of the segment's points, so member rows get the values
@@ -772,10 +1013,11 @@ class Session:
                 f_prop = torch.div(f_prop, torch.clamp(
                     torch.where(f_member, f_prop, 0.0).amax(), min=1e-6))
         elif display == "curve":
-            f_prop = (self.curvature(segment_id) if use_grid else
-                      self._focus_sub("curve", segment_id, member, cnt)[0])
+            f_prop = (self._whole(self.curvature(segment_id)) if use_grid
+                      else self._focus_sub("curve", segment_id, member,
+                                           cnt)[0])
         else:   # shaded: Lambert brightness from the k-NN normals
-            nrm = (self.normals(segment_id) if use_grid else
+            nrm = (self._whole(self.normals(segment_id)) if use_grid else
                    self._focus_sub("normals", segment_id, member, cnt)[0])
             light = torch.tensor(SHADE_LIGHT, dtype=torch.float32,
                                  device=self.device)
@@ -826,7 +1068,8 @@ class Session:
                   trunk_slices: int = 5, trunk_sectors: int = 32,
                   axis_algo: str = "average") -> dict[str, np.ndarray]:
         """Whole-forest per-tree inventory: every segment's trunk axis, split
-        RBVs and forestry traits in one batched pass on the device.
+        RBVs and forestry traits in one batched pass on the device (over a
+        mesh ``sharding.sharded_inventory``).
 
         Returns a dict of equal-length numpy columns, one row per present
         segment with points: segment id, per-class point counts, the box
@@ -838,23 +1081,21 @@ class Session:
         """
         table = self.full_table()
         n_seg = int(table.present.shape[0])
-        cloud = self.cloud
-        seg, cls_ = cloud.segment, cloud.classification
-        live = (cloud.valid & (seg != DELETED_SEGMENT) & (seg >= 0)
-                & (seg < n_seg))
-        axis_fn = (trunk_axis.batched_low_high_layer if axis_algo == "lowhigh"
-                   else trunk_axis.batched_average_direction)
-        axes = axis_fn(cloud.pos, live & (cls_ == CLASS_TRUNK), seg, n_seg)
-        transforms = trunk_axis.batched_axis_transform(axes)
-        crown, trunk = rbv_mod.batched_split_rbv(
-            cloud.pos, cls_, live, seg, n_seg, transforms,
-            crown_slices=crown_slices, crown_sectors=crown_sectors,
-            trunk_slices=trunk_slices, trunk_sectors=trunk_sectors,
-            method=(rbv_mod.METHOD_MEAN if method == "mean"
-                    else rbv_mod.METHOD_MAX),
-            symmetric=symmetric)
-        tr = rbv_mod.batched_traits(crown, trunk)
-        cnts = _segment_class_counts(seg, cls_, live, n_seg).cpu().numpy()
+        method = (rbv_mod.METHOD_MEAN if method == "mean"
+                  else rbv_mod.METHOD_MAX)
+        rbv_kw = dict(crown_slices=crown_slices, crown_sectors=crown_sectors,
+                      trunk_slices=trunk_slices, trunk_sectors=trunk_sectors)
+        cols = [self._col(k)
+                for k in ("pos", "segment", "classification", "valid")]
+        if self.mesh is not None:
+            tr, counts, found, origin = sharding.sharded_inventory(
+                self.mesh, self.config, method, symmetric, axis_algo,
+                **rbv_kw)(*cols)
+        else:
+            tr, counts, found, origin = run_alone(_inventory_shard(
+                *cols, n_seg, method, symmetric, axis_algo, rbv_kw,
+                across=False))
+        cnts = counts.cpu().numpy()
 
         present = table.present.cpu().numpy()
         total = cnts.sum(axis=1)
@@ -863,8 +1104,8 @@ class Session:
         lo, hi = table.lo.cpu().numpy(), table.hi.cpu().numpy()
         cx = (lo[ids, 0] + hi[ids, 0]) / 2.0
         cz = (lo[ids, 2] + hi[ids, 2]) / 2.0
-        found = axes.found.cpu().numpy()[ids]
-        origin = axes.origin.cpu().numpy()[ids]
+        found = found.cpu().numpy()[ids]
+        origin = origin.cpu().numpy()[ids]
         wo = self.world_offset
         out = {
             "segment": ids.astype(np.int32),
@@ -937,21 +1178,37 @@ class Session:
 
     # ---- rasters -----------------------------------------------------------
 
-    def _live_bounds(self) -> tuple[torch.Tensor, np.ndarray, np.ndarray]:
-        """(live mask, lo, hi): the live points and their bounds on the
-        host (the unit box when no point is live)."""
+    def _live_bounds(self) -> tuple[object, np.ndarray, np.ndarray]:
+        """(live mask, lo, hi): the live points (the shards' masks over a
+        mesh) and their bounds on the host (the unit box when no point is
+        live)."""
         live = self.cloud.alive
-        lo, hi = (a.cpu().numpy() for a in scene_bounds(self.cloud.pos, live))
-        return live, lo, hi
+        if self.mesh is not None:
+            lo, hi = sharding.live_bounds(self._col("pos"), live)
+        else:
+            lo, hi = scene_bounds(self.cloud.pos, live)
+        return live, lo.cpu().numpy(), hi.cpu().numpy()
+
+    def _raster_grids(self, lo, hi, cell: float, cap: int = 4096,
+                     y_offset: float = 0.0):
+        """``rasters.compute_rasters`` of the live points over the box
+        ``lo``-``hi`` (over a mesh ``sharding.sharded_rasters``, bit-equal):
+        (grids dict of host arrays, (rows, cols), cell)."""
+        cols = (self._col("pos"), self._col("classification"),
+                self.cloud.alive)
+        if self.mesh is not None:
+            return sharding.sharded_rasters(self.mesh, *cols, lo, hi, cell,
+                                            cap=cap, y_offset=y_offset)
+        return rs.compute_rasters(*cols, lo, hi, cell, cap=cap,
+                                  y_offset=y_offset)
 
     def rasters(self, cell: float = 0.5, cap: int = 4096):
         """DTM / DSM / CHM height rasters over the live cloud
         (:func:`rasters.compute_rasters`).  Returns (grids dict of host
         arrays, (xll, yll) LAS map corner, cell)."""
-        live, lo, hi = self._live_bounds()
-        grids, (rows, _), cell = rs.compute_rasters(
-            self.cloud.pos, self.cloud.classification, live, lo, hi, cell,
-            cap=cap, y_offset=float(self.world_offset[1]))
+        _, lo, hi = self._live_bounds()
+        grids, (rows, _), cell = self._raster_grids(
+            lo, hi, cell, cap=cap, y_offset=float(self.world_offset[1]))
         # lower-left corner in LAS map coords: easting = x + off_x, northing
         # = -(z + off_z), so yll comes from the GRID's max-z edge, not the
         # point bounds' (the grid over-covers by up to one cell)
@@ -959,25 +1216,30 @@ class Session:
         yll = -(float(lo[2]) + rows * cell) - float(self.world_offset[2])
         return grids, (xll, yll), cell
 
-    def height_above_ground(self, cell: float = 1.0,
-                            cap: int = 4096) -> torch.Tensor:
+    def height_above_ground(self, cell: float = 1.0, cap: int = 4096):
         """Per-point height above the hole-filled DTM, f32[N] on the
-        session's device (:func:`rasters.height_above_ground`)."""
+        session's device (:func:`rasters.height_above_ground`; over a mesh
+        the shards' list, ``sharding.sharded_height_above_ground``)."""
         live, lo, hi = self._live_bounds()
+        pos, cls_ = self._col("pos"), self._col("classification")
+        if self.mesh is not None:
+            return sharding.sharded_height_above_ground(
+                self.mesh, pos, cls_, live, lo, hi, cell, cap=cap)
         (rows, cols), shape, cell = rs.grid_dims(lo, hi, cell, cap=cap)
-        pos = self.cloud.pos
         return rs.height_above_ground(
-            pos, self.cloud.classification, live, rs.f32(lo[0], pos),
-            rs.f32(lo[2], pos), rs.f32(1.0 / cell, pos), shape, (rows, cols))
+            pos, cls_, live, rs.f32(lo[0], pos), rs.f32(lo[2], pos),
+            rs.f32(1.0 / cell, pos), shape, (rows, cols))
 
-    def hag_prop(self, cell: float = 1.0) -> torch.Tensor:
+    def hag_prop(self, cell: float = 1.0):
         """The height above ground divided by its maximum (at least 1e-6),
         f32[N] in [0, 1] for ``render(prop=...)`` and the ``hag`` focus
         display; cached per cell size until an edit or a re-segmentation."""
         if cell not in self._hag_cache:
             hag = self.height_above_ground(cell)
-            self._hag_cache[cell] = torch.div(
-                hag, torch.clamp(hag.amax(), min=1e-6))
+            top = (sharding.all_max([h.amax() for h in hag])
+                   if self.mesh is not None else hag.amax())
+            self._hag_cache[cell] = self._each(
+                lambda h, m: torch.div(h, torch.clamp(m, min=1e-6)), hag, top)
         return self._hag_cache[cell]
 
     def export_raster(self, path, which: str = "chm", cell: float = 0.5,
@@ -992,16 +1254,24 @@ class Session:
 
     # ---- point exports -----------------------------------------------------
 
-    def _export_rows(self, segment_id: int | None, include: str):
-        """(keep mask on the device, its rows' indices): the live points, or
-        one segment's, through the ``include`` class filter."""
-        cloud = self.cloud
-        if segment_id is not None:
-            member = cloud.valid & (cloud.segment == segment_id)
-        else:
-            member = cloud.alive
-        keep = member & include_mask(cloud.classification, include)
-        return keep, torch.nonzero(keep).flatten()
+    def _export_keep(self, segment_id: int | None, include: str):
+        """The rows an export writes: the live points, or one segment's,
+        through the ``include`` class filter (the shards' masks over a
+        mesh)."""
+        member = (self.cloud.alive if segment_id is None
+                  else self._member_mask(segment_id))
+        return self._each(lambda m, c: m & include_mask(c, include), member,
+                          self._col("classification"))
+
+    def _kept(self, keep, *cols) -> list[np.ndarray]:
+        """The kept rows of per-point values on the host, in row order;
+        only those rows leave the device."""
+        if self.mesh is None:
+            rows = torch.nonzero(keep).flatten()
+            return [c[rows].cpu().numpy() for c in cols]
+        rows = [torch.nonzero(k).flatten() for k in keep]
+        return [np.concatenate([x[r].cpu().numpy() for x, r in zip(c, rows)])
+                for c in cols]
 
     def export_points_ply(self, path, segment_id: int | None = None,
                           include: str = "all") -> int:
@@ -1010,22 +1280,21 @@ class Session:
         view's Crown/Trunk/Ground export buttons, mod.rs:629-660,
         1069-1107); returns the number of points written.  Curvature is
         the k-NN value: exact for one segment, through the grid hash over
-        the whole live cloud otherwise.  The rows are selected on the
-        device and only they are copied to the host."""
+        the whole live cloud otherwise (over a mesh on the gathered
+        columns).  The rows are selected on the device and only they are
+        copied to the host."""
         exp, hgt = self.properties()
         if segment_id is not None:
             curve = self.curvature(segment_id)
         else:
-            curve = ch.segment_curvature(
-                self.cloud.pos, self.cloud.alive,
-                k=self.config.characteristics.neighbors, use_grid=True)
-        _, rows = self._export_rows(segment_id, include)
+            curve = self._split(ch.segment_curvature(
+                self._whole(self._col("pos")), self._whole(self.cloud.alive),
+                k=self.config.characteristics.neighbors, use_grid=True))
+        pos, e, h, c = self._kept(self._export_keep(segment_id, include),
+                                  self._col("pos"), exp, hgt, curve)
         with open(path, "w") as fh:
-            exports.save_points_ply(
-                fh, self.cloud.pos[rows].cpu().numpy(),
-                exp[rows].cpu().numpy(), hgt[rows].cpu().numpy(),
-                curve[rows].cpu().numpy())
-        return int(rows.shape[0])
+            exports.save_points_ply(fh, pos, e, h, c)
+        return int(pos.shape[0])
 
     #: ASPRS classification codes of export_las: ground, trunk as medium
     #: vegetation, crown as high vegetation
@@ -1041,15 +1310,15 @@ class Session:
         frame through the header offset.  ``segment_id`` / ``include``
         filter as in :meth:`export_points_ply`.  Returns the number of
         points written."""
-        keep_dev, rows = self._export_rows(segment_id, include)
-        n = int(rows.shape[0])
+        keep_dev = self._export_keep(segment_id, include)
+        pos, cls, seg = self._kept(keep_dev, self._col("pos"),
+                                   self._col("classification"),
+                                   self._col("segment"))
+        n = int(pos.shape[0])
         if n == 0:
             raise ValueError("export_las: no points match the filter")
-        pos = self.cloud.pos[rows].cpu().numpy()
-        cls = self.cloud.classification[rows].cpu().numpy()
-        seg = self.cloud.segment[rows].cpu().numpy()
         # the attributes live on the host, row-aligned with the cloud
-        keep = keep_dev.cpu().numpy()
+        keep = self._host(keep_dev)
 
         fmt = 7 if "rgb" in self.attributes else 6
         rec = np.zeros((n, las.POINT_LENGTHS[fmt]), np.uint8)
@@ -1083,11 +1352,21 @@ class Session:
 
     def _alloc_id(self) -> int:
         if self._next_id is None:
-            seg = self.cloud.segment
-            self._next_id = int(seg.max()) + 1 if seg.numel() else 1
+            top = self._each(lambda s: s.max(), self._col("segment"))
+            if isinstance(top, list):
+                top = sharding.all_max(top)[0]
+            self._next_id = int(top) + 1
         nid = self._next_id
         self._next_id += 1
         return nid
+
+    def _edit(self, fn, *args) -> None:
+        """An elementwise edit of ``interactive`` on the cloud (on each
+        shard over a mesh: no value crosses the shards)."""
+        if self.mesh is not None:
+            self.cloud = self.cloud.map(fn, *args)
+        else:
+            self.cloud = fn(self.cloud, *args)
 
     def _mark_edited(self) -> None:
         """Segment membership changed: the table's rows no longer describe
@@ -1106,8 +1385,8 @@ class Session:
 
     def delete_sphere(self, center, radius=None) -> None:
         """Delete every alive point within ``radius`` of ``center``."""
-        self.cloud = edit.remove_points(self.cloud, center,
-                                        self._radius(radius), DELETED_SEGMENT)
+        self._edit(edit.remove_points, center, self._radius(radius),
+                   DELETED_SEGMENT)
         self._mark_edited()
 
     def draw_sphere(self, center, target: int, radius=None,
@@ -1115,9 +1394,9 @@ class Session:
         """Move every alive point in the sphere to segment ``target``, and
         the deleted ones too with ``include_deleted``."""
         r = self._radius(radius)
-        self.cloud = edit.remove_points(self.cloud, center, r, target)
+        self._edit(edit.remove_points, center, r, target)
         if include_deleted:
-            self.cloud = edit.restore_deleted(self.cloud, center, r, target)
+            self._edit(edit.restore_deleted, center, r, target)
         self._mark_edited()
 
     def reclassify_sphere(self, center, classification: int, segment: int,
@@ -1125,8 +1404,8 @@ class Session:
         """Reclassify the segment's points in the sphere, then re-derive the
         segment's separators from its classes, as the reference does after
         every stroke (mod.rs:182-221)."""
-        self.cloud = edit.change_classification(
-            self.cloud, center, self._radius(radius), classification, segment)
+        self._edit(edit.change_classification, center, self._radius(radius),
+                   classification, segment)
         self._clear_focus()
         self._hag_cache = {}    # ground membership drives the DTM
         if self.table is not None:
@@ -1134,26 +1413,32 @@ class Session:
 
     def update_separators_from_classes(self, segment_id: int) -> None:
         """Refresh one segment's separators and heights from its (edited)
-        classes (SegmentData::changed, mod.rs:199-221)."""
+        classes (SegmentData::changed, mod.rs:199-221); over a mesh from the
+        segment's compacted member rows (min, max and a count: the same
+        values)."""
         if self.table is None:
             self.characteristics()
             return
-        cloud = self.cloud
+        if self.mesh is not None:
+            pos, cls_, member = self.segment_rows(segment_id)
+            seg = torch.full_like(cls_, segment_id)
+        else:
+            cloud = self.cloud
+            pos, seg, member, cls_ = (cloud.pos, cloud.segment, cloud.valid,
+                                      cloud.classification)
         self.table = ch.update_separators_from_classes(
-            cloud.pos, cloud.segment, cloud.valid, cloud.classification,
-            self.table, segment_id)
+            pos, seg, member, cls_, self.table, segment_id)
         self._counts_np = None
 
     def combine(self, a: int, b: int) -> None:
         """Merge segment ``a`` into ``b``."""
-        self.cloud = edit.combine_segments(self.cloud, a, b)
+        self._edit(edit.combine_segments, a, b)
         self._mark_edited()
 
     def spawn(self, center, radius=None) -> int:
         """A new segment of the alive points in the sphere; returns its id."""
         nid = self._alloc_id()
-        self.cloud = edit.spawn_segment(self.cloud, center,
-                                        self._radius(radius), nid)
+        self._edit(edit.spawn_segment, center, self._radius(radius), nid)
         self._mark_edited()
         return nid
 
@@ -1161,14 +1446,20 @@ class Session:
              include_deleted: bool = False) -> tuple[int, float, bool]:
         """Ray-pick through a pixel of the session's camera -> (segment id,
         distance along the ray, hit).  ``include_deleted`` makes deleted
-        points targetable (the reference's show_deleted brush)."""
+        points targetable (the reference's show_deleted brush).  Over a
+        mesh ``sharding.sharded_pick``: the same winner."""
         rcfg = self.config.render
         cam = self.camera
         direction = cam.ray_direction(pixel_x, pixel_y, rcfg.width,
                                       rcfg.height)
-        seg, dist, found = edit.pick(self.cloud, cam.position, direction,
-                                     rcfg.point_size,
-                                     include_deleted=include_deleted)
+        if self.mesh is not None:
+            seg, dist, found = sharding.sharded_pick(
+                self.mesh, include_deleted)(self.cloud, cam.position,
+                                            direction, rcfg.point_size)
+        else:
+            seg, dist, found = edit.pick(self.cloud, cam.position, direction,
+                                         rcfg.point_size,
+                                         include_deleted=include_deleted)
         return int(seg), float(dist), bool(found)
 
     # ---- persistence -------------------------------------------------------
@@ -1188,7 +1479,7 @@ class Session:
         ``.npz``; ``segment_id`` saves that segment alone (the focused
         view's "Segment" export, mod.rs:655-668), which opens and merges
         like any checkpoint."""
-        valid = self.cloud.valid.cpu().numpy()
+        valid = self._host(self._col("valid"))
         info = None
         if self.table is not None and str(path).lower().endswith(".ipc"):
             # so that the reference's focused-view sliders open filled in
@@ -1200,23 +1491,25 @@ class Session:
                                  for k, v in self.attributes.items()},
                      info=info)
             return
-        cloud = self.cloud
-        member = cloud.valid & (cloud.segment == segment_id)
-        sub = PointCloud(pos=cloud.pos[member], segment=cloud.segment[member],
-                         classification=cloud.classification[member],
-                         valid=cloud.valid[member])
-        keep = member.cpu().numpy()
+        member = self._member_mask(segment_id)
+        pos, seg, cls_ = self._kept(member, self._col("pos"),
+                                    self._col("segment"),
+                                    self._col("classification"))
+        sub = PointCloud.from_numpy(pos, segment=seg, classification=cls_,
+                                    device="cpu")
+        keep = self._host(member)
         ipc.save(path, sub, self.world_offset, self.source_location,
                  attributes={k: v[keep] for k, v in self.attributes.items()},
                  info=info)
 
     @classmethod
     def open(cls, path, config: Config = DEFAULT_CONFIG,
-             device: str | torch.device = DEFAULT_DEVICE) -> "Session":
-        """A session on ``device`` from a checkpoint (``.ipc`` or
-        ``.npz``)."""
+             device: str | torch.device = DEFAULT_DEVICE,
+             mesh=None) -> "Session":
+        """A session on ``device`` (or over ``mesh``) from a checkpoint
+        (``.ipc`` or ``.npz``)."""
         arrays, offset, loc = ipc.load(path)
-        s = cls(config, device=device)
+        s = cls(config, device=device, mesh=mesh)
         s.world_offset = offset
         s.source_location = loc
         s._install_cloud(
@@ -1230,7 +1523,7 @@ class Session:
         points are recentred on this session's offset and its segments
         renumbered past this session's (``ipc.merge``)."""
         arrays, offset, _ = ipc.load(path)
-        valid = self.cloud.valid.cpu().numpy()
+        valid = self._host(self._col("valid"))
         base = self.cloud.to_numpy()
         for k, v in self.attributes.items():
             base[f"attr_{k}"] = v[valid]

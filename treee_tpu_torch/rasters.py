@@ -25,6 +25,7 @@ import torch
 from .cloud import CLASS_GROUND
 from .ops import kernels
 from .ops.kernels.seg_cummax import order, unorder
+from .parallel.program import run_alone
 
 BIG = 3.0e38
 NODATA = -9999.0
@@ -156,11 +157,26 @@ def height_above_ground(pos, classification, live, lo_x, lo_z, inv_cell,
     :func:`compute_rasters`) and every live point reads its cell's ground
     elevation.  Non-live points (and scenes with no ground returns at all)
     read 0."""
+    return run_alone(height_above_ground_shard(
+        pos, classification, live, lo_x, lo_z, inv_cell, shape, live_dims,
+        across=False))
+
+
+def height_above_ground_shard(pos, classification, live, lo_x, lo_z,
+                              inv_cell, shape, live_dims, across: bool):
+    """:func:`height_above_ground` as a shard program
+    (``parallel/program.py``): over shards the raw DTM takes one min (exact)
+    and is filled once, for every shard."""
     h, w = shape
     ground = live & (classification == CLASS_GROUND)
     flat = cell_index(pos, lo_x, lo_z, inv_cell, w, live_dims)
     dtm_raw = _extreme(flat, pos[:, 1], ground, h * w, BIG, "amin")
-    dtm, ok = jfa_fill(dtm_raw.view(h, w), dtm_raw.view(h, w) < BIG)
+    if across:
+        dtm_raw = yield "min", dtm_raw
+
+    def fill():
+        return jfa_fill(dtm_raw.view(h, w), dtm_raw.view(h, w) < BIG)
+    dtm, ok = (yield "once", fill) if across else fill()
     at = flat.long()
     hag = torch.clamp(pos[:, 1] - dtm.reshape(-1)[at], min=0.0)
     return torch.where(live & ok.reshape(-1)[at], hag, 0.0)

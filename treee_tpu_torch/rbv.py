@@ -18,7 +18,9 @@ and each grid's y extent is a run reduction by the same kernel.  The max
 grid is an f32 scatter-max, which takes no order.  The mean grid's sums
 are not scattered with float atomics: the rows are sorted by cell and summed
 by the CUDA kernel ``segmented_cumsum``, so they repeat bit for bit on the
-card.
+card.  ``batched_split_rbv_shard`` is the same sequence as a shard program
+(``parallel/sharding.py``): the extents and max grids combine over shards
+by a min and a max (exact), the mean grids' sums and counts by one sum.
 
 A single tree's RBV is centred on its axis frame when one is given, else on
 the midpoint of two farthest points (p farthest from the (x, z) centroid, q
@@ -43,6 +45,7 @@ from .cloud import CLASS_CROWN, CLASS_TRUNK
 from .ops import kernels
 from .ops.kernels.dilate import div, full
 from .ops.sums import ordered_sums, sums_by_key
+from .parallel.program import run_alone
 
 INF = 3.0e38
 
@@ -127,9 +130,10 @@ def _sorted_extents(key_s, left, right, y, sels):
 
 
 def _grid(key_s, x, z, y, sel, min_y, max_y, n_segments, slices, sectors,
-          method, symmetric, per_pt) -> BatchedRBV:
-    """One grid over the segment-sorted rows; ``per_pt`` holds each row's
-    segment (min y, slice height)."""
+          method, symmetric, per_pt, across: bool):
+    """Shard program -> one grid over the segment-sorted rows; ``per_pt``
+    holds each row's segment (min y, slice height).  Over shards the max
+    grid takes a max (exact), the mean grid's sums and counts one sum."""
     any_pt = min_y < INF
     min_y = torch.where(any_pt, min_y, 0.0)
     max_y = torch.where(any_pt, max_y, 1.0)
@@ -150,9 +154,13 @@ def _grid(key_s, x, z, y, sel, min_y, max_y, n_segments, slices, sectors,
         d.scatter_reduce_(0, bucket.long(), torch.where(sel, dist, 0.0),
                           "amax")
         d = d[:size]
+        if across:
+            d = yield "max", d
     else:
         tab = sums_by_key(bucket, torch.stack([dist, torch.ones_like(dist)],
                                               dim=1), size)
+        if across:
+            tab = yield "sum", tab
         d = tab[:, 0] / torch.clamp(tab[:, 1], min=1.0)
     if symmetric and sectors % 2 == 0:
         dg = d.view(n_segments, slices, sectors)
@@ -173,6 +181,19 @@ def batched_split_rbv(pos: torch.Tensor, classification: torch.Tensor,
                       ) -> tuple[BatchedRBV, BatchedRBV]:
     """Crown and trunk RBVs of every segment (hull.rs:185-208 split),
     through the segments' axis frames ``transforms`` f32[S,4,4]."""
+    return run_alone(batched_split_rbv_shard(
+        pos, classification, mask, segment, n_segments, transforms,
+        crown_slices, crown_sectors, trunk_slices, trunk_sectors, method,
+        symmetric, across=False))
+
+
+def batched_split_rbv_shard(pos, classification, mask, segment,
+                            n_segments: int, transforms, crown_slices: int,
+                            crown_sectors: int, trunk_slices: int,
+                            trunk_sectors: int, method: int, symmetric: bool,
+                            across: bool):
+    """:func:`batched_split_rbv` as a shard program: over shards the grids'
+    y extents take a min and a max, the grids as in :func:`_grid`."""
     segc = torch.clamp(segment, 0, n_segments).to(torch.int32)
     # class + 1 in the key's low two bits, 0 for rows outside the mask
     meta = torch.where(mask, classification + 1, 0).to(torch.int32)
@@ -200,6 +221,9 @@ def batched_split_rbv(pos: torch.Tensor, classification: torch.Tensor,
     sel_t = meta_s == CLASS_TRUNK + 1
     (cmn, cmx), (tmn, tmx) = _sorted_extents(key_s, left, right, y,
                                              (sel_c, sel_t))
+    if across:
+        cmn, tmn = (yield "min", torch.stack([cmn, tmn]))
+        cmx, tmx = (yield "max", torch.stack([cmx, tmx]))
 
     def finalize(mn, mx, slices):
         any_pt = mn < INF
@@ -210,10 +234,12 @@ def batched_split_rbv(pos: torch.Tensor, classification: torch.Tensor,
     per4 = run_fill(key_s, left, right, torch.stack(
         [*finalize(cmn, cmx, crown_slices), *finalize(tmn, tmx, trunk_slices)],
         dim=1))
-    crown = _grid(key_s, x, z, y, sel_c, cmn, cmx, n_segments, crown_slices,
-                  crown_sectors, method, symmetric, per4[:, 0:2])
-    trunk = _grid(key_s, x, z, y, sel_t, tmn, tmx, n_segments, trunk_slices,
-                  trunk_sectors, method, symmetric, per4[:, 2:4])
+    crown = yield from _grid(key_s, x, z, y, sel_c, cmn, cmx, n_segments,
+                             crown_slices, crown_sectors, method, symmetric,
+                             per4[:, 0:2], across)
+    trunk = yield from _grid(key_s, x, z, y, sel_t, tmn, tmx, n_segments,
+                             trunk_slices, trunk_sectors, method, symmetric,
+                             per4[:, 2:4], across)
     return crown, trunk
 
 

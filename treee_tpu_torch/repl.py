@@ -703,13 +703,12 @@ class Repl:
     def _traits(self, sid: int) -> None:
         from . import rbv as rbv_mod
 
-        s = self.s
-        member = s.cloud.valid & (s.cloud.segment == sid)
+        pos, cls_, member = self.s.segment_rows(sid)
         if not bool(member.any()):
             self._print(f"segment {sid}: absent")
             return
         crown, trunk = rbv_mod.split_rbv(
-            s.cloud.pos, s.cloud.classification, member,
+            pos, cls_, member,
             method=(rbv_mod.METHOD_MEAN if self.rbv_opts["method"] == "mean"
                     else rbv_mod.METHOD_MAX),
             symmetric=self.rbv_opts["symmetric"],

@@ -29,6 +29,7 @@ from .config import SegmentationConfig
 from .ops import kernels
 from .ops.kernels.dilate import full
 from .ops.sums import sums_by_key
+from .parallel.program import run_alone
 
 INF = 3.0e38
 IBIG = 0x7FFFFFFF
@@ -408,16 +409,6 @@ def assign_points(slot_grids, band, cx, cz, valid):
     flat = ((band * g + cx) * g + cz).long()
     slot = slot_grids.reshape(-1)[flat]
     return torch.where(valid & (slot >= 0), slot + 1, 0)
-
-
-def run_alone(program):
-    """What a shard program (``parallel/sharding``) returns when it runs on
-    one device and so asks for no cross-shard value."""
-    try:
-        program.send(None)
-    except StopIteration as done:
-        return done.value
-    raise AssertionError("a one-device program asked for a cross-shard value")
 
 
 def segment_points(pos: torch.Tensor, valid: torch.Tensor,

@@ -18,7 +18,11 @@
 
 The batched forms' float sums take another order than the JAX package's
 scatter-adds, so their axes agree with it to float rounding, not bit for
-bit.  The single-tree forms reuse the batched tails with one row; their
+bit.  Each batched form is also a shard program
+(``batched_*_shard``) that ``parallel/sharding.py`` runs over point
+shards; there the y extents combine by a min and a max, which is exact,
+and the sums by one sum in shard order of each shard's own segmented sums.
+The single-tree forms reuse the batched tails with one row; their
 layer sums are ``ordered_sums`` (row order on the CPU, as XLA's
 scatter-add; a fixed order on the card), their other sums reductions.
 """
@@ -32,6 +36,7 @@ import torch
 from . import rbv
 from .ops import eigen, kernels
 from .ops.sums import ordered_sums, sums_by_key
+from .parallel.program import run_alone
 
 INF = 3.0e38
 
@@ -54,9 +59,10 @@ def _up(like: torch.Tensor) -> torch.Tensor:
                         device=like.device)
 
 
-def _segment_minmax_y(y, mask, seg_t, n_segments):
-    """Per-segment (lo, hi, found) of the masked y: scatter min and max,
-    which take no order."""
+def _segment_minmax_y(y, mask, seg_t, n_segments, across: bool):
+    """Shard program -> per-segment (lo, hi, found) of the masked y:
+    scatter min and max, which take no order, and over shards a min and a
+    max."""
     lo = torch.full((n_segments + 1,), INF, dtype=torch.float32,
                     device=y.device)
     hi = torch.full((n_segments + 1,), -INF, dtype=torch.float32,
@@ -64,6 +70,9 @@ def _segment_minmax_y(y, mask, seg_t, n_segments):
     lo.scatter_reduce_(0, seg_t.long(), torch.where(mask, y, INF), "amin")
     hi.scatter_reduce_(0, seg_t.long(), torch.where(mask, y, -INF), "amax")
     lo, hi = lo[:n_segments], hi[:n_segments]
+    if across:
+        lo = yield "min", lo
+        hi = yield "max", hi
     found = lo < INF
     return torch.where(found, lo, 0.0), torch.where(found, hi, 0.0), found
 
@@ -108,6 +117,15 @@ def batched_average_direction(pos: torch.Tensor, mask: torch.Tensor,
                               layers: int = 10) -> TrunkAxis:
     """AverageDirection for every segment at once; row i is segment i's axis
     from its masked points (``found`` False where it has none)."""
+    return run_alone(batched_average_direction_shard(
+        pos, mask, segment, n_segments, layers, across=False))
+
+
+def batched_average_direction_shard(pos, mask, segment, n_segments: int,
+                                    layers: int, across: bool):
+    """:func:`batched_average_direction` as a shard program: over shards
+    the y extents take a min and a max (exact), the band and layer sums one
+    sum in shard order of each shard's own segmented sums."""
     key = torch.where(mask, segment, n_segments).to(torch.int32)
     key_s, order = torch.sort(key, stable=True)
     x_s, y_s, z_s = pos[order, 0], pos[order, 1], pos[order, 2]
@@ -117,6 +135,9 @@ def batched_average_direction(pos: torch.Tensor, mask: torch.Tensor,
     picked = ext[end]
     lo = torch.where(has, -picked[:, 0], INF)
     hi = torch.where(has, picked[:, 1], -INF)
+    if across:
+        lo = yield "min", lo
+        hi = yield "max", hi
     found = lo < INF
     lo = torch.where(found, lo, 0.0)
     hi = torch.where(found, hi, 0.0)
@@ -129,30 +150,38 @@ def batched_average_direction(pos: torch.Tensor, mask: torch.Tensor,
     bsum = kernels.segmented_cumsum(key_s, torch.stack(
         [band.float(), torch.where(band, x_s, 0.0),
          torch.where(band, z_s, 0.0)], dim=1))
-    bp = bsum[end]
-    band_n = torch.where(has, bp[:, 0], 0.0)
-    band_x = torch.where(has, bp[:, 1], 0.0)
-    band_z = torch.where(has, bp[:, 2], 0.0)
+    bp = torch.where(has[:, None], bsum[end], 0.0)
 
     li = torch.clamp(((y_s - lo_p) / lh_p).to(torch.int32), 0, layers - 1)
     bucket = torch.where(in_seg, key_s * layers + li, n_segments * layers)
     lp = sums_by_key(bucket, torch.stack([torch.ones_like(x_s), x_s, z_s],
                                          dim=1), n_segments * layers)
-    lcnt = lp[:, 0].view(n_segments, layers)
-    lsum_x = lp[:, 1].view(n_segments, layers)
-    lsum_z = lp[:, 2].view(n_segments, layers)
-    return _axis_from_tables(lo, hi, found, layer_h, band_n, band_x, band_z,
-                             lsum_x, lsum_z, lcnt, layers)
+    if across:
+        tab = yield "sum", torch.cat([bp, lp.view(n_segments, 3 * layers)], 1)
+        bp, lp = tab[:, :3], tab[:, 3:].reshape(n_segments * layers, 3)
+    return _axis_from_tables(
+        lo, hi, found, layer_h, bp[:, 0], bp[:, 1], bp[:, 2],
+        lp[:, 1].view(n_segments, layers), lp[:, 2].view(n_segments, layers),
+        lp[:, 0].view(n_segments, layers), layers)
 
 
 def batched_low_high_layer(pos: torch.Tensor, mask: torch.Tensor,
                            segment: torch.Tensor, n_segments: int,
                            layer_width: float = 1.0) -> TrunkAxis:
     """LowHighLayer for every segment at once; row i is segment i's axis."""
+    return run_alone(batched_low_high_layer_shard(
+        pos, mask, segment, n_segments, layer_width, across=False))
+
+
+def batched_low_high_layer_shard(pos, mask, segment, n_segments: int,
+                                 layer_width: float, across: bool):
+    """:func:`batched_low_high_layer` as a shard program: over shards the y
+    extents take a min and a max, the bands' counts and sums one sum."""
     y = pos[:, 1]
     seg_c = torch.clamp(segment, 0, n_segments - 1).long()
     seg_t = torch.where(mask, segment, n_segments)
-    lo, hi, found = _segment_minmax_y(y, mask, seg_t, n_segments)
+    lo, hi, found = yield from _segment_minmax_y(y, mask, seg_t, n_segments,
+                                                 across)
     # the layer, floored: a flat trunk (hi == lo) would leave both bands empty
     layer = torch.clamp(torch.minimum(
         rbv.full(layer_width, lo), rbv.div(hi - lo, 2.0)), min=1e-3)
@@ -166,6 +195,8 @@ def batched_low_high_layer(pos: torch.Tensor, mask: torch.Tensor,
         cols += [m.float(), torch.where(m, pos[:, 0], 0.0),
                  torch.where(m, pos[:, 2], 0.0)]
     tab = sums_by_key(seg_t, torch.stack(cols, dim=1), n_segments)
+    if across:
+        tab = yield "sum", tab
     means = []
     for k in (0, 3):
         cnt = torch.clamp(tab[:, k], min=1.0)
