@@ -99,7 +99,10 @@ Phases, each of which raises on failure:
    and 0.1 m (2304x2304, the flood's first step 2048), whose floods launch
    the grid entry of ``jump_flood.cu``; every raster flood of the phase is
    held byte for byte against the plain flood on its input, then timed
-   against it with its bound; the DTM, DSM and CHM equal a second card run
+   against it with its bound and device time; each flood's CUDA launches
+   a call, counted by the CUDA driver (the kernel nodes of one call
+   captured into a CUDA graph) and held to the design's count;
+   the DTM, DSM and CHM equal a second card run
    and the plain run bit for bit; ``height_above_ground`` (1 m) and
    ``hag_prop`` (cached), the ``hag`` focus frame of the largest tree over
    the 8 orbit cameras, byte-equal to the plain versions'; ``export_raster``
@@ -482,9 +485,11 @@ def work(name: str, args: tuple, kernels) -> tuple[int, int]:
         tab, idx = args[:2]
         return 4 * (tab.numel() + 2 * idx.numel()), idx.numel()
     if name == "jump_flood_grid":
+        # the rasters' form (no positions) reads the slots alone
         slot, pos, cc, steps = args[:4]
         seeded = int(bool((slot >= 0).any()))
-        return (4 * (2 * slot.numel() + pos.numel() + cc.numel()),
+        given = 0 if pos is None else pos.numel() + cc.numel()
+        return (4 * (2 * slot.numel() + given),
                 8 * 8 * len(steps) * seeded * slot.numel())
     raise KeyError(name)
 
@@ -518,7 +523,9 @@ def check_kernel(name: str, kernels, calls: list, library=None,
     thing, timed in the same turns.  ``extra``: (label, args) inputs that no
     path gives the kernel, checked and timed the same way but kept out of
     the sums.  With ``device``, also the device time of the wrapper's
-    launches (``torch.profiler``), summed as ``device_ms``."""
+    launches (``torch.profiler``; with ``device="queued"`` the time a call
+    of calls queued back to back between CUDA events), summed as
+    ``device_ms``."""
     wrapper, plain = getattr(kernels, name), getattr(kernels, name + "_plain")
     shapes, ms, plain_ms, err, bound, by = [], 0.0, 0.0, 0.0, 0.0, {}
     dev_ms = 0.0 if device else None
@@ -558,7 +565,11 @@ def check_kernel(name: str, kernels, calls: list, library=None,
             lib_txt = f", library {statistics.median(l_t):.4f} ms"
         what = sig if isinstance(sig, str) else list(map(list, sig))
         dev_txt = ""
-        if device:
+        if device == "queued":
+            d_ms = queued_ms(lambda: wrapper(*args), 4 * reps)
+            dev_txt = (f"; device {d_ms:.4f} ms a call ({4 * reps} calls "
+                       "queued back to back between CUDA events)")
+        elif device:
             d_ms = device_ms(lambda: wrapper(*args), reps)
             dev_txt = f"; device {d_ms:.4f} ms a call (torch.profiler)"
         log(f"  {name} {what}: bit-equal; kernel "
@@ -578,6 +589,81 @@ def check_kernel(name: str, kernels, calls: list, library=None,
             "library_ms": lib_ms, "max_abs_err": err, "bound_ms": bound,
             "bound_by": max(by, key=by.get), "per_shape": per_shape,
             "device_ms": dev_ms}
+
+
+def queued_ms(fn, reps: int = TIMING_REPS) -> float:
+    """ms a call of ``fn`` with ``reps`` calls queued back to back between
+    two CUDA events (after a warm-up): the card's time a call wherever the
+    host enqueues faster than the card runs."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def captured_kernels(fn) -> int:
+    """Kernel launches one call of ``fn`` makes, counted by the CUDA
+    driver: after a warm-up call on a stream of its own, one call captured
+    into a CUDA graph there (relaxed mode), the graph's kernel nodes
+    counted and the graph dropped unlaunched."""
+    import ctypes
+    cu = ctypes.CDLL("libcuda.so.1")
+
+    def ok(err, what):
+        if err != 0:
+            raise RuntimeError(f"{what}: CUDA driver error {err}")
+
+    stream = torch.cuda.Stream()
+    handle = ctypes.c_void_p(stream.cuda_stream)
+    graph = ctypes.c_void_p()
+    with torch.cuda.stream(stream):
+        fn()
+        stream.synchronize()
+        ok(cu.cuStreamBeginCapture_v2(handle, 2), "cuStreamBeginCapture")
+        try:
+            fn()
+        finally:
+            ok(cu.cuStreamEndCapture(handle, ctypes.byref(graph)),
+               "cuStreamEndCapture")
+    try:
+        n = ctypes.c_size_t()
+        ok(cu.cuGraphGetNodes(graph, None, ctypes.byref(n)),
+           "cuGraphGetNodes")
+        nodes = (ctypes.c_void_p * max(1, n.value))()
+        ok(cu.cuGraphGetNodes(graph, nodes, ctypes.byref(n)),
+           "cuGraphGetNodes")
+        kinds = []
+        for k in range(n.value):
+            kind = ctypes.c_int()
+            ok(cu.cuGraphNodeGetType(ctypes.c_void_p(nodes[k]),
+                                     ctypes.byref(kind)), "cuGraphNodeGetType")
+            kinds.append(kind.value)
+    finally:
+        cu.cuGraphDestroy(graph)
+    return kinds.count(0)                       # CU_GRAPH_NODE_TYPE_KERNEL
+
+
+def grid_flood_launches(kernels, calls: list) -> None:
+    """Each recorded raster flood's CUDA launches a call, counted by the
+    CUDA driver (:func:`captured_kernels`) and held to the design's
+    count (``jump_flood_grid_launches``)."""
+    for _, (slot, pos, cc, steps) in calls:
+        h, w = slot.shape
+        n = captured_kernels(lambda: kernels.jump_flood_grid(slot, pos, cc,
+                                                             steps))
+        want = kernels.jump_flood_grid_launches(h, w, steps)
+        if n != want:
+            raise AssertionError(f"jump_flood_grid {h}x{w}: {n} CUDA "
+                                 f"launches a call, the design makes {want}")
+        log(f"  jump_flood_grid {h}x{w}: {len(steps)} steps over tiles, {n} "
+            f"CUDA launch{'es' if n > 1 else ''} a call (kernel nodes of one "
+            "call captured into a CUDA graph)")
 
 
 def device_ms(fn, reps: int = TIMING_REPS) -> float:
@@ -1605,6 +1691,11 @@ def surveys(pts, dev, kernels, counted, modules) -> None:
     if not (t_dims == w_dims and t_cell == w_cell
             and same_grids(t_grids, w_grids)):
         raise AssertionError("tiled_rasters differs from compute_rasters")
+    _, (fh, fw), _ = rasters.grid_dims(lo, hi, SURVEY_CELL)
+    log(f"  tiled_rasters: its flood over the padded {fh}x{fw} grid runs "
+        "over tiles in "
+        f"{kernels.jump_flood_grid_launches(fh, fw, rasters.jfa_steps(fh, fw))}"
+        " CUDA launch(es) a call by its design")
     log(f"  tiled_rasters(cell={SURVEY_CELL}, {-(-len(pts100) // SURVEY_SLAB)}"
         f" slabs): {t_dims[0]}x{t_dims[1]} cells, bit-equal to one "
         f"compute_rasters of the survey on the card; {tr_ms / 1e3:.2f} s "
@@ -3154,13 +3245,13 @@ def main() -> int:
                                                               steps)):
             raise AssertionError(f"jump_flood_grid at {list(slot.shape)}: "
                                  "the kernel differs from the plain flood")
-        sig = (tuple(slot.shape), tuple(at.shape), tuple(cc.shape))
+        sig = (tuple(slot.shape),)
         if all(s != sig for s, _ in flood_calls):
-            flood_calls.append((sig, (slot.clone(), at.clone(), cc.clone(),
-                                      list(steps))))
-        flood_log.append(f"{slot.shape[0]}x{slot.shape[1]} "
-                         f"({8 * len(steps)} directions, "
-                         f"{2 + 8 * len(steps)} CUDA launches)")
+            flood_calls.append((sig, (slot.clone(), at, cc, list(steps))))
+        h, w = slot.shape
+        flood_log.append(
+            f"{h}x{w} ({8 * len(steps)} directions, "
+            f"{'seeds at their cells' if at is None else 'given positions'})")
         return out
 
     with swapped(kernels, jump_flood_grid=flood_checked):
@@ -3169,8 +3260,11 @@ def main() -> int:
         change.chm_change(session, epoch_b, cell=RASTER_CELLS[0])
     log(f"  {len(flood_log)} raster floods, each byte-equal to the plain "
         f"flood on the same input: {'; '.join(flood_log)}")
+    # torch.profiler loses most of the cooperative launch's records in
+    # this long process, so its device time is taken from queued calls
     results["jump_flood_grid"] = check_kernel(
-        "jump_flood_grid", kernels, flood_calls, device=True)
+        "jump_flood_grid", kernels, flood_calls, device="queued")
+    grid_flood_launches(kernels, flood_calls)
 
     # (b) the rasters: kernel runs, a second card run and the plain run
     for cell in RASTER_CELLS:

@@ -8,7 +8,7 @@ commit.
     git archive <commit> treee_tpu_torch/ops/kernels/csrc \\
         | tar -x --strip-components=4 -C build/parent
     python3 compare_kernels.py build/parent [--reps 7] \\
-        [--only cc|scans|flood|gather|frame]
+        [--only cc|scans|flood|grid|gather|frame]
 
 Each build takes the chosen kernels' sources and ``common.cu`` from its
 directory and the port's nvcc flags, into ``build/compare_kernels/``.
@@ -37,6 +37,14 @@ against this tree's only where no zero is involved):
   resident clusters, and 64 bands with a seed in every band at G = 384
   (shared-memory route) and 512 (device-memory route); each launch's device
   time;
+- ``--only grid``: the rasters' grid flood (the grid entry of
+  ``jump_flood.cu``) at the inputs of ``Session.rasters(0.5)``,
+  ``rasters(0.1)`` and ``height_above_ground(1.0)`` of that scan once
+  segmented, and at synthetic DTM holes on 640 x 640 (the 100M survey's
+  1 m grid) and 4096 x 4096 (the cap): the other build through its entry
+  (the first design takes (row, col) planes, made outside the timing) and
+  this tree's wrapper, each bit-equal to the plain flood, and each build's
+  device time a call and CUDA launches;
 - ``--only gather``: the gather probe's four shapes and three tables beyond
   48 KB; the wrapper and ``torch.take_along_dim`` / ``tab[idx]`` beside the
   two builds, each part of the wrapper's host work over 1000 calls, and
@@ -73,7 +81,8 @@ from treee_tpu_torch.ops.kernels import build
 
 SOURCES = {"cc": ("cc_sweep.cu", "match_scan.cu"),
            "scans": ("seg_cummax.cu", "seg_cumsum.cu"),
-           "flood": ("jump_flood.cu",), "gather": ("take_along.cu",),
+           "flood": ("jump_flood.cu",), "grid": ("jump_flood.cu",),
+           "gather": ("take_along.cu",),
            "frame": ("dilate.cu", "eye_dome.cu")}
 # the eye-dome design that linearizes each depth once, timed beside the
 # shipped one
@@ -124,6 +133,13 @@ def load(name: str, where: Path, groups) -> ctypes.CDLL:
         lib.treee_jump_flood.argtypes = (
             [p, p, p, p, p, i, i, i, p] if lib.cluster_flood
             else [p, p, p, p, p, p, p, i, i, p])
+    if "grid" in groups:
+        # this tree's grid flood (tiles with a plan, the rasters' form) or
+        # the first one (a launch a direction, position planes)
+        lib.grid_tiles = "grid_tiles" in (where / "jump_flood.cu").read_text()
+        lib.treee_jump_flood_grid.argtypes = (
+            [p, p, p, p, p, p, p, i, i, i, p] if lib.grid_tiles
+            else [p, p, p, p, p, p, i, i, i, p])
     if "gather" in groups:
         lib.treee_take_along.argtypes = [p, p, p, i, i, i, i, p]
     if "frame" in groups:
@@ -205,6 +221,37 @@ def flood_call(lib, slot, pos, cc):
                                      cc.data_ptr(), out.data_ptr(),
                                      tmp.data_ptr(), *args,
                                      build.stream(slot)), "jump_flood")
+    return out
+
+
+def grid_call(lib, slot, steps):
+    """One grid flood through a build's entry, its buffers and host arrays
+    made once a shape (outside the timing): this tree's in the rasters'
+    form with the wrapper's plan, the first design with (row, col)
+    planes."""
+    from treee_tpu_torch.ops import kernels
+    from treee_tpu_torch.ops.kernels.jump_flood import cell_positions
+    h, w = slot.shape
+    k = (id(lib), "grid", h, w, tuple(steps))
+    if k not in _scratch:
+        host_steps = (ctypes.c_int * max(1, len(steps)))(*steps)
+        at = None if lib.grid_tiles else cell_positions(h, w, slot.device)
+        flat = [v for e in kernels.jump_flood_grid_plan(h, w, tuple(steps))
+                for v in e]
+        tiles = (ctypes.c_int * max(1, len(flat)))(*flat)
+        _scratch[k] = (torch.empty_like(slot), torch.empty_like(slot), at,
+                       host_steps, tiles)
+    out, tmp, at, host_steps, tiles = _scratch[k]
+    if lib.grid_tiles:
+        args = (0, 0, out.data_ptr(), tmp.data_ptr(),
+                ctypes.addressof(host_steps), ctypes.addressof(tiles),
+                len(steps), h, w)
+    else:
+        args = (at.data_ptr(), at.data_ptr(), out.data_ptr(), tmp.data_ptr(),
+                ctypes.addressof(host_steps), len(steps), h, w)
+    build.check(lib.treee_jump_flood_grid(slot.data_ptr(), *args,
+                                          build.stream(slot)),
+                "jump_flood_grid")
     return out
 
 
@@ -324,6 +371,8 @@ def main(argv=None) -> int:
         compare_scans(libs, pts, pipeline, kernels, args.reps, card)
     if "flood" in groups:
         compare_flood(libs, pts, pipeline, kernels, args.reps, card)
+    if "grid" in groups:
+        compare_grid(libs, pts, pipeline, kernels, args.reps, card)
     if "frame" in groups:
         tile = load("eye_dome_tile", with_eye_dome(EYE_DOME_TILE), ("frame",))
         compare_frame(libs, {**libs, "eye-dome tile": tile}, pts, pipeline,
@@ -473,6 +522,72 @@ def compare_flood(libs, pts, pipeline, kernels, reps, card) -> None:
                 (kernels.jump_flood_plain(slot, pos, cc),), reps, card)
         for name, lib in libs.items():
             launch_times(f"    {name}", lambda: flood_call(lib, slot, pos, cc))
+
+
+def dtm_holes(g: int, seed: int) -> torch.Tensor:
+    """A g x g flood input like a DTM's: ground in 30% of the cells of
+    random 8 x 8 patches, the rest holes, one large hole; each seed its
+    cell's flat index."""
+    rng = np.random.default_rng(seed)
+    patch = rng.random((-(-g // 8), -(-g // 8))) < 0.5
+    have = np.kron(patch, np.ones((8, 8), bool))[:g, :g]
+    have &= rng.random((g, g)) < 0.3
+    have[g // 4: g // 2, g // 3: g // 2] = False
+    slot = np.where(have, np.arange(g * g).reshape(g, g), -1)
+    return torch.from_numpy(slot.astype(np.int32)).cuda()
+
+
+def compare_grid(libs, pts, pipeline, kernels, reps, card) -> None:
+    """The rasters' grid flood at the inputs of rasters(0.5), rasters(0.1)
+    and height_above_ground(1.0) of the segmented scan, and at synthetic
+    holes on 640² and 4096²: both builds, this tree's wrapper, and device
+    times and CUDA launches."""
+    from treee_tpu_torch import rasters
+
+    calls, wrapper = [], kernels.jump_flood_grid
+
+    def record(slot, pos, cc, steps):
+        if all(tuple(slot.shape) != tuple(c.shape) for c, _ in calls):
+            calls.append((slot.clone(), list(steps)))
+        return wrapper(slot, pos, cc, steps)
+
+    session = pipeline.Session.from_points(pts, device="cuda")
+    session.segment(0.75)
+    kernels.jump_flood_grid = record
+    try:
+        session.rasters(0.5)
+        session.rasters(0.1)
+        session.height_above_ground(1.0)
+    finally:
+        kernels.jump_flood_grid = wrapper
+    del session
+    torch.cuda.synchronize()
+    cases = [(f"recorded {c.shape[0]}x{c.shape[1]}", c, steps)
+             for c, steps in calls]
+    for g in (640, 4096):
+        cases.append((f"synthetic DTM holes {g}x{g}", dtm_holes(g, g),
+                      rasters.jfa_steps(g, g)))
+    for label, slot, steps in cases:
+        h, w = slot.shape
+        print(f"jump_flood_grid {label}: {int((slot >= 0).sum())} seeds, "
+              f"{len(steps)} steps; "
+              f"{kernels.jump_flood_grid_launches(h, w, steps)} CUDA "
+              "launches a call", flush=True)
+        ref = (kernels.jump_flood_grid_plain(slot, None, None, steps),)
+        compare(f"jump_flood_grid {label}", libs, grid_call, (slot, steps),
+                ref, reps, card)
+        got = kernels.jump_flood_grid(slot, None, None, steps)
+        torch.cuda.synchronize()
+        if not torch.equal(got, ref[0]):
+            raise AssertionError(f"jump_flood_grid {label}: the wrapper "
+                                 "differs from the plain version")
+        wrap = [event_ms(lambda: kernels.jump_flood_grid(slot, None, None,
+                                                         steps))
+                for _ in range(2 * reps)]
+        print(f"    this tree's wrapper: median "
+              f"{statistics.median(wrap):.4f} ms   [{card}]", flush=True)
+        for name, lib in libs.items():
+            launch_times(f"    {name}", lambda: grid_call(lib, slot, steps))
 
 
 def host_us(fn, n: int = 1000) -> float:

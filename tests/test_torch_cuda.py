@@ -20,7 +20,9 @@ no seed or a seed in every cell, and 64 busy bands on both sides of its
 shared-memory route's edge with duplicate slots and exact ties; the
 rasters' grid flood at H != W, H or W of 1, 127, 129 and 4096, wrapped
 sources on the far edge, empty and full grids and steps longer than an
-axis; a launch that CUDA refuses.  Each output must equal the plain
+axis, with the wrapper's plan and with small tiles, with seeds at their
+cells and with given positions, and the CUDA launches a call it makes; a
+launch that CUDA refuses.  Each output must equal the plain
 version's bit for bit, and each call must count the launches its design
 makes: one, or ceil(radius / passes per launch) for the dilation.  The
 segmentation and the inventory must repeat bit for bit on the card, and
@@ -57,6 +59,7 @@ from treee_tpu_torch.ops import kernels
 from treee_tpu_torch.ops import neighbors as tnb
 from treee_tpu_torch.ops import octree as toctree
 from treee_tpu_torch.ops.kernels import build
+from treee_tpu_torch.ops.kernels.jump_flood import cell_positions
 from treee_tpu_torch.parallel import sharding as tsh
 from treee_tpu_torch.parallel import tiles as ttiles
 from treee_tpu_torch.render import Camera
@@ -471,6 +474,141 @@ def test_jump_flood_grid_kernel_takes_any_steps(dev, steps):
               kernels.jump_flood_grid_plain(slot, at, at, steps))
 
 
+def _grid_entry(slot, pos, cc, steps, plan=None):
+    """The grid flood's C entry with ``plan`` (the wrapper's by default)."""
+    h, w = slot.shape
+    out = torch.empty_like(slot)
+    tmp = torch.empty_like(slot)
+    host_steps = (ctypes.c_int * max(1, len(steps)))(*steps)
+    if plan is None:
+        plan = kernels.jump_flood_grid_plan(h, w, tuple(steps))
+    flat = [v for entry in plan for v in entry]
+    host_tiles = (ctypes.c_int * max(1, len(flat)))(*flat)
+    build.launch(build.library().treee_jump_flood_grid, "jump_flood_grid",
+                 slot, slot.data_ptr(), 0 if pos is None else pos.data_ptr(),
+                 0 if cc is None else cc.data_ptr(), out.data_ptr(),
+                 tmp.data_ptr(), ctypes.addressof(host_steps),
+                 ctypes.addressof(host_tiles), len(steps), h, w)
+    return out
+
+
+def _grid_kernel_launches(fn) -> int:
+    """CUDA kernel launches of one call of ``fn`` (torch.profiler)."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(e.count for e in prof.key_averages()
+               if any(k in e.key for k in ("grid_tiles<", "grid_copy")))
+
+
+def _grid_form(slot, form, dev):
+    """Positions of a grid flood: None (seeds at their cells), their
+    (row, col) planes, or scattered positions and jittered centres."""
+    h, w = slot.shape
+    if form == "cells":
+        return None, None
+    at = cell_positions(h, w, dev)
+    if form == "planes":
+        return at, at
+    gen = torch.Generator(device=dev).manual_seed(h * 31 + w)
+    pos = at + torch.rand(at.shape, device=dev, generator=gen) * 7.0 - 3.0
+    cc = at + torch.rand(at.shape, device=dev, generator=gen) * 0.8 - 0.4
+    return pos, cc
+
+
+@pytest.mark.parametrize("h,w", [
+    (675, 675), (676, 676), (640, 726), (640, 727), (1, 29056), (1, 29057),
+    (512, 512), (256, 256), (2304, 2304)])
+@pytest.mark.parametrize("form", ["cells", "planes", "scattered"])
+def test_jump_flood_grid_routes_at_their_edges(dev, h, w, form):
+    """About the largest grids one 16-CTA cluster's shared memory would
+    hold (both i32 planes, ~670 x 670 cells) and one cell past them, and
+    the rasters' 256², 512² and 2304², in both forms: the wrapper gives the
+    plain flood's slots bit for bit in one CUDA launch a call a 16 steps
+    (two for the 17 steps of 1 x 29056), counted by torch.profiler."""
+    slot, _, steps = _raster_flood(h, w, "sparse", dev)
+    pos, cc = _grid_form(slot, form, dev)
+    ref = kernels.jump_flood_grid_plain(slot, pos, cc, steps)
+    kernels.reset_launches()
+    got = kernels.jump_flood_grid(slot, pos, cc, steps)
+    _same(got, ref)
+    assert kernels.jump_flood_grid.launches == 1
+    n = _grid_kernel_launches(lambda: kernels.jump_flood_grid(slot, pos, cc,
+                                                              steps))
+    assert n == kernels.jump_flood_grid_launches(h, w, steps)
+    assert n == -(-len(steps) // 16)
+
+
+@pytest.mark.parametrize("h,w", [
+    (1, 1), (1, 129), (129, 1), (5, 300), (300, 5), (127, 129), (37, 211),
+    (17, 33), (3, 4096), (3, 8300), (4096, 3)])
+@pytest.mark.parametrize("kind", ["sparse", "far_edge", "empty", "full"])
+@pytest.mark.parametrize("form", ["cells", "scattered"])
+def test_jump_flood_grid_every_route_equals_plain(dev, h, w, kind, form):
+    """Rectangular grids, axes of 1, halos wider than an axis, empty and
+    full grids, in both forms, through the entry with the wrapper's plan
+    and with small tiles (windows, ragged cycle groups): the plain flood's
+    slots bit for bit."""
+    slot, _, steps = _raster_flood(h, w, kind, dev)
+    pos, cc = _grid_form(slot, form, dev)
+    ref = kernels.jump_flood_grid_plain(slot, pos, cc, steps)
+    _same(_grid_entry(slot, pos, cc, steps), ref)
+    small = kernels.jump_flood_grid_plan(h, w, tuple(steps), 512, 64)
+    _same(_grid_entry(slot, pos, cc, steps, small), ref)
+    if kind == "full" and form == "cells":
+        _same(ref, slot)
+
+
+@pytest.mark.parametrize("steps", [[1], [3, 5, 1000], [4096, 2, 1],
+                                   [211, 37, 74], [], [2, 1] * 9])
+def test_jump_flood_grid_routes_take_any_steps(dev, steps):
+    """Steps longer than an axis, of no cycle (a multiple of the axis),
+    unsorted, none, and more than one launch takes, in both forms, each
+    call in the CUDA launches its design makes (torch.profiler); and the
+    4096² raster once in the cell form through the wrapper."""
+    slot, _, _ = _raster_flood(37, 211, "sparse", dev)
+    for form in ("cells", "scattered"):
+        pos, cc = _grid_form(slot, form, dev)
+        ref = kernels.jump_flood_grid_plain(slot, pos, cc, steps)
+        _same(_grid_entry(slot, pos, cc, steps), ref)
+        _same(kernels.jump_flood_grid(slot, pos, cc, steps), ref)
+        n = _grid_kernel_launches(lambda: kernels.jump_flood_grid(
+            slot, pos, cc, steps))
+        assert n == kernels.jump_flood_grid_launches(37, 211, steps)
+    if not steps:
+        slot, _, steps = _raster_flood(4096, 4096, "sparse", dev)
+        _same(kernels.jump_flood_grid(slot, None, None, steps),
+              kernels.jump_flood_grid_plain(slot, None, None, steps))
+
+
+def test_jump_flood_grid_entry_refuses_what_it_cannot_take(dev):
+    """A plan whose tile is too large, a plan missing, one form's planes
+    alone, the cell form past 2^15 rows: each raises, and the next flood
+    runs as usual."""
+    small, _, steps = _raster_flood(16, 24, "sparse", dev)
+    with pytest.raises(RuntimeError, match="jump_flood_grid: CUDA error"):
+        _grid_entry(small, None, None, steps, [(1, 16, 1, 24)] * len(steps))
+    out, tmp = torch.empty_like(small), torch.empty_like(small)
+    one = (ctypes.c_int * 1)(1)
+    with pytest.raises(RuntimeError, match="jump_flood_grid: CUDA error"):
+        build.launch(build.library().treee_jump_flood_grid,
+                     "jump_flood_grid", small, small.data_ptr(), 0, 0,
+                     out.data_ptr(), tmp.data_ptr(), ctypes.addressof(one),
+                     0, 1, 16, 24)
+    at = cell_positions(16, 24, dev)
+    with pytest.raises(RuntimeError, match="jump_flood_grid: CUDA error"):
+        _grid_entry(small, at, None, steps)
+    tall = torch.full((1 << 15, 1), -1, dtype=torch.int32, device=dev)
+    with pytest.raises(RuntimeError, match="jump_flood_grid: CUDA error"):
+        _grid_entry(tall, None, None, [1], [(1, 1, 1, 1)])
+    _same(kernels.jump_flood_grid(small, None, None, steps),
+          kernels.jump_flood_grid_plain(small, None, None, steps))
+
+
 def test_rasters_repeat_on_the_card(dev):
     """The DTM, DSM and CHM and the height above ground of a small scene:
     two card runs give the same bits, and they equal the port's CPU run
@@ -535,12 +673,14 @@ def test_launch_helper_raises_on_a_refused_launch(dev):
     # the grid flood's entry refuses steps without its scratch plane
     slot, at, steps = _raster_flood(16, 24, "sparse", dev)
     out = torch.empty_like(slot)
-    host = (ctypes.c_int * 1)(1)
+    host = (ctypes.c_int * 2)(2, 1)
+    tiles = (ctypes.c_int * 8)(*[v for e in kernels.jump_flood_grid_plan(
+        16, 24, (2, 1)) for v in e])
     with pytest.raises(RuntimeError, match="jump_flood_grid: CUDA error"):
         build.launch(build.library().treee_jump_flood_grid,
                      "jump_flood_grid", slot, slot.data_ptr(), at.data_ptr(),
                      at.data_ptr(), out.data_ptr(), 0, ctypes.addressof(host),
-                     1, 16, 24)
+                     ctypes.addressof(tiles), 2, 16, 24)
     _same(kernels.jump_flood_grid(slot, at, at, steps),
           kernels.jump_flood_grid_plain(slot, at, at, steps))
     tab = torch.rand(8, 128, device=dev)

@@ -15,6 +15,7 @@ import torch
 from jax.experimental import pallas as pl
 
 from treee_tpu import characteristics as jch
+from treee_tpu import rasters as jrs
 from treee_tpu import segmentation as jsg
 from treee_tpu.ops import pallas_kernels as pk
 from treee_tpu_torch.ops import kernels
@@ -24,7 +25,10 @@ from treee_tpu_torch.ops.kernels.dilate import (DIRECTIONS, full,
                                                 radius_from_key)
 from treee_tpu_torch.ops.kernels.eye_dome import (
     _constants as eye_dome_constants)
-from treee_tpu_torch.ops.kernels.jump_flood import CLUSTER_CTAS, INF
+from treee_tpu_torch import rasters as trs
+from treee_tpu_torch.ops.kernels.jump_flood import (
+    CLUSTER_CTAS, INF, TILE_AXIS, TILE_CELLS, TILE_HALO, TILE_MAX_STEPS,
+    cell_positions, tile_axis)
 from treee_tpu_torch.render import Camera
 from treee_tpu_torch.render import splat as tsplat
 
@@ -885,6 +889,389 @@ def test_jump_flood_steps():
     assert kernels.jump_flood_steps(384) == [192, 96, 48, 24, 12, 6, 3, 1]
     assert kernels.jump_flood_steps(1) == []
     assert kernels.jump_flood_steps(3) == [1]
+
+
+def _grid_design():
+    """The grid flood's constants in ``csrc/jump_flood.cu``."""
+    text = (build.CSRC / "jump_flood.cu").read_text()
+    return {name: int(re.search(rf"constexpr int {name} = (\d+);",
+                                text).group(1))
+            for name in ("kTileHalo", "kTileMaxSteps", "kTileCells",
+                         "kTileAxis")}
+
+
+def _magic_div(x, d):
+    """x // d as the kernel's Divider takes it: (umulhi(x, m) + x) >>
+    shift, with m and shift as ``csrc/jump_flood.cu``'s Divider::make makes
+    them (x an int64 tensor in [0, 2^31))."""
+    shift = 0
+    while (1 << shift) < d:
+        shift += 1
+    m = ((1 << 32) * ((1 << shift) - d)) // d + 1
+    assert 0 < m < 1 << 32
+    return (((x * m) >> 32) + x) >> shift
+
+
+def _biased(x):
+    """x + 2^23 as f32, from the integer bits (0 <= x < 2^23)."""
+    return (x.int() | 0x4B000000).view(torch.float32)
+
+
+def _grid_origin(pos, w, i, j):
+    """The origin of seed cell (i, j) as the grid kernel holds it: in the
+    rasters' form (``pos`` None) (i << 16 | j), as CellPos packs it; else
+    the flat index, as GivenPos."""
+    return (i << 16 | j) if pos is None else i * w + j
+
+
+def _grid_flat(pos, w, o):
+    """The flat cell index of origin ``o`` (CellPos::flat / GivenPos)."""
+    return (o >> 16) * w + (o & 0xFFFF) if pos is None else o
+
+
+def _grid_dist(pos, cc, o, i, j):
+    """Squared distance of origin ``o``'s seed from the centre of cell
+    (i, j), as the grid kernel forms it: with ``pos`` None the seed at the
+    (row, col) packed in ``o`` and the centre at (i, j), each difference
+    taken between f32 values 2^23 + x (exact), as ``csrc/jump_flood.cu``'s
+    CellPos; else from ``pos`` and ``cc``."""
+    x = o.clamp(min=0).long()
+    if pos is None:
+        ex = _biased(x >> 16) - _biased(i)
+        ez = _biased(x & 0xFFFF) - _biased(j)
+    else:
+        p = pos.reshape(-1, 2)[x]
+        c = cc[i.clamp(min=0).long(), j.clamp(min=0).long()]
+        ex = p[..., 0] - c[..., 0]
+        ez = p[..., 1] - c[..., 1]
+    return ex * ex + ez * ez
+
+
+def _axis_cells(a, tile):
+    """Tile ``tile``'s cell along axis ``a`` at each local index (-1 past
+    the last cycle) and whether it is in the core, as the kernel's
+    axis_cells with its multiply-high dividers: local index l is cycle
+    c0 + l % q at position k0 + l // q - halo, wrapped along the cycle."""
+    l = torch.arange(a["len"], dtype=torch.int64)
+    m = _magic_div(l, a["q"])
+    cycle = tile // a["wins"] * a["q"] + l - m * a["q"]
+    k = tile % a["wins"] * a["t"] + m - a["halo"]
+    x = k + TILE_HALO * a["p"]
+    kk = x - _magic_div(x, a["p"]) * a["p"]
+    ok = cycle < a["g"]
+    y = cycle + kk * a["s"]
+    if a["p"] * a["n"] + a["g"] < 2**31:
+        at = y - _magic_div(y, a["n"]) * a["n"]
+    else:
+        at = y % a["n"]
+    cell = torch.where(ok, at, -1)
+    core = ok & (m >= a["halo"]) & (m < a["halo"] + a["t"]) & (k < a["p"])
+    return cell, core
+
+
+def _grid_tile_model(slot, pos, cc, steps, plan):
+    """The tile route in plain torch: a pass a step; each tile loads its
+    origins (from the seeds in the first pass) at the cells
+    :func:`_axis_cells` names, runs the 8 directions on its own planes
+    with local rolls of q cells (wrapped modulo the tile's length, as the
+    kernel wraps them), and writes its core; every cell must be written by
+    exactly one core.  Output: the origin's slot, or the cell's own."""
+    h, w = slot.shape
+    design = _grid_design()
+    flat = slot.reshape(-1)
+    idx = torch.arange(h * w, dtype=torch.int32)
+    ii, jj = torch.meshgrid(torch.arange(h, dtype=torch.int32),
+                            torch.arange(w, dtype=torch.int32), indexing="ij")
+    state = torch.where(flat >= 0, _grid_origin(pos, w, ii, jj).reshape(-1),
+                        -1)
+    for s, (qr, tr, qc, tc) in zip(steps, plan):
+        ar = tile_axis(h, s, qr, tr)
+        ac = tile_axis(w, s, qc, tc)
+        assert max(ar["len"], ac["len"]) <= design["kTileAxis"]
+        assert ar["len"] * ac["len"] <= design["kTileCells"]
+        assert {ar["halo"], ac["halo"]} <= {0, design["kTileHalo"]}
+        new = torch.full_like(state, -7)
+        written = torch.zeros_like(state)
+        for t_r in range(ar["tiles"]):
+            rows, r_core = _axis_cells(ar, t_r)
+            for t_c in range(ac["tiles"]):
+                cols, c_core = _axis_cells(ac, t_c)
+                i = rows[:, None].expand(ar["len"], ac["len"])
+                j = cols[None, :].expand(ar["len"], ac["len"])
+                ok = (i >= 0) & (j >= 0)
+                k = (i * w + j).clamp(min=0)
+                cur = torch.where(ok, state[k], -1)
+                # each cell's own distance, kept as it changes; in the
+                # rasters' form a seed cell (distance 0) is skipped
+                dist = torch.where(cur >= 0,
+                                   _grid_dist(pos, cc, cur, i, j), INF)
+                settled = (dist == 0) if pos is None else torch.zeros_like(
+                    ok)
+                for dy in (-1, 0, 1):
+                    for dx in (-1, 0, 1):
+                        if dy == 0 and dx == 0:
+                            continue
+                        co = torch.roll(cur, (dy * ar["q"], dx * ac["q"]),
+                                        (0, 1))
+                        cd = _grid_dist(pos, cc, co, i, j)
+                        take = ((co >= 0) & (co != cur) & (cd < dist)
+                                & ~settled)
+                        cur = torch.where(take, co, cur)
+                        dist = torch.where(take, cd, dist)
+                core = r_core[:, None] & c_core[None, :]
+                new[k[core]] = cur[core]
+                written[k[core]] += 1
+        assert bool((written == 1).all())
+        state = new
+    return flat[torch.where(state >= 0, _grid_flat(pos, w, state),
+                            idx).long()].view(h, w)
+
+
+def _grid_case(h, w, kind, seed=0):
+    """(seed_slot i32[h,w], positions) of a raster flood: ``sparse`` one
+    cell in a hundred and one more, ``far_edge`` seeds on the last row and
+    column only, ``empty``, ``full``; each seed its cell's flat index.
+    ``scattered``: the given form instead, slots 0-2 repeated, positions
+    anywhere in the grid and centres jittered off (row, col)."""
+    rng = np.random.default_rng(h * 7919 + w + seed)
+    if kind == "far_edge":
+        have = np.zeros((h, w), bool)
+        have[-1, rng.integers(w, size=3)] = True
+        have[rng.integers(h, size=3), -1] = True
+    elif kind in ("sparse", "scattered"):
+        have = rng.random((h, w)) < 0.01
+        have[rng.integers(h), rng.integers(w)] = True
+    else:
+        have = np.full((h, w), kind == "full")
+    slot = np.where(have, np.arange(h * w).reshape(h, w), -1)
+    if kind != "scattered":
+        return torch.from_numpy(slot.astype(np.int32)), None, None
+    slot = np.where(have, rng.integers(0, 3, (h, w)), -1)
+    pos = rng.uniform(-1, [h, w], (h, w, 2)).astype(np.float32)
+    ij = np.stack(np.meshgrid(np.arange(h), np.arange(w), indexing="ij"), -1)
+    cc = (ij + rng.uniform(-0.4, 0.4, (h, w, 2))).astype(np.float32)
+    return (torch.from_numpy(slot.astype(np.int32)), torch.from_numpy(pos),
+            torch.from_numpy(cc))
+
+
+GRID_SHAPES = [(1, 1), (1, 129), (129, 1), (5, 300), (127, 129), (37, 211),
+               (300, 5), (48, 36), (17, 33)]
+
+
+@pytest.mark.parametrize("h,w", GRID_SHAPES)
+@pytest.mark.parametrize("kind", ["sparse", "far_edge", "empty", "full",
+                                  "scattered"])
+def test_grid_flood_tile_model_matches_plain(h, w, kind):
+    """The tile route's design (cycles of each step along each axis, tiles
+    of q cycles by t positions with a wrapped 3-position halo or whole
+    cycles, a pass a step, the seeds' positions from their origins in the
+    rasters' form) gives the plain flood's slots bit for bit with the
+    wrapper's plan and with small tiles that force windows, halos wider
+    than an axis and ragged cycle groups."""
+    slot, pos, cc = _grid_case(h, w, kind)
+    steps = trs.jfa_steps(h, w)
+    ref = kernels.jump_flood_grid_plain(slot, pos, cc, steps)
+    plan = kernels.jump_flood_grid_plan(h, w, tuple(steps))
+    assert torch.equal(_grid_tile_model(slot, pos, cc, steps, plan), ref)
+    small = kernels.jump_flood_grid_plan(h, w, tuple(steps), 256, 32)
+    # the small tiles take windows with a halo wherever an axis is longer
+    assert any(tile_axis(h, s, qr, tr)["halo"] or tile_axis(w, s, qc, tc)[
+        "halo"] for s, (qr, tr, qc, tc) in zip(steps, small)) == (
+        max(h, w) > 32)
+    assert torch.equal(_grid_tile_model(slot, pos, cc, steps, small), ref)
+    if kind == "full":
+        assert torch.equal(ref, slot)
+    assert bool((ref >= 0).all()) == (kind != "empty")
+
+
+def test_grid_flood_tile_model_takes_any_steps():
+    """Steps longer than an axis, of one and of no cycle (s a multiple of
+    the axis), repeated and unsorted, through both models."""
+    slot, pos, cc = _grid_case(37, 211, "sparse")
+    for steps in ([1], [3, 5, 1000], [4096, 2, 1], [211, 37, 74], []):
+        ref = kernels.jump_flood_grid_plain(slot, pos, cc, steps)
+        for plan in (kernels.jump_flood_grid_plan(37, 211, tuple(steps)),
+                     kernels.jump_flood_grid_plan(37, 211, tuple(steps),
+                                                  256, 32)):
+            assert torch.equal(_grid_tile_model(slot, pos, cc, steps, plan),
+                               ref)
+
+
+def _exact_flood(slot, steps):
+    """The rasters' flood with exact int64 distances: what the f32 sums
+    must NOT be replaced by."""
+    h, w = slot.shape
+    ii, jj = torch.meshgrid(torch.arange(h), torch.arange(w), indexing="ij")
+    org = torch.where(slot >= 0, (ii * w + jj), -1).long()
+
+    def dist(o):
+        r, c = o.clamp(min=0) // w, o.clamp(min=0) % w
+        return torch.where(o >= 0, (r - ii) ** 2 + (c - jj) ** 2, 2**62)
+    for s in steps:
+        for dy in (-s, 0, s):
+            for dx in (-s, 0, s):
+                if dy == 0 and dx == 0:
+                    continue
+                co = torch.roll(org, (dy, dx), (0, 1))
+                org = torch.where(dist(co) < dist(org), co, org)
+    return org.int()
+
+
+@pytest.mark.parametrize("w,seeds", [
+    (4096, ((0, 5), (1, 3011), (2, 1915), (0, 2990), (2, 404))),
+    (8300, ((0, 0), (1, 8206)))])
+def test_grid_flood_f32_sums_decide_ties(w, seeds):
+    """3 x w grids.  At w = 4096, seeds ~3000 cells apart: every distance
+    is below 2^24 (4095^2 + 2^2 < 2^24), so the f32 sums are exact and an
+    exact integer flood agrees.  At w = 8300 two seeds ~8200 apart leave
+    cells ~4100 from both: the squares pass 2^24, f32 rounds distances
+    that differ by one to a tie, and the strict < keeps the seed that came
+    first, so the exact flood takes another seed somewhere.  Both models
+    follow the plain flood bit for bit."""
+    h = 3
+    slot = torch.full((h, w), -1, dtype=torch.int32)
+    for r, c in seeds:
+        slot[r, c] = r * w + c
+    steps = trs.jfa_steps(h, w)
+    ref = kernels.jump_flood_grid_plain(slot, None, None, steps)
+    plan = kernels.jump_flood_grid_plan(h, w, tuple(steps))
+    assert torch.equal(_grid_tile_model(slot, None, None, steps, plan), ref)
+    exact = _exact_flood(slot, steps)
+    assert bool((exact != ref).any()) == (w > 4096)
+
+
+def _divider_cases(use):
+    """(divisor, int64 x) pairs over the whole range that the tile
+    arithmetic of ``csrc/jump_flood.cu`` feeds its Divider ``use``: by_q
+    (l < len, q <= len <= kTileAxis) and by_len (f < kTileCells, a tile's
+    column length <= kTileAxis) exhaustively; by_p (x = k + 3p with k from
+    -3 to below p + t + 3, t <= p) exhaustively for p up to 4096, at the
+    quotients' edges beyond; by_n (y = cycle + kk s < g + p n <= n + n^2,
+    where that fits an int) at the quotients' edges and at random."""
+    design = _grid_design()
+    rng = np.random.default_rng(0)
+    if use in ("q", "len"):
+        top = design["kTileAxis"] if use == "q" else design["kTileCells"]
+        x = torch.arange(top, dtype=torch.int64)
+        return [(d, x) for d in range(1, design["kTileAxis"] + 1)]
+    out = []
+    if use == "p":
+        for d in list(range(1, 4097)) + [4099, 65535, (1 << 24) - 1,
+                                         (1 << 31) // 5 - 1]:
+            lo, hi = 3 * d - TILE_HALO, 5 * d + TILE_HALO
+            if d <= 4096:
+                x = np.arange(max(lo, 0), hi)
+            else:
+                x = np.array([j * d + e for j in (3, 4, 5)
+                              for e in (-3, -1, 0, 1, d - 1)])
+                x = np.concatenate([x, rng.integers(max(lo, 0), hi, 64)])
+            out.append((d, torch.from_numpy(x[(x >= 0) & (x < hi)])))
+        return out
+    for d in list(range(1, 4101)) + [6144, 46339, 46340]:
+        hi = min(d + d * d, 1 << 31)
+        j = rng.integers(0, hi // d + 1, 32)
+        x = np.concatenate([j * d, j * d - 1, j * d + d - 1,
+                            rng.integers(0, hi, 32), [0, hi - 1]])
+        out.append((d, torch.from_numpy(x[(x >= 0) & (x < hi)])))
+    return out
+
+
+@pytest.mark.parametrize("use", ["q", "len", "p", "n"])
+def test_grid_flood_magic_division(use):
+    """The tile arithmetic's divisions by a multiply-high (Divider) equal
+    the integer quotients over every range each of its four dividers is
+    given."""
+    for d, x in _divider_cases(use):
+        assert torch.equal(_magic_div(x, d), x // d), (use, d)
+
+
+def test_grid_flood_model_matches_jax_jfa_fill():
+    """Once against the JAX package's jfa_fill run op by op: the tile
+    model in the rasters' form fills the same values."""
+    grid, have = _raster_seeds(37, 211)
+    slot = torch.from_numpy(np.where(have, np.arange(37 * 211).reshape(
+        37, 211), -1).astype(np.int32))
+    steps = trs.jfa_steps(37, 211)
+    origin = _grid_tile_model(slot, None, None, steps,
+                              kernels.jump_flood_grid_plan(37, 211,
+                                                           tuple(steps)))
+    with jax.disable_jit():
+        j_val, j_ok = jrs.jfa_fill(jnp.asarray(grid), jnp.asarray(have))
+    ok = (origin >= 0).numpy()
+    val = np.where(ok, grid.reshape(-1)[origin.clamp(min=0).numpy()], 0.0)
+    assert (ok == np.asarray(j_ok)).all() and ok.all()
+    assert val.astype(np.float32).tobytes() == np.asarray(j_val).tobytes()
+
+
+def _raster_seeds(h, w):
+    rng = np.random.default_rng(h + w)
+    grid = rng.normal(0.0, 3.0, (h, w)).astype(np.float32)
+    have = rng.random((h, w)) < 0.2
+    have[h // 4: h // 2, w // 3: w // 2] = False    # one large hole
+    return grid, have
+
+
+@pytest.mark.parametrize("h,w", [(1, 1), (5, 300), (37, 211), (128, 256)])
+@pytest.mark.parametrize("kind", ["sparse", "far_edge", "empty", "full"])
+def test_grid_flood_cell_form_equals_given_form(h, w, kind):
+    """Seeds at their cells (no position planes) give what the explicit
+    (row, col) planes give, through the wrapper on the CPU."""
+    slot, _, _ = _grid_case(h, w, kind)
+    at = cell_positions(h, w, "cpu")
+    steps = trs.jfa_steps(h, w)
+    kernels.reset_launches()
+    got = kernels.jump_flood_grid(slot, None, None, steps)
+    assert torch.equal(got, kernels.jump_flood_grid(slot, at, at, steps))
+    assert torch.equal(got, kernels.jump_flood_grid_plain(slot, None, None,
+                                                          steps))
+    assert sum(kernels.launches().values()) == 0
+    with pytest.raises(ValueError):
+        kernels.jump_flood_grid(slot, at, None, steps)
+    with pytest.raises(ValueError):
+        kernels.jump_flood_grid(slot.long(), None, None, steps)
+    # the rasters' form packs (row << 16 | col) into an i32 origin
+    with pytest.raises(ValueError, match="columns"):
+        kernels.jump_flood_grid(torch.full((1, 1 << 16), -1,
+                                           dtype=torch.int32), None, None, [1])
+
+
+def test_grid_flood_route_by_grid_size():
+    """One route takes every grid size, the tiles: the wrapper's constants
+    are the kernel's, and a call is one cooperative launch a 16 steps at
+    every size (the rasters' schedules have at most 14), so a whole raster
+    flood is one CUDA launch from 1 x 1 to the 4096 x 4096 cap."""
+    design = _grid_design()
+    assert (design["kTileHalo"], design["kTileMaxSteps"],
+            design["kTileCells"], design["kTileAxis"]) == (
+        TILE_HALO, TILE_MAX_STEPS, TILE_CELLS, TILE_AXIS)
+    launches = kernels.jump_flood_grid_launches
+    for g in (1, 256, 512, 640, 675, 676, 2304, 4096):
+        assert len(trs.jfa_steps(g, g)) <= TILE_MAX_STEPS
+        assert launches(g, g, trs.jfa_steps(g, g)) == 1
+    assert launches(3, 4096, trs.jfa_steps(3, 4096)) == 1
+    assert launches(2304, 2304, []) == 1
+    assert launches(8, 8, [1] * 16) == 1 and launches(8, 8, [1] * 17) == 2
+    assert launches(0, 8, [1]) == 0
+
+
+def test_grid_flood_plan_fits_its_tiles():
+    """Every step of the rasters' grids gets a tile that the kernel takes
+    (at most kTileCells cells, kTileAxis a side), columns of at least 8
+    adjacent cycles where a step has them, and, at the 2304² and 4096²
+    rasters, a core of at least half the tile's cells."""
+    for h, w in ((2304, 2304), (4096, 4096), (4096, 129), (1, 4096),
+                 (640, 1152), (3, 5)):
+        steps = tuple(trs.jfa_steps(h, w))
+        plan = kernels.jump_flood_grid_plan(h, w, steps)
+        assert len(plan) == len(steps)
+        for s, (qr, tr, qc, tc) in zip(steps, plan):
+            ar, ac = tile_axis(h, s, qr, tr), tile_axis(w, s, qc, tc)
+            assert ar["len"] * ac["len"] <= TILE_CELLS
+            assert max(ar["len"], ac["len"]) <= TILE_AXIS
+            assert ac["q"] >= min(8, ac["g"])
+            if h == w and h >= 2304:
+                assert ar["t"] * ar["q"] * ac["t"] * ac["q"] >= (
+                    ar["len"] * ac["len"] // 2), (s, ar, ac)
 
 
 def _dilate_design():

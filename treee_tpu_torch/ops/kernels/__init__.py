@@ -12,6 +12,8 @@ from .eye_dome import eye_dome, eye_dome_plain
 from .jump_flood import jump_flood, jump_flood_plain
 from .jump_flood import jump_flood_grid, jump_flood_grid_plain
 from .jump_flood import CLUSTER_CTAS as JUMP_FLOOD_CLUSTER_CTAS
+from .jump_flood import grid_launches as jump_flood_grid_launches
+from .jump_flood import grid_plan as jump_flood_grid_plan
 from .jump_flood import resident_clusters as jump_flood_clusters
 from .jump_flood import route as jump_flood_route
 from .jump_flood import steps as jump_flood_steps

@@ -103,7 +103,7 @@ LAUNCHERS = {
     "treee_eye_dome": [_P, _P, _P, _I, _I, _F, _F, _F, _F, _F, _F, _F, _P],
     "treee_seg_cumsum": [_P, _P, _P, _LL, _I, _I, _P, _P],
     "treee_jump_flood": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
-    "treee_jump_flood_grid": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+    "treee_jump_flood_grid": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     "treee_take_along": [_P, _P, _P, _I, _I, _I, _I, _P],
 }
 _STRUCT_CODES = {_P: "P", _I: "i", _F: "f", _LL: "q"}

@@ -113,16 +113,13 @@ def jfa_fill(grid: torch.Tensor, have: torch.Tensor):
 
     A seed is its cell's flat index, at (row, col); every cell centre is
     its own (row, col), so the flood's f32 distances are sums of two exact
-    integer squares, as in the JAX package."""
+    integer squares, as in the JAX package.  The flood takes that form
+    directly (no position planes): the kernel derives both from the
+    index."""
     h, w = grid.shape
-    dev = grid.device
     slot = torch.where(have, torch.arange(h * w, dtype=torch.int32,
-                                          device=dev).view(h, w), -1)
-    rows = torch.arange(h, dtype=torch.float32, device=dev)
-    cols = torch.arange(w, dtype=torch.float32, device=dev)
-    at = torch.stack([rows[:, None].expand(h, w), cols[None, :].expand(h, w)],
-                     -1).contiguous()
-    origin = kernels.jump_flood_grid(slot, at, at, jfa_steps(h, w))
+                                          device=grid.device).view(h, w), -1)
+    origin = kernels.jump_flood_grid(slot, None, None, jfa_steps(h, w))
     ok = origin >= 0
     val = grid.reshape(-1)[origin.clamp(min=0).long()].view(h, w)
     return torch.where(ok, val, 0.0), ok
