@@ -2054,7 +2054,7 @@ def front_ends(src: str, n: int, tmp: str, dev, counted, pipeline,
     args = app.build_parser().parse_args(argv)
     if app.build_config(args) != ref.config:
         raise AssertionError("the CLI's configuration is not the default")
-    profiling.reset_timings()
+    profiling.reset()
     printed = io.StringIO()
     with contextlib.redirect_stdout(printed):
         rc, cli_ms = counted(lambda: app.main(argv),
@@ -2099,14 +2099,17 @@ def front_ends(src: str, n: int, tmp: str, dev, counted, pipeline,
             and all(np.isfinite(v) for v in traits[str(sid)].values())
             and np.isfinite(rbv["distances"]).all()):
         raise AssertionError("the CLI's info, traits or RBV export is off")
-    phases = profiling.timings()
+    phases: dict[str, float] = {}
+    for r in profiling.records():
+        if r["parent"] is None:     # the CLI's phases
+            phases[r["name"]] = phases.get(r["name"], 0.0) + r["host_s"]
     log(f"  CLI: {cli_ms / 1e3:.2f} s, rc 0, {n_seg} segments as "
         f"from_las ({ms / 1e3:.2f} s) + segment ({seg_ms:.1f} ms) give; "
         f"{N_FRAMES} PNG frames byte-equal to Session.render, the inventory "
         f"CSV and chm.asc byte-equal to the session's own; info of "
         f"{len(info)} segments, traits, hull and RBV of segment {sid}; "
-        "phase_timer: " + ", ".join(f"{k} {min(v) * 1e3:.1f} ms"
-                                    for k, v in phases.items()))
+        "spans: " + ", ".join(f"{k} {v * 1e3:.1f} ms"
+                              for k, v in phases.items()))
 
     # (a') --save and reopen on a small scene
     small = os.path.join(tmp, "small")

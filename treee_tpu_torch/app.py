@@ -248,6 +248,21 @@ def main(argv=None) -> int:
         level=logging.INFO if args.verbose else logging.WARNING,
         format="%(levelname)s %(name)s: %(message)s",
     )
+    if not args.verbose:
+        return _run(args)
+    # -v: the run's spans, and at its end their totals by name
+    from .utils import profiling
+    profiling.reset()
+    with profiling.enable():
+        rc = _run(args)
+    if rc == 0:
+        print("spans:")
+        for line in profiling.table():
+            print(line)
+    return rc
+
+
+def _run(args) -> int:
     if (args.export_changes or args.export_chm_change) and not args.compare:
         print("error: --export-changes/--export-chm-change require "
               "--compare", file=sys.stderr)
@@ -258,7 +273,7 @@ def main(argv=None) -> int:
     from .pipeline import Session
     from .render import Camera
     from .serve import png_encode
-    from .utils.profiling import phase_timer, timings
+    from .utils.profiling import span
 
     cfg = build_config(args)
 
@@ -277,20 +292,20 @@ def main(argv=None) -> int:
     elif args.input.endswith((".npz", ".ipc")):
         # .ipc: the reference app's own bincode session format
         # (io/ipc.read_reference_ipc) — a migrating user opens it directly
-        with phase_timer("load-session", block_on=device):
+        with span("load-session", device):
             session = Session.open(args.input, cfg, device=device,
                                    mesh=mesh)
     else:
-        with phase_timer("import", block_on=device):
+        with span("import", device):
             session = Session.from_las(args.input, cfg,
                                        max_points=args.max_points,
                                        device=device, mesh=mesh)
 
     for extra in args.add:
-        with phase_timer(f"add[{extra}]", block_on=device):
+        with span("add", device):
             session.add_las(extra)
     for extra in args.add_session:
-        with phase_timer(f"add-session[{extra}]", block_on=device):
+        with span("add-session", device):
             session.add_session(extra)
     if args.proj:
         session.source_location = args.proj
@@ -302,10 +317,8 @@ def main(argv=None) -> int:
                       and not args.input.endswith((".npz", ".ipc")))
     )
     if should_segment:
-        with phase_timer("segment+characteristics"):
+        with span("segment", device):
             res = session.segment(args.distance)
-            # the count comes to the host inside the timer, which waits
-            # for the device's work
             n_segments = int(res.n_segments)
         print(f"segments: {n_segments}")
 
@@ -343,7 +356,7 @@ def main(argv=None) -> int:
             prop, pal = session.attribute_prop(args.display)
         for i in range(args.frames):
             cam = cam.rotate_orbital(2 * np.pi / args.frames / 0.002, 0.0)
-            with phase_timer(f"frame[{i}]"):
+            with span("frame", device):
                 img = session.render(cam, use_lod=use_lod, prop=prop,
                                      palette=pal)
             with open(os.path.join(args.out_dir, f"frame_{i:03d}.png"),
@@ -506,7 +519,7 @@ def main(argv=None) -> int:
         from . import change as change_mod
         from .io import exports as exports_mod
 
-        with phase_timer("compare"):
+        with span("compare", device):
             # epoch A = the earlier --compare checkpoint; epoch B = the
             # session built above (current scan, post-REPL edits)
             prev = Session.open(args.compare, cfg, device=device)
@@ -622,10 +635,6 @@ def main(argv=None) -> int:
                         crown.sectors,
                     ))
                 print(f"rbv distances: {args.export_rbv}")
-
-    if args.verbose:
-        for name, ts in timings().items():
-            print(f"  {name}: {min(ts):.3f}s")
     return 0
 
 

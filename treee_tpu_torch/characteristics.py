@@ -45,6 +45,7 @@ from .device import DEFAULT_DEVICE
 from .ops import eigen, kernels, neighbors
 from .ops.kernels.dilate import full
 from .parallel.program import run_alone
+from .utils.profiling import span
 
 INF = 3.0e38
 
@@ -204,6 +205,15 @@ def compute_segments_shard(pos, segment, valid, num_segments: int,
     (max) before the areas.  Each shard then computes the same table and
     its own points' classes.  Without ``across`` it yields nothing.
     """
+    with span("characteristics", pos.device):
+        return (yield from _segments_program(pos, segment, valid,
+                                             num_segments, cfg, full_bbox,
+                                             across))
+
+
+def _segments_program(pos, segment, valid, num_segments: int,
+                      cfg: CharacteristicsConfig, full_bbox: bool,
+                      across: bool):
     s_cap = num_segments
     ms = cfg.max_slices
     sw = cfg.slice_width

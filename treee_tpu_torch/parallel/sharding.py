@@ -59,6 +59,7 @@ from ..ops import morton, octree
 from ..ops.kernels.seg_cummax import order as f32_order
 from ..ops.kernels.seg_cummax import unorder as f32_unorder
 from ..render import splat
+from ..utils import profiling
 
 
 @dataclasses.dataclass(frozen=True)
@@ -177,11 +178,14 @@ def run(mesh: Mesh, programs: list) -> list:
     if len(programs) != mesh.size:
         raise ValueError(f"{len(programs)} programs for {mesh.size} shards")
     replies = [None] * len(programs)
+    # each program nests its spans in a stack of its own
+    stacks = [profiling.fork() for _ in programs]
     while True:
         requests, returned = [], []
-        for program, reply in zip(programs, replies):
+        for program, reply, spans in zip(programs, replies, stacks):
             try:
-                requests.append(program.send(reply))
+                with profiling.on_stack(spans):
+                    requests.append(program.send(reply))
             except StopIteration as done:
                 returned.append(done.value)
         if returned:
@@ -195,7 +199,9 @@ def run(mesh: Mesh, programs: list) -> list:
         op = ops.pop()
         values = [v for _, v in requests]
         if op == "once":
-            result = values[0]()
+            # inside the spans of the shard that asked for it
+            with profiling.on_stack(stacks[0]):
+                result = values[0]()
             replies = [_to(result, d) for d in mesh.devices]
         else:
             replies = REDUCTIONS[op](values)

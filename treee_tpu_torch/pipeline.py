@@ -56,6 +56,7 @@ from .parallel import sharding
 from .parallel.program import run_alone
 from .render import Camera, lines, palettes, splat
 from .segmentation import SegmentationResult, scene_bounds, segment_points
+from .utils.profiling import span, waited
 
 # the focused view's displays besides the scan's source attributes
 # (``Session.attributes``, io/las.decode_attributes)
@@ -133,7 +134,10 @@ def _px_scale(cam: Camera, cfg: RenderConfig) -> np.float32:
 
 
 def _u8(img: torch.Tensor) -> np.ndarray:
-    return splat.to_u8(img).cpu().numpy()
+    """A frame as u8 on the host."""
+    with span("render.readback", img.device):
+        waited("render.readback")
+        return splat.to_u8(img).cpu().numpy()
 
 
 def _segment_class_counts(segment, classification, mask,
@@ -543,43 +547,46 @@ class Session:
         Over a mesh the step is ``sharding.sharded_session_step``; the
         result's ``segment`` is then the shards' list.
         """
-        if max_distance is not None:
-            self.max_distance = max_distance
-        if preview_cb is not None:
-            sub_pos = self._strided("pos", preview_stride)
-            sub_valid = self._strided("valid", preview_stride)
-            sub_seg, _, _, _ = full_pipeline(sub_pos, sub_valid,
-                                             self.max_distance, self.config)
-            img = splat.render_frame(
-                sub_pos, splat.prop_from_segment(sub_seg),
-                sub_valid & (sub_seg != DELETED_SEGMENT), self.camera,
-                self.palette, self.config.render)
-            preview_cb(_u8(img))
-        if self.mesh is not None:
-            seg, classification, table, res = sharding.sharded_session_step(
-                self.mesh, self.config)(self._col("pos"), self._col("valid"),
-                                        self.max_distance)
-        else:
-            seg, classification, table, res = full_pipeline(
-                self.cloud.pos, self.cloud.valid, self.max_distance,
-                self.config)
-        self.cloud = self.cloud.replace(segment=seg,
-                                        classification=classification)
-        self.table = table
-        self._bbox_full = False
-        self._counts_stale = False
-        self._clear_focus()
-        self._hag_cache = {}    # ground classification re-derived
-        self._next_id = None
-        self._lod = None    # the subset's colours and membership follow ids
-        if bool(res.occupied_overflow):
-            logging.getLogger(__name__).warning(
-                "segmentation occupied-cell compaction overflowed "
-                "cc_occupied_cap=%d; cluster counts/centroids truncated — "
-                "raise SegmentationConfig.cc_occupied_cap",
-                self.config.segmentation.cc_occupied_cap,
-            )
-        return res
+        with span("Session.segment", self.device):
+            if max_distance is not None:
+                self.max_distance = max_distance
+            if preview_cb is not None:
+                sub_pos = self._strided("pos", preview_stride)
+                sub_valid = self._strided("valid", preview_stride)
+                sub_seg, _, _, _ = full_pipeline(
+                    sub_pos, sub_valid, self.max_distance, self.config)
+                img = splat.render_frame(
+                    sub_pos, splat.prop_from_segment(sub_seg),
+                    sub_valid & (sub_seg != DELETED_SEGMENT), self.camera,
+                    self.palette, self.config.render)
+                preview_cb(_u8(img))
+            if self.mesh is not None:
+                step = sharding.sharded_session_step(self.mesh, self.config)
+                seg, classification, table, res = step(
+                    self._col("pos"), self._col("valid"), self.max_distance)
+            else:
+                seg, classification, table, res = full_pipeline(
+                    self.cloud.pos, self.cloud.valid, self.max_distance,
+                    self.config)
+            self.cloud = self.cloud.replace(segment=seg,
+                                            classification=classification)
+            self.table = table
+            self._bbox_full = False
+            self._counts_stale = False
+            self._clear_focus()
+            self._hag_cache = {}    # ground classification re-derived
+            self._next_id = None
+            # the subset's colours and membership follow ids
+            self._lod = None
+            waited("Session.segment.overflow")
+            if bool(res.occupied_overflow):
+                logging.getLogger(__name__).warning(
+                    "segmentation occupied-cell compaction overflowed "
+                    "cc_occupied_cap=%d; cluster counts/centroids "
+                    "truncated — raise SegmentationConfig.cc_occupied_cap",
+                    self.config.segmentation.cc_occupied_cap,
+                )
+            return res
 
     def _lod_tree(self):
         """The cached octree, built at first use over ALL valid points,
@@ -703,24 +710,27 @@ class Session:
         LOD subset (built at level 7 if absent); with ``show_deleted`` the
         full cloud is drawn, since the subset leaves deleted points out.
         Over a mesh the full frame is ``sharding.sharded_render``."""
-        cam = camera if camera is not None else self.camera
-        pal = (palette if palette is not None else self.palette).to(self.device)
-        cloud = self.cloud
-        if prop is not None:
-            prop = self._split(prop)
-        if use_lod and not show_deleted:
-            if self._lod is None:
-                self.build_lod()
-            pos_c, idx, count = self._lod
-            return _u8(_lod_frame(
-                pos_c, self._take(self._col("segment"), idx),
-                self._take(self._col("valid"), idx), count, cam, pal,
-                self.config.render,
-                None if prop is None else self._take(prop, idx)))
-        if prop is None:
-            prop = self._each(splat.prop_from_segment, self._col("segment"))
-        mask = self._col("valid") if show_deleted else cloud.alive
-        return _u8(self._frame(self._col("pos"), prop, mask, cam, pal))
+        with span("Session.render", self.device):
+            cam = camera if camera is not None else self.camera
+            pal = (palette if palette is not None
+                   else self.palette).to(self.device)
+            cloud = self.cloud
+            if prop is not None:
+                prop = self._split(prop)
+            if use_lod and not show_deleted:
+                if self._lod is None:
+                    self.build_lod()
+                pos_c, idx, count = self._lod
+                return _u8(_lod_frame(
+                    pos_c, self._take(self._col("segment"), idx),
+                    self._take(self._col("valid"), idx), count, cam, pal,
+                    self.config.render,
+                    None if prop is None else self._take(prop, idx)))
+            if prop is None:
+                prop = self._each(splat.prop_from_segment,
+                                  self._col("segment"))
+            mask = self._col("valid") if show_deleted else cloud.alive
+            return _u8(self._frame(self._col("pos"), prop, mask, cam, pal))
 
     def characteristics(self) -> ch.SegmentTable:
         """Recompute the table, with full boxes, and the classes of the

@@ -22,6 +22,7 @@ import torch
 from ..config import RenderConfig
 from ..ops import kernels
 from ..ops.kernels.dilate import ZSCALE
+from ..utils.profiling import span, waited
 from .camera import Camera
 
 IBIG = 0x7FFFFFFF
@@ -79,25 +80,30 @@ def rasterize_keys(pos: torch.Tensor, prop: torch.Tensor, mask: torch.Tensor,
     not depend on the order of the atomics.  A point renders only if its
     centre pixel is on screen.
     """
-    w, h = cfg.width, cfg.height
-    fx, fy, depth, z01, _ = _project(pos, cam, w, h)
-    pmin = f32(cfg.prop_min / float(0xFFFFFFFF))
-    pmax = f32(cfg.prop_max / float(0xFFFFFFFF))
-    vis = (mask & (depth > f32(cfg.near)) & (depth < f32(cfg.far))
-           & (prop >= pmin) & (prop <= pmax))
-    ix0 = _pixel(fx, w)
-    iy0 = _pixel(fy, h)
-    n_pix = w * h
-    # clamp to 2^23 - 2: zq = 2^23 - 1 with palette 255 would pack to IBIG
-    zq = torch.clamp((torch.clamp(z01, 0.0, 1.0) * ((1 << DEPTH_BITS) - 1))
-                     .to(torch.int32), max=(1 << DEPTH_BITS) - 2)
-    pal8 = torch.clamp(prop * 256.0, 0.0, 255.0).to(torch.int32)
-    key = (zq << 8) | pal8
-    on = vis & (ix0 >= 0) & (ix0 < w) & (iy0 >= 0) & (iy0 < h)
-    pix = torch.where(on, iy0 * w + ix0, n_pix)
-    buf = torch.full((n_pix + 1,), IBIG, dtype=torch.int32, device=pos.device)
-    buf.scatter_reduce_(0, pix.long(), torch.where(vis, key, IBIG), "amin")
-    return buf[:n_pix].view(h, w)
+    with span("render.splat", pos.device):
+        w, h = cfg.width, cfg.height
+        fx, fy, depth, z01, _ = _project(pos, cam, w, h)
+        pmin = f32(cfg.prop_min / float(0xFFFFFFFF))
+        pmax = f32(cfg.prop_max / float(0xFFFFFFFF))
+        vis = (mask & (depth > f32(cfg.near)) & (depth < f32(cfg.far))
+               & (prop >= pmin) & (prop <= pmax))
+        ix0 = _pixel(fx, w)
+        iy0 = _pixel(fy, h)
+        n_pix = w * h
+        # clamp to 2^23 - 2: zq = 2^23 - 1 with palette 255 would pack to
+        # IBIG
+        zq = torch.clamp(
+            (torch.clamp(z01, 0.0, 1.0) * ((1 << DEPTH_BITS) - 1))
+            .to(torch.int32), max=(1 << DEPTH_BITS) - 2)
+        pal8 = torch.clamp(prop * 256.0, 0.0, 255.0).to(torch.int32)
+        key = (zq << 8) | pal8
+        on = vis & (ix0 >= 0) & (ix0 < w) & (iy0 >= 0) & (iy0 < h)
+        pix = torch.where(on, iy0 * w + ix0, n_pix)
+        buf = torch.full((n_pix + 1,), IBIG, dtype=torch.int32,
+                         device=pos.device)
+        buf.scatter_reduce_(0, pix.long(), torch.where(vis, key, IBIG),
+                            "amin")
+        return buf[:n_pix].view(h, w)
 
 
 def dilate_params(cam: Camera, cfg: RenderConfig):
@@ -121,15 +127,19 @@ def resolve_keys(kimg: torch.Tensor, cam: Camera, palette: torch.Tensor,
 
     Returns (color f32[H,W,3], depth01 f32[H,W], hit bool[H,W]).
     """
-    r = cfg.max_splat_radius
-    if r > 0:
-        kimg = kernels.dilate(kimg, r, *dilate_params(cam, cfg))
-    hit = kimg != IBIG
-    color = palette[torch.clamp(kimg & 255, 0, palette.shape[0] - 1).long()]
-    bg = torch.tensor(cfg.background, dtype=torch.float32, device=kimg.device)
-    color = torch.where(hit[..., None], color, bg)
-    z01_px = torch.where(hit, unpack_z01(kimg), 1.0)
-    return color, z01_px, hit
+    with span("render.shade", kimg.device):
+        r = cfg.max_splat_radius
+        if r > 0:
+            kimg = kernels.dilate(kimg, r, *dilate_params(cam, cfg))
+        hit = kimg != IBIG
+        color = palette[torch.clamp(kimg & 255, 0,
+                                    palette.shape[0] - 1).long()]
+        waited("render.background")      # a host-to-device copy
+        bg = torch.tensor(cfg.background, dtype=torch.float32,
+                          device=kimg.device)
+        color = torch.where(hit[..., None], color, bg)
+        z01_px = torch.where(hit, unpack_z01(kimg), 1.0)
+        return color, z01_px, hit
 
 
 def render_points(pos: torch.Tensor, prop: torch.Tensor, mask: torch.Tensor,
@@ -147,8 +157,9 @@ def eye_dome(color: torch.Tensor, z01: torch.Tensor,
     linearize depth, take the edge-clamped 4-neighbour max, clamp the excess
     by the strength and alpha-blend the silhouette colour."""
     s = max(1.0 - cfg.eye_dome_strength, 0.1) ** 6  # eye_dome.rs:226-229
-    return kernels.eye_dome(color, z01, cfg.near, cfg.far, s,
-                            cfg.eye_dome_color)
+    with span("render.shade", z01.device):
+        return kernels.eye_dome(color, z01, cfg.near, cfg.far, s,
+                                cfg.eye_dome_color)
 
 
 def render_frame(pos: torch.Tensor, prop: torch.Tensor, mask: torch.Tensor,

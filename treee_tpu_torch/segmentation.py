@@ -30,6 +30,7 @@ from .ops import kernels
 from .ops.kernels.dilate import full
 from .ops.sums import sums_by_key
 from .parallel.program import run_alone
+from .utils.profiling import span, waited
 
 INF = 3.0e38
 IBIG = 0x7FFFFFFF
@@ -85,6 +86,7 @@ def _connected_components(occupied: torch.Tensor, occ_cap: int, sweeps: int):
     idx = torch.arange(gg, dtype=torch.int32, device=dev).view(1, g, g)
     lbl = torch.where(occupied, idx, IBIG)
 
+    waited("segmentation.cc.nonzero")
     occ = torch.nonzero(occupied.reshape(-1))[:occ_cap, 0].to(torch.int32)
     occ_idx = torch.zeros(occ_cap, dtype=torch.int32, device=dev)
     occ_idx[:occ.numel()] = occ
@@ -103,6 +105,7 @@ def _connected_components(occupied: torch.Tensor, occ_cap: int, sweeps: int):
         l2 = flat[(band_off + l1.clamp(0, gg - 1)).long()]
         flat.scatter_reduce_(0, jump_tgt, torch.minimum(l1, l2), "amin")
         new = flat[:-1].view(b, g, g)
+        waited("segmentation.cc.fixpoint")
         if torch.equal(new, lbl):
             return new, occ_idx, occ_valid
         lbl = new
@@ -335,6 +338,8 @@ def anchor_histogram(pos, valid, lo_y, hi_y):
     b = torch.clamp(((y - lo_y) * (ANCHOR_BINS / ext)).to(torch.int32),
                     0, ANCHOR_BINS - 1)
     tgt = torch.where(v, b, ANCHOR_BINS).long()
+    # on CUDA, bincount reads the input's least and greatest values
+    waited("segmentation.bincount", 2)
     return torch.bincount(tgt, minlength=ANCHOR_BINS + 1)[:ANCHOR_BINS]
 
 
@@ -379,27 +384,32 @@ def band_scan(cnt, lo, s, d: float, cfg: SegmentationConfig):
     tracked_active bool[B,T]).
     """
     g = cfg.grid_size
-    labels, occ_idx, occ_valid = _connected_components(
-        cnt > 0, cfg.cc_occupied_cap, cfg.cc_sweeps)
-    cents_b, cmask_b = _extract_clusters(
-        labels, cnt, lo, s, cfg.max_trees_per_band, cfg.min_points,
-        occ_idx, occ_valid)
+    dev = cnt.device
+    with span("segmentation.cc", dev):
+        labels, occ_idx, occ_valid = _connected_components(
+            cnt > 0, cfg.cc_occupied_cap, cfg.cc_sweeps)
+    with span("segmentation.clusters", dev):
+        cents_b, cmask_b = _extract_clusters(
+            labels, cnt, lo, s, cfg.max_trees_per_band, cfg.min_points,
+            occ_idx, occ_valid)
     # the match radius in f32, as JAX computes it from the f32 distance
     radius = float(np.float32(cfg.match_radius_factor) * np.float32(d))
-    tracked_pos_b, active_b, n_alloc = kernels.match_scan(
-        cents_b, cmask_b, radius, cfg.match_rounds, cfg.max_segments)
-    if cfg.use_bruteforce_voronoi:
-        slot_grids = _bruteforce_voronoi(
-            occ_idx, occ_valid, tracked_pos_b, active_b, lo, s,
-            cnt.shape[0], g, cfg.voronoi_chunk)
-        return slot_grids, n_alloc, tracked_pos_b, active_b
-    seed_slot, seed_pos = _seed_grids(tracked_pos_b, active_b, lo, s, g)
-    cell_center = _cell_center_planes(lo, s, g)
-    if cfg.use_packed_jfa and g <= 512:  # 15-bit packed coordinates
-        slot_grids = _jump_flood_packed(seed_slot, seed_pos, cell_center,
-                                        lo, s)
-    else:
-        slot_grids = kernels.jump_flood(seed_slot, seed_pos, cell_center)
+    with span("segmentation.match", dev):
+        tracked_pos_b, active_b, n_alloc = kernels.match_scan(
+            cents_b, cmask_b, radius, cfg.match_rounds, cfg.max_segments)
+    with span("segmentation.voronoi", dev):
+        if cfg.use_bruteforce_voronoi:
+            slot_grids = _bruteforce_voronoi(
+                occ_idx, occ_valid, tracked_pos_b, active_b, lo, s,
+                cnt.shape[0], g, cfg.voronoi_chunk)
+            return slot_grids, n_alloc, tracked_pos_b, active_b
+        seed_slot, seed_pos = _seed_grids(tracked_pos_b, active_b, lo, s, g)
+        cell_center = _cell_center_planes(lo, s, g)
+        if cfg.use_packed_jfa and g <= 512:  # 15-bit packed coordinates
+            slot_grids = _jump_flood_packed(seed_slot, seed_pos, cell_center,
+                                            lo, s)
+        else:
+            slot_grids = kernels.jump_flood(seed_slot, seed_pos, cell_center)
     return slot_grids, n_alloc, tracked_pos_b, active_b
 
 
@@ -440,32 +450,39 @@ def segment_points_shard(pos, valid, max_distance: float,
     grids, and ``("once", fn)``, the band scan run once for all shards.
     Without ``across`` it yields nothing.
     """
-    d = torch.tensor(max_distance, dtype=torch.float32, device=pos.device)
-    lo, hi = scene_bounds_raw(pos, valid)
-    any_valid = valid.any()
-    if across:
-        lo = yield "min", lo
-        hi = yield "max", hi
-        any_valid = yield "max", any_valid
-    lo, hi = scene_bounds_finalize(lo, hi, any_valid)
-    s = cell_size(lo, hi, d, cfg)
-    hist = anchor_histogram(pos, valid, lo[1], hi[1])
-    if across:
-        hist = yield "sum", hist
-    top = band_anchor(hist, lo[1], hi[1], cfg)
-    band, cx, cz = point_cells(pos, lo, s, top, cfg)
-    cnt = moment_grids(valid, band, cx, cz, cfg)
-    if across:
-        cnt = yield "sum", cnt
+    dev = pos.device
+    with span("segmentation", dev):
+        with span("segmentation.grid", dev):
+            waited("segmentation.distance")     # a host-to-device copy
+            d = torch.tensor(max_distance, dtype=torch.float32, device=dev)
+            lo, hi = scene_bounds_raw(pos, valid)
+            any_valid = valid.any()
+            if across:
+                lo = yield "min", lo
+                hi = yield "max", hi
+                any_valid = yield "max", any_valid
+            lo, hi = scene_bounds_finalize(lo, hi, any_valid)
+            s = cell_size(lo, hi, d, cfg)
+            hist = anchor_histogram(pos, valid, lo[1], hi[1])
+            if across:
+                hist = yield "sum", hist
+            top = band_anchor(hist, lo[1], hi[1], cfg)
+            band, cx, cz = point_cells(pos, lo, s, top, cfg)
+            cnt = moment_grids(valid, band, cx, cz, cfg)
+            if across:
+                cnt = yield "sum", cnt
 
-    def scan():
-        return band_scan(cnt, lo, s, max_distance, cfg)
-    slot_grids, n_alloc, tracked_pos_b, active_b = (
-        (yield "once", scan) if across else scan())
-    return SegmentationResult(
-        segment=assign_points(slot_grids, band, cx, cz, valid),
-        n_segments=n_alloc,
-        tracked_pos=tracked_pos_b,
-        tracked_active=active_b,
-        occupied_overflow=(cnt > 0).sum() > cfg.cc_occupied_cap,
-    )
+        def scan():
+            return band_scan(cnt, lo, s, max_distance, cfg)
+        slot_grids, n_alloc, tracked_pos_b, active_b = (
+            (yield "once", scan) if across else scan())
+        with span("segmentation.assign", dev):
+            segment = assign_points(slot_grids, band, cx, cz, valid)
+            overflow = (cnt > 0).sum() > cfg.cc_occupied_cap
+        return SegmentationResult(
+            segment=segment,
+            n_segments=n_alloc,
+            tracked_pos=tracked_pos_b,
+            tracked_active=active_b,
+            occupied_overflow=overflow,
+        )
