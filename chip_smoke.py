@@ -7,8 +7,8 @@ Needs one CUDA card and the CUDA toolkit; it exits non-zero without them.
 Phases, each of which raises on failure:
 
 0. The device: the card's name and power limit, the toolchain, the build
-   of the port's CUDA kernels (the eight TPU kernels' and the rasters'
-   grid flood) from ``treee_tpu_torch/ops/kernels/csrc``
+   of the port's CUDA kernels (the eight TPU kernels', the rasters' grid
+   flood and the step's Voronoi) from ``treee_tpu_torch/ops/kernels/csrc``
    (into ``build/treee_tpu_torch/``).
 1-7. Each kernel of a path on the card at the shapes its path gives it (its
    inputs are recorded from one run of the main path, one ``Session.render``,
@@ -23,6 +23,10 @@ Phases, each of which raises on failure:
    through the wrapper; the dilation also takes a 720p key image with a
    splat on every pixel at r=3 and r=8 (three launches), and logs the share
    of its tiles that each exact shortcut took.
+7b. The step's occupied-cell Voronoi, ``nearest_slot`` (no TPU kernel: the
+   JAX package runs XLA ops there), the same way at the main path's
+   recorded call, with its device time a call from calls queued back to
+   back.
 8. The main path as a user drives it: ``Session.from_points(...).segment()``
    and ``.table``, then ``octree.build_keys``, on the 15M-point synthetic
    forest that ``bench.py`` times (937 trees of 12,000 points, 7 m apart,
@@ -267,6 +271,10 @@ KERNELS = (
     # jump flood as _jfa_kernel)
     ("jump_flood_grid", "treee_tpu_torch/ops/kernels/csrc/jump_flood.cu",
      "treee_tpu/ops/pallas_kernels.py:32"),
+    # the step's occupied-cell Voronoi: no TPU kernel (the JAX package runs
+    # XLA ops there, treee_tpu/segmentation.py:465 _bruteforce_voronoi)
+    ("nearest_slot", "treee_tpu_torch/ops/kernels/csrc/nearest_slot.cu",
+     "no TPU kernel: treee_tpu/segmentation.py:465"),
 )
 # the kernels that phases 1-7 hold against their plain versions on the
 # paths' recorded inputs; the gather probe's kernel has only the probe
@@ -274,11 +282,12 @@ KERNELS = (
 PATH_KERNELS = tuple(k for k, _, _ in KERNELS
                      if k not in ("take_along_axis", "jump_flood_grid"))
 # the card's centroid sums run through segmented_cumsum on every path
-MAIN_PATH_KERNELS = ("cc_sweep", "match_scan", "segmented_cummax",
-                     "segmented_cumsum")
+STEP_KERNELS = ("cc_sweep", "match_scan", "segmented_cummax",
+                "segmented_cumsum")
+MAIN_PATH_KERNELS = STEP_KERNELS + ("nearest_slot",)
 FRAME_KERNELS = ("dilate", "eye_dome")
 INVENTORY_KERNELS = ("segmented_cummax", "segmented_cumsum")
-FLOOD_KERNELS = MAIN_PATH_KERNELS + ("jump_flood",)
+FLOOD_KERNELS = STEP_KERNELS + ("jump_flood",)
 # the interactive view (phase 14): bench.py's 8 edit strokes (bench.py:611-613)
 EDIT_CENTERS = tuple(np.array([0.0, 5.0, 0.0], np.float32) + i
                      for i in range(8))
@@ -455,7 +464,8 @@ def work(name: str, args: tuple, kernels) -> tuple[int, int]:
     eye_dome ~40 per pixel; jump_flood 8 per cell and direction in the
     bands that hold a seed (a band without one is its input copied), and
     jump_flood_grid likewise over its one grid;
-    take_along_axis one per output)."""
+    take_along_axis one per output; nearest_slot 5 per valid row and
+    active slot of its band, the bytes of its -1 fill included)."""
     if name == "cc_sweep":
         lbl, sweeps = args[:2]
         fix = sweeps_to_fixpoint(kernels.cc_sweep_plain, lbl, sweeps)
@@ -491,6 +501,12 @@ def work(name: str, args: tuple, kernels) -> tuple[int, int]:
         given = 0 if pos is None else pos.numel() + cc.numel()
         return (4 * (2 * slot.numel() + given),
                 8 * 8 * len(steps) * seeded * slot.numel())
+    if name == "nearest_slot":
+        occ_idx, occ_valid, pos, act, _, _, n_bands, g = args[:8]
+        band = (occ_idx[occ_valid] // (g * g)).long()
+        pairs = int(act.sum(1)[band].sum())
+        return (5 * occ_idx.numel() + 9 * act.numel() + 4 * n_bands * g * g,
+                5 * pairs)
     raise KeyError(name)
 
 
@@ -874,7 +890,7 @@ def step_stages(session, kernels, sg, ch, octree) -> dict:
                    * np.float32(MAX_DISTANCE))
     tp, act, _ = timed("match_scan", lambda: kernels.match_scan(
         cents, cmask, radius, scfg.match_rounds, scfg.max_segments))
-    grids = timed("_bruteforce_voronoi", lambda: sg._bruteforce_voronoi(
+    grids = timed("nearest_slot (the Voronoi)", lambda: kernels.nearest_slot(
         occ_idx, occ_valid, tp, act, lo, s, cnt.shape[0], scfg.grid_size,
         scfg.voronoi_chunk))
     seg = timed("assign_points",
@@ -2414,14 +2430,16 @@ def main() -> int:
             MAX_DISTANCE)
     results = {}
     for i, k in enumerate(PATH_KERNELS, start=1):
-        log(f"phase {i}: {k}")
+        # phases 1-7 hold the TPU kernels' ports, 7b the step's Voronoi
+        log(f"phase {'7b' if k == 'nearest_slot' else i}: {k}")
         if not calls[k]:
             raise AssertionError(f"the port's paths never called {k}")
         extra = (synthetic_scans(calls[k], dev)
                  if k in ("segmented_cummax", "segmented_cumsum") else
                  frame_extras(calls[k], dev) if k == "dilate" else ())
-        results[k] = check_kernel(k, kernels, calls[k], extra=extra,
-                                  device=k in FRAME_KERNELS)
+        results[k] = check_kernel(
+            k, kernels, calls[k], extra=extra,
+            device="queued" if k == "nearest_slot" else k in FRAME_KERNELS)
         if k == "dilate":
             log_tile_stats(calls[k], extra)
     del calls

@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Time two builds of the ``cc_sweep``, ``match_scan``, ``segmented_cummax``,
-``segmented_cumsum``, ``jump_flood`` and ``take_along_axis`` kernels against
+``segmented_cumsum``, ``jump_flood``, ``take_along_axis`` and
+``nearest_slot`` kernels (and the frame's) against
 each other on one CUDA card: this tree's sources and those of another
 commit.
 
@@ -8,7 +9,7 @@ commit.
     git archive <commit> treee_tpu_torch/ops/kernels/csrc \\
         | tar -x --strip-components=4 -C build/parent
     python3 compare_kernels.py build/parent [--reps 7] \\
-        [--only cc|scans|flood|grid|gather|frame]
+        [--only cc|scans|flood|grid|gather|frame|voronoi]
 
 Each build takes the chosen kernels' sources and ``common.cu`` from its
 directory and the port's nvcc flags, into ``build/compare_kernels/``.
@@ -56,7 +57,11 @@ against this tree's only where no zero is involved):
   linearized depths in shared memory); each build's device time a call,
   this tree's wrappers against the first design's (allocations and
   constants as it made them) in turns, the dilation's skipped tiles, and
-  the eye-dome wrapper's host work by part.
+  the eye-dome wrapper's host work by part;
+- ``--only voronoi``: ``nearest_slot`` (the step's occupied-cell Voronoi)
+  at the call of one ``Session.segment(0.75)`` on that scan and with every
+  row valid and every slot active; a tree without ``nearest_slot.cu``
+  builds none, and the kernel is timed beside the plain version alone.
 
 Times are medians of ``--reps`` CUDA-event intervals around one call of the
 C entry point (no wrapper), the builds in turns.
@@ -83,7 +88,8 @@ SOURCES = {"cc": ("cc_sweep.cu", "match_scan.cu"),
            "scans": ("seg_cummax.cu", "seg_cumsum.cu"),
            "flood": ("jump_flood.cu",), "grid": ("jump_flood.cu",),
            "gather": ("take_along.cu",),
-           "frame": ("dilate.cu", "eye_dome.cu")}
+           "frame": ("dilate.cu", "eye_dome.cu"),
+           "voronoi": ("nearest_slot.cu",)}
 # the eye-dome design that linearizes each depth once, timed beside the
 # shipped one
 EYE_DOME_TILE = (Path(__file__).resolve().parent / "variants"
@@ -142,6 +148,8 @@ def load(name: str, where: Path, groups) -> ctypes.CDLL:
             else [p, p, p, p, p, p, i, i, i, p])
     if "gather" in groups:
         lib.treee_take_along.argtypes = [p, p, p, i, i, i, i, p]
+    if "voronoi" in groups:
+        lib.treee_nearest_slot.argtypes = [p] * 7 + [i] * 4 + [p]
     if "frame" in groups:
         # this tree's dilation takes a stats pointer before the stream
         lib.tile_dilate = hasattr(lib, "treee_dilate_core_cols")
@@ -267,6 +275,22 @@ def gather_call(lib, tab, idx, axis):
     return out
 
 
+def voronoi_call(lib, occ_idx, occ_valid, pos, act, lo, s, n_bands, g):
+    """One occupied-cell Voronoi through a build's entry, its output made
+    once a shape (outside the timing)."""
+    k = (id(lib), "voronoi", n_bands, g)
+    if k not in _scratch:
+        _scratch[k] = torch.empty((n_bands, g, g), dtype=torch.int32,
+                                  device=occ_idx.device)
+    out = _scratch[k]
+    build.check(lib.treee_nearest_slot(
+        occ_idx.data_ptr(), occ_valid.data_ptr(), pos.data_ptr(),
+        act.data_ptr(), lo.data_ptr(), s.data_ptr(), out.data_ptr(),
+        occ_idx.shape[0], n_bands, pos.shape[1], g, build.stream(occ_idx)),
+        "nearest_slot")
+    return out
+
+
 def launch_times(label: str, fn) -> None:
     """Device time of each CUDA launch of one call of ``fn``."""
     from torch.profiler import ProfilerActivity, profile
@@ -343,8 +367,8 @@ def main(argv=None) -> int:
     ap.add_argument("--reps", type=int, default=7)
     ap.add_argument("--only", choices=tuple(SOURCES), default=None,
                     help="one group's kernels only: cc_sweep and match_scan, "
-                         "the two scans, jump_flood, take_along_axis, or "
-                         "the frame's dilate and eye_dome")
+                         "the two scans, jump_flood, take_along_axis, "
+                         "the frame's dilate and eye_dome, or nearest_slot")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("compare_kernels: needs a CUDA card", file=sys.stderr)
@@ -356,7 +380,10 @@ def main(argv=None) -> int:
 
     card = card_line()
     groups = tuple(SOURCES) if args.only is None else (args.only,)
-    libs = {"parent": load("parent", args.parent, groups),
+    # an earlier tree may lack a group's sources: its build leaves it out
+    there = tuple(k for k in groups
+                  if all((args.parent / f).exists() for f in SOURCES[k]))
+    libs = {"parent": load("parent", args.parent, there),
             "shipped": load("shipped", build.CSRC, groups)}
     if "gather" in groups:
         compare_gather(libs, kernels, args.reps, card)
@@ -373,6 +400,10 @@ def main(argv=None) -> int:
         compare_flood(libs, pts, pipeline, kernels, args.reps, card)
     if "grid" in groups:
         compare_grid(libs, pts, pipeline, kernels, args.reps, card)
+    if "voronoi" in groups:
+        compare_voronoi({n: lib for n, lib in libs.items()
+                         if n == "shipped" or "voronoi" in there},
+                        pts, pipeline, kernels, args.reps, card)
     if "frame" in groups:
         tile = load("eye_dome_tile", with_eye_dome(EYE_DOME_TILE), ("frame",))
         compare_frame(libs, {**libs, "eye-dome tile": tile}, pts, pipeline,
@@ -522,6 +553,70 @@ def compare_flood(libs, pts, pipeline, kernels, reps, card) -> None:
                 (kernels.jump_flood_plain(slot, pos, cc),), reps, card)
         for name, lib in libs.items():
             launch_times(f"    {name}", lambda: flood_call(lib, slot, pos, cc))
+
+
+def compare_voronoi(libs, pts, pipeline, kernels, reps, card) -> None:
+    """The step's nearest_slot call on the 15M scan, and a worst case: all
+    524,288 rows valid over 64 bands of G = 384, all 2048 slots active.
+    Each build's C entry alone (bit-equal to the plain version, in turns),
+    the wrapper and the plain version in turns, each build's device time a
+    call with calls queued back to back, the bound and each launch's device
+    time."""
+    calls, wrapper = [], kernels.nearest_slot
+
+    def record(*a):
+        calls.append(tuple(x.clone() if torch.is_tensor(x) else x
+                           for x in a))
+        return wrapper(*a)
+
+    kernels.nearest_slot = record
+    try:
+        pipeline.Session.from_points(pts, device="cuda").segment(0.75)
+    finally:
+        kernels.nearest_slot = wrapper
+    torch.cuda.synchronize()
+    cases = [("main path, recorded", *calls[0])]
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    n_bands, g, t_cap, rows = 64, 384, 2048, 1 << 19
+    occ = torch.randperm(n_bands * g * g, device="cuda", generator=gen)[:rows]
+    lo = torch.tensor([-144.0, 0.0, -144.0], device="cuda")
+    s = torch.tensor(0.75, device="cuda")
+    pos = (torch.rand((n_bands, t_cap, 2), device="cuda", generator=gen)
+           * (g * 0.75) - 144.0)
+    cases.append(("all rows valid, all slots active",
+                  occ.sort().values.to(torch.int32),
+                  torch.ones(rows, dtype=torch.bool, device="cuda"), pos,
+                  torch.ones((n_bands, t_cap), dtype=torch.bool,
+                             device="cuda"), lo, s, n_bands, g, 256))
+    for label, *a in cases:
+        occ_idx, occ_valid, pos, act, lo, s, n_bands, g, chunk = a
+        band = (occ_idx[occ_valid] // (g * g)).long()
+        pairs = int(act.sum(1)[band].sum())
+        nbytes = 5 * occ_idx.numel() + 9 * act.numel() + 4 * n_bands * g * g
+        bound = max(nbytes / 3.35e12, 5 * pairs / 67e12) * 1e3
+        print(f"nearest_slot {label}: {int(occ_valid.sum())} valid rows of "
+              f"{occ_idx.numel()}, {n_bands} bands of {g}x{g}, "
+              f"{act.shape[1]} slots ({int(act.sum())} active), {pairs} "
+              f"row-slot pairs; bound {bound:.4f} ms ({nbytes} bytes, "
+              f"{5 * pairs} operations)", flush=True)
+        entry = tuple(a[:8])
+        ref = kernels.nearest_slot_plain(*a)
+        compare(f"nearest_slot {label}, the C entry alone", libs,
+                voronoi_call, entry, (ref,), reps, card)
+        print_in_turns({"wrapper": lambda: kernels.nearest_slot(*a),
+                        "plain": lambda: kernels.nearest_slot_plain(*a)},
+                       reps)
+        for name, lib in libs.items():
+            voronoi_call(lib, *entry)
+            torch.cuda.synchronize()
+            n = 20
+            ms = event_ms(lambda: [voronoi_call(lib, *entry)
+                                   for _ in range(n)]) / n
+            print(f"    {name}: device {ms:.4f} ms a call ({n} calls queued "
+                  "back to back between CUDA events)", flush=True)
+        launch_times("    shipped", lambda: voronoi_call(libs["shipped"],
+                                                         *entry))
+        del ref
 
 
 def dtm_holes(g: int, seed: int) -> torch.Tensor:

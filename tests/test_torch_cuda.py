@@ -21,8 +21,11 @@ shared-memory route's edge with duplicate slots and exact ties; the
 rasters' grid flood at H != W, H or W of 1, 127, 129 and 4096, wrapped
 sources on the far edge, empty and full grids and steps longer than an
 axis, with the wrapper's plan and with small tiles, with seeds at their
-cells and with given positions, and the CUDA launches a call it makes; a
-launch that CUDA refuses.  Each output must equal the plain
+cells and with given positions, and the CUDA launches a call it makes; the
+occupied-cell Voronoi with exact ties, duplicate slots, bands without an
+active slot, slots past one stage, G of 64 to 480, padding rows, rows in
+no order, and on the bench stand's step; a launch that CUDA refuses.  Each
+output must equal the plain
 version's bit for bit, and each call must count the launches its design
 makes: one, or ceil(radius / passes per launch) for the dilation.  The
 segmentation and the inventory must repeat bit for bit on the card, and
@@ -66,11 +69,14 @@ from treee_tpu_torch.render import Camera
 from treee_tpu_torch.render import splat
 
 import torch_threads
+import voronoi_cases
 
 torch_threads.share_cores()
 
 pytestmark = pytest.mark.cuda
 IBIG = 0x7FFFFFFF
+# segments of the bench stand (937 trees, seed 0) at 0.75 m
+NEAREST_SLOT_STAND_SEGMENTS = 1005
 
 
 @pytest.fixture
@@ -381,6 +387,66 @@ def test_jump_flood_kernel_equals_plain(dev, b, g, fill):
         assert bool((got == -1).all())
 
 
+@pytest.mark.parametrize("kind", sorted(voronoi_cases.CASES))
+def test_nearest_slot_kernel_equals_plain(dev, kind):
+    """Equidistant and duplicate slots, bands without an active slot, all
+    2048 slots active, slots no multiple of 256 or past one stage, G of 64,
+    384 and 480, padding rows among the valid ones, fewer rows than
+    occupied cells: the kernel gives the plain version's slots bit for bit,
+    in one launch."""
+    occ_idx, occ_valid, pos, act, lo, s, b, g = voronoi_cases.case(kind)
+    args = tuple(t.to(dev) for t in (occ_idx, occ_valid, pos, act, lo, s))
+    got = kernels.nearest_slot(*args, b, g, 256)
+    assert kernels.nearest_slot.launches == 1
+    _same(got, kernels.nearest_slot_plain(*args, b, g, 256))
+    # and the CPU's plain version
+    assert torch.equal(got.cpu(), kernels.nearest_slot_plain(
+        occ_idx, occ_valid, pos, act, lo, s, b, g, 256))
+
+
+def test_nearest_slot_kernel_any_row_order_stream_and_view(dev):
+    """Rows in no order (each band one more pass of a tile), positions as
+    a view off a 16-byte boundary, and a side stream: the same slots."""
+    occ_idx, occ_valid, pos, act, lo, s, b, g = voronoi_cases.case("mixed")
+    args = [t.to(dev) for t in (occ_idx, occ_valid, pos, act, lo, s)]
+    ref = kernels.nearest_slot_plain(*args, b, g, 256)
+    perm = torch.randperm(len(occ_idx),
+                          generator=torch.Generator().manual_seed(0)).to(dev)
+    shuffled = [args[0][perm], args[1][perm], *args[2:]]
+    _same(kernels.nearest_slot(*shuffled, b, g, 256), ref)
+    wide = torch.zeros((b, pos.shape[1] * 2 + 1, 2), device=dev)
+    view = wide[:, 1:pos.shape[1] + 1]
+    view.copy_(args[2])
+    assert view.data_ptr() % 16 and not view.is_contiguous()
+    _same(kernels.nearest_slot(args[0], args[1], view, *args[3:], b, g, 256),
+          ref)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        got = kernels.nearest_slot(*args, b, g, 256)
+    torch.cuda.current_stream().wait_stream(side)
+    _same(got, ref)
+    assert kernels.nearest_slot.launches == 3
+
+
+def test_nearest_slot_kernel_on_the_15m_stand(dev, monkeypatch):
+    """The bench stand (15M points, 937 trees, seed 0): the step through
+    the kernel gives every point the id the plain version gives."""
+    pts = tlas.synthetic_forest(n_trees=937, spacing=7.0,
+                                points_per_tree=12_000,
+                                ground_points=15_000_000 - 937 * 12_000,
+                                seed=0)
+    s = tpl.Session.from_points(pts, device=dev)
+    res = s.segment(0.75)
+    assert kernels.nearest_slot.launches == 1
+    got = s.cloud.segment.clone()
+    n_got = int(res.n_segments)
+    monkeypatch.setattr(kernels, "nearest_slot", kernels.nearest_slot_plain)
+    res = s.segment(0.75)
+    assert int(res.n_segments) == n_got == NEAREST_SLOT_STAND_SEGMENTS
+    assert torch.equal(s.cloud.segment, got)
+
+
 def _busy_flood(b, g, kind, dev):
     """b bands of G=g, every band seeded: ``dups`` puts few slot ids on many
     seeds at positions anywhere in the grid; ``ties`` puts each seed on its
@@ -652,6 +718,13 @@ def test_wrappers_raise_on_bad_input_on_the_card(dev):
     with pytest.raises(ValueError):
         kernels.jump_flood_grid(lbl[0], torch.zeros(8, 8, 2, device=dev),
                                 torch.zeros(8, 8, 2, device=dev), [2, 0])
+    occ_idx, occ_valid, pos, act, lo, s, b, g = voronoi_cases.case("mixed")
+    on = [t.to(dev) for t in (occ_idx, occ_valid, pos, act)]
+    with pytest.raises(ValueError, match="devices"):
+        kernels.nearest_slot(*on, lo, s.to(dev), b, g, 256)
+    with pytest.raises(ValueError):
+        kernels.nearest_slot(on[0].long(), *on[1:], lo.to(dev), s.to(dev), b,
+                             g, 256)
     assert sum(kernels.launches().values()) == 0
 
 
@@ -683,6 +756,18 @@ def test_launch_helper_raises_on_a_refused_launch(dev):
                      ctypes.addressof(tiles), 2, 16, 24)
     _same(kernels.jump_flood_grid(slot, at, at, steps),
           kernels.jump_flood_grid_plain(slot, at, at, steps))
+    # the Voronoi refuses slot positions off an 8-byte boundary
+    args = [a.to(dev) for a in voronoi_cases.case("mixed")[:6]]
+    b, g = voronoi_cases.CASES["mixed"][:2]
+    out = torch.empty((b, g, g), dtype=torch.int32, device=dev)
+    with pytest.raises(RuntimeError, match="nearest_slot: CUDA error"):
+        build.launch(build.library().treee_nearest_slot, "nearest_slot",
+                     args[0], args[0].data_ptr(), args[1].data_ptr(),
+                     args[2].data_ptr() + 4, args[3].data_ptr(),
+                     args[4].data_ptr(), args[5].data_ptr(), out.data_ptr(),
+                     len(args[0]), b, args[3].shape[1], g)
+    _same(kernels.nearest_slot(*args, b, g, 256),
+          kernels.nearest_slot_plain(*args, b, g, 256))
     tab = torch.rand(8, 128, device=dev)
     idx = torch.randint(0, 8, (8, 128), dtype=torch.int32, device=dev)
     _same(kernels.take_along_axis(tab, idx, 0),

@@ -29,10 +29,13 @@ from treee_tpu_torch import rasters as trs
 from treee_tpu_torch.ops.kernels.jump_flood import (
     CLUSTER_CTAS, INF, TILE_AXIS, TILE_CELLS, TILE_HALO, TILE_MAX_STEPS,
     cell_positions, tile_axis)
+from treee_tpu_torch.ops.kernels.nearest_slot import INF as NEAREST_INF
+from treee_tpu_torch.ops.kernels.nearest_slot import cell_centers
 from treee_tpu_torch.render import Camera
 from treee_tpu_torch.render import splat as tsplat
 
 import torch_threads
+import voronoi_cases
 
 torch_threads.share_cores()
 
@@ -891,6 +894,214 @@ def test_jump_flood_steps():
     assert kernels.jump_flood_steps(3) == [1]
 
 
+def _nearest_slot_design():
+    """(threads, rows a thread, staged slots a pass) of
+    ``csrc/nearest_slot.cu``."""
+    text = (build.CSRC / "nearest_slot.cu").read_text()
+    return tuple(int(re.search(rf"constexpr int {name} = (\d+);",
+                               text).group(1))
+                 for name in ("kThreads", "kRows", "kStageSlots"))
+
+
+def _nearest_slot_model(occ_idx, occ_valid, pos, act, lo, s, n_bands, g,
+                        threads, rows, stage, warp=32):
+    """The nearest_slot kernel's design in numpy f32: the -1 fill, then
+    tiles of ``threads * rows`` consecutive rows (thread t's rows t,
+    t + threads, ...); a tile of padding alone returns; the tile's bands in
+    ascending order; each band's active slots staged in passes of at most
+    ``stage``, round by round of ``threads`` slots, each round compacted by
+    warp ballots (a lane's place: the live lanes below it) and a prefix of
+    the warps' counts; each row walks the staged slots with strict <, the
+    rows of another band with NaN centres; a pass's winners read their slot
+    ids from the stage.  Returns (i32[B,G,G], each tile's [(band, passes)])."""
+    f32 = np.float32
+    occ_idx, occ_valid = occ_idx.numpy(), occ_valid.numpy()
+    pos, act = pos.numpy(), act.numpy()
+    t_cap = act.shape[1]
+    gg, cells = g * g, n_bands * g * g
+    out = np.full(cells, -1, np.int32)
+    lo_x, lo_z, step = f32(lo[0]), f32(lo[2]), f32(s)
+    tile = threads * rows
+    visits = []
+    for t0 in range(0, len(occ_idx), tile):
+        row = (t0 + np.arange(rows)[:, None] * threads
+               + np.arange(threads)[None, :]).reshape(-1)
+        inside = row < len(occ_idx)
+        q = occ_idx[np.minimum(row, len(occ_idx) - 1)]
+        live = inside & occ_valid[np.minimum(row, len(occ_idx) - 1)]
+        live &= (q >= 0) & (q < cells)
+        visits.append([])
+        if not live.any():
+            continue
+        band = np.where(live, q // gg, -1)
+        c = q - (q // gg) * gg
+        i, j = c // g, c % g
+        cx = np.where(live, lo_x + (i.astype(f32) + f32(0.5)) * step, np.nan)
+        cz = np.where(live, lo_z + (j.astype(f32) + f32(0.5)) * step, np.nan)
+        best_d = np.full(len(row), NEAREST_INF, f32)
+        best = np.full(len(row), -1, np.int32)
+        for b in np.unique(band[live]):
+            px = np.where(band == b, cx, np.nan).astype(f32)
+            pz = np.where(band == b, cz, np.nan).astype(f32)
+            j0, passes = 0, 0
+            while j0 < t_cap:
+                count = 0
+                spos = np.zeros((stage, 2), f32)
+                sid = np.full(stage, -1, np.int64)
+                while j0 < t_cap and count + threads <= stage:
+                    jj = j0 + np.arange(threads)
+                    lv = (jj < t_cap) & act[b, np.minimum(jj, t_cap - 1)]
+                    lanes = lv.reshape(-1, warp)
+                    warp_count = lanes.sum(1)
+                    off = count + np.concatenate([[0],
+                                                  np.cumsum(warp_count)[:-1]])
+                    k = (off[:, None] + np.cumsum(lanes, 1)
+                         - lanes).reshape(-1)
+                    spos[k[lv]] = pos[b, jj[lv]]
+                    sid[k[lv]] = jj[lv]
+                    count += int(warp_count.sum())
+                    j0 += threads
+                passes += 1
+                # the compaction keeps the slots' order
+                assert (np.diff(sid[:count]) > 0).all()
+                hit = np.full(len(row), -1, np.int64)
+                for k in range(count):
+                    ex = px - spos[k, 0]
+                    ez = pz - spos[k, 1]
+                    d = ex * ex + ez * ez
+                    upd = d < best_d
+                    best_d = np.where(upd, d, best_d)
+                    hit = np.where(upd, k, hit)
+                best = np.where(hit >= 0, sid[hit], best).astype(np.int32)
+            visits[-1].append((int(b), passes))
+        out[q[live]] = best[live]
+    return torch.from_numpy(out.reshape(n_bands, g, g)), visits
+
+
+VORONOI_KINDS = sorted(voronoi_cases.CASES)
+
+
+@pytest.mark.parametrize("design", ["kernel", "small"])
+@pytest.mark.parametrize("kind", VORONOI_KINDS)
+def test_nearest_slot_tile_model_matches_plain(kind, design):
+    """The kernel's partition (row tiles across bands, staged passes of
+    ballot-compacted active slots, NaN centres for other bands' rows, ids
+    read back from the stage) gives the plain version's slots bit for bit,
+    with the kernel's constants and with a small design that restages
+    every band several times."""
+    args = voronoi_cases.case(kind)
+    ref = kernels.nearest_slot_plain(*args, 256)
+    threads, rows, stage = (_nearest_slot_design() if design == "kernel"
+                            else (64, 2, 128))
+    got, visits = _nearest_slot_model(*args, threads, rows, stage)
+    assert torch.equal(got, ref)
+    if design == "small" and kind != "no_active_band":
+        assert max(p for v in visits for _, p in v) > 1     # restaged
+    if kind == "t_over_stage" and design == "kernel":
+        assert {p for v in visits for _, p in v} == {2}
+
+
+def test_nearest_slot_tile_model_partition():
+    """With the kernel's constants the mixed case's tiles take 1, 2 and 3
+    bands, its last tile none (padding alone); every band of a tile is
+    visited once, in ascending order."""
+    got, visits = _nearest_slot_model(*voronoi_cases.case("mixed"),
+                                      *_nearest_slot_design())
+    assert {len(v) for v in visits} >= {0, 1, 2, 3}
+    assert visits[-1] == []
+    for v in visits:
+        bands = [b for b, _ in v]
+        assert bands == sorted(set(bands))
+    assert _nearest_slot_design()[2] % _nearest_slot_design()[0] == 0
+
+
+def _nearest_ties(occ_idx, occ_valid, pos, act, lo, s, n_bands, g):
+    """Valid rows whose band has two or more active slots at the least
+    distance (f64, from the f32 centres)."""
+    cx, cz = (v.double().numpy() for v in
+              cell_centers(occ_idx, lo, s, g))
+    band = (occ_idx // (g * g)).numpy()
+    n = 0
+    for r in np.flatnonzero(occ_valid.numpy()):
+        p = pos[band[r]].double().numpy()[act[band[r]].numpy()]
+        if len(p) > 1:
+            d = (cx[r] - p[:, 0]) ** 2 + (cz[r] - p[:, 1]) ** 2
+            n += int((d == d.min()).sum() > 1)
+    return n
+
+
+@pytest.mark.parametrize("kind", VORONOI_KINDS)
+def test_nearest_slot_on_cpu_equals_jax_bruteforce(kind):
+    """On CPU tensors the wrapper is the plain chunked brute force, which
+    equals the JAX package's ``_bruteforce_voronoi`` op by op and gives the
+    same slots at any chunk; the lowest slot wins a tie, -1 where a band
+    has no active slot, cells past the rows stay -1."""
+    args = voronoi_cases.case(kind)
+    occ_idx, occ_valid, pos, act, lo, s, n_bands, g = args
+    kernels.reset_launches()
+    got = kernels.nearest_slot(*args, 256)
+    assert kernels.nearest_slot.launches == 0
+    with jax.disable_jit():
+        ref = jsg._bruteforce_voronoi(
+            *(jnp.asarray(t.numpy()) for t in (occ_idx, occ_valid, pos, act,
+                                               lo, s)), n_bands, g, 256)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(ref))
+    for chunk in (1, 7, pos.shape[1]):
+        if chunk == 1 and pos.shape[1] * int(occ_valid.sum()) > 4e6:
+            continue
+        assert torch.equal(kernels.nearest_slot_plain(*args, chunk), got)
+    occupied = torch.zeros(n_bands * g * g, dtype=torch.bool)
+    occupied[occ_idx[occ_valid].long()] = True
+    assert bool((got.view(-1)[~occupied] == -1).all())
+    if kind in ("ties", "dups"):
+        assert _nearest_ties(*args) > 0
+    if kind == "no_active_band":
+        assert bool((got[1:3] == -1).all()) and bool((got[0] >= 0).any())
+    if kind == "cap":
+        assert int((got >= 0).sum()) == len(occ_idx)
+
+
+def _bad_voronoi_inputs():
+    occ_idx, occ_valid, pos, act, lo, s, n_bands, g = (
+        voronoi_cases.case("mixed"))
+    good = dict(occ_idx=occ_idx, occ_valid=occ_valid, tracked_pos_b=pos,
+                active_b=act, lo=lo, s=s, n_bands=n_bands, g=g, chunk=256)
+    return good, {
+        "i64 indices": dict(occ_idx=occ_idx.long()),
+        "2-D indices": dict(occ_idx=occ_idx[:, None]),
+        "u8 flags": dict(occ_valid=occ_valid.to(torch.uint8)),
+        "short flags": dict(occ_valid=occ_valid[1:]),
+        "f64 positions": dict(tracked_pos_b=pos.double()),
+        "3 coordinates": dict(tracked_pos_b=torch.zeros(n_bands, 300, 3)),
+        "bands differ": dict(n_bands=n_bands + 1),
+        "i32 slot flags": dict(active_b=act.int()),
+        "slot flags short": dict(active_b=act[:, 1:]),
+        "f64 lo": dict(lo=lo.double()),
+        "lo of 2": dict(lo=lo[:2]),
+        "f64 cell size": dict(s=s.double()),
+        "two cell sizes": dict(s=torch.ones(2)),
+        "no grid": dict(g=0),
+        "grid past i32": dict(g=1 << 15),
+        "chunk 0": dict(chunk=0),
+        "meta device": dict(occ_idx=occ_idx.to("meta"),
+                            occ_valid=occ_valid.to("meta"),
+                            tracked_pos_b=pos.to("meta"),
+                            active_b=act.to("meta"), lo=lo.to("meta"),
+                            s=s.to("meta")),
+        "mixed devices": dict(lo=lo.to("meta")),
+    }
+
+
+@pytest.mark.parametrize("bad", sorted(_bad_voronoi_inputs()[1]))
+def test_nearest_slot_checks_its_inputs(bad):
+    good, bads = _bad_voronoi_inputs()
+    kernels.reset_launches()
+    with pytest.raises(ValueError,
+                       match="device" if "device" in bad else "nearest_slot"):
+        kernels.nearest_slot(**{**good, **bads[bad]})
+    assert kernels.nearest_slot.launches == 0
+
+
 def _grid_design():
     """The grid flood's constants in ``csrc/jump_flood.cu``."""
     text = (build.CSRC / "jump_flood.cu").read_text()
@@ -1567,11 +1778,14 @@ def test_wrappers_take_plain_path_on_cpu_and_count_no_launch():
     flat = val[:, 0].contiguous()
     assert torch.equal(kernels.take_along_axis(flat, key, None),
                        flat[key.long()])
+    vor = voronoi_cases.case("mixed")
+    assert torch.equal(kernels.nearest_slot(*vor, 256),
+                       kernels.nearest_slot_plain(*vor, 256))
     assert kernels.launches() == {"cc_sweep": 0, "match_scan": 0,
                                   "segmented_cummax": 0, "dilate": 0,
                                   "eye_dome": 0, "segmented_cumsum": 0,
                                   "jump_flood": 0, "take_along_axis": 0,
-                                  "jump_flood_grid": 0}
+                                  "jump_flood_grid": 0, "nearest_slot": 0}
 
 
 def test_wrappers_refuse_devices_without_a_kernel():
@@ -1595,6 +1809,10 @@ def test_wrappers_refuse_devices_without_a_kernel():
         kernels.jump_flood_grid(slot[0], pos[0], cc, [1])
     with pytest.raises(ValueError, match="device"):
         kernels.take_along_axis(meta[4], meta[3][:, None] % 4, 1)
+    vor = voronoi_cases.case("mixed")
+    with pytest.raises(ValueError, match="device"):
+        kernels.nearest_slot(*(a.to("meta") for a in vor[:6]), *vor[6:],
+                             256)
     assert sum(kernels.launches().values()) == 0
 
 
@@ -1646,7 +1864,7 @@ def test_build_targets_hopper_without_fma_contraction(monkeypatch, tmp_path):
     names = {p.name for p in build.sources()}
     assert {"cc_sweep.cu", "match_scan.cu", "seg_cummax.cu", "dilate.cu",
             "eye_dome.cu", "seg_cumsum.cu", "jump_flood.cu",
-            "take_along.cu"} <= names
+            "take_along.cu", "nearest_slot.cu"} <= names
     assert "tools/probe_extract.py::try_kernel" in (
         build.CSRC / "take_along.cu").read_text()
     # the two step kernels and the flood run as one thread-block cluster

@@ -330,11 +330,18 @@ def test_every_host_sync_of_a_step_and_a_frame_is_a_marked_wait():
     cam = Camera.orbital(distance=60.0, device="cuda")
     s.segment(0.75)
     s.render(cam)
+    voronoi = kernels.nearest_slot.launches
     with profiling.enable():
         _, step_syncs = _syncs(lambda: s.segment(0.75))
         _, frame_syncs = _syncs(lambda: s.render(cam))
     (step,) = profiling.records("Session.segment")
     (frame,) = profiling.records("Session.render")
+    # the step's Voronoi is one kernel launch and adds no wait
+    assert kernels.nearest_slot.launches == voronoi + 1
+    assert set(step["waited"]) == {
+        "segmentation.distance", "segmentation.bincount",
+        "segmentation.cc.nonzero", "segmentation.cc.fixpoint",
+        "Session.segment.overflow"}
     assert sum(step["waited"].values()) == len(step_syncs), (
         step["waited"], "\n".join(step_syncs))
     assert sum(frame["waited"].values()) == len(frame_syncs), (

@@ -8,7 +8,8 @@ brute-force Voronoi, segmented-cummax kernel), and keeps the JAX package's
 choice of Voronoi:
 
 - ``use_bruteforce_voronoi=True`` (the default): the exact nearest tracked
-  centroid at the occupied cells.
+  centroid at the occupied cells, through the ``nearest_slot`` kernel on a
+  CUDA tensor (``voronoi_chunk`` is its plain version's).
 - ``use_bruteforce_voronoi=False, use_packed_jfa=False``: the unpacked
   jump flood, through the ``jump_flood`` kernel on a CUDA tensor.  This is
   what the JAX package computes with ``use_pallas=True`` (its Pallas jump
@@ -67,7 +68,7 @@ class SegmentationConfig:
     match_rounds: int = 4               # mutual-nearest matching rounds per band
     use_packed_jfa: bool = True         # packed jump flood (when not brute force)
     use_bruteforce_voronoi: bool = True  # exact Voronoi at occupied cells
-    voronoi_chunk: int = 256            # tracked slots per running-min chunk
+    voronoi_chunk: int = 256            # slots per running-min chunk (plain)
     cc_sweeps: int = 64                 # min-pool sweeps per CC body
 
 

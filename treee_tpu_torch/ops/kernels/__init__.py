@@ -18,12 +18,14 @@ from .jump_flood import resident_clusters as jump_flood_clusters
 from .jump_flood import route as jump_flood_route
 from .jump_flood import steps as jump_flood_steps
 from .match_scan import match_scan, match_scan_plain
+from .nearest_slot import nearest_slot, nearest_slot_plain
 from .seg_cummax import segmented_cummax, segmented_cummax_plain
 from .seg_cumsum import segmented_cumsum, segmented_cumsum_plain
 from .take_along import take_along_axis, take_along_axis_plain
 
 WRAPPERS = (cc_sweep, match_scan, segmented_cummax, dilate, eye_dome,
-            segmented_cumsum, jump_flood, take_along_axis, jump_flood_grid)
+            segmented_cumsum, jump_flood, take_along_axis, jump_flood_grid,
+            nearest_slot)
 
 
 def reset_launches() -> None:

@@ -12,7 +12,8 @@ The same algorithm at the TPU's defaults:
    tracked centroids within 2d, new slots for the rest (CUDA kernel
    ``match_scan``).
 4. *Assign*: each occupied cell takes its band's nearest tracked centroid
-   (brute force over the slots, the default), or every cell takes the slot
+   (brute force over the slots, the default: CUDA kernel
+   ``nearest_slot``), or every cell takes the slot
    a jump flood from the centroids' cells reaches (CUDA kernel
    ``jump_flood``, or the packed flood in plain torch); every point takes
    its cell's.
@@ -28,6 +29,7 @@ import torch
 from .config import SegmentationConfig
 from .ops import kernels
 from .ops.kernels.dilate import full
+from .ops.kernels.nearest_slot import cell_centers
 from .ops.sums import sums_by_key
 from .parallel.program import run_alone
 from .utils.profiling import span, waited
@@ -111,15 +113,6 @@ def _connected_components(occupied: torch.Tensor, occ_cap: int, sweeps: int):
         lbl = new
 
 
-def _cell_centers(occ_idx: torch.Tensor, lo: torch.Tensor, s: torch.Tensor,
-                  g: int):
-    """(x, z) centres of the cells at global flat indices ``occ_idx``."""
-    cell = occ_idx % (g * g)
-    cx = lo[0] + ((cell // g).float() + 0.5) * s
-    cz = lo[2] + ((cell % g).float() + 0.5) * s
-    return cx, cz
-
-
 def _sums_by_target(tgt: torch.Tensor, val: torch.Tensor,
                     size: int) -> torch.Tensor:
     """Sums of the rows of ``val`` f32[M,C] per target index in [0, size).
@@ -158,7 +151,7 @@ def _extract_clusters(labels, cnt, lo, s, max_clusters: int, min_points: int,
     root = occ_idx // gg * gg + l_occ.clamp(0, gg - 1)
     tgt = torch.where(occ_valid & (l_occ != IBIG), root, b * gg).long()
     cnt_occ = cnt.reshape(-1)[occ_l]
-    center_x, center_z = _cell_centers(occ_idx, lo, s, g)
+    center_x, center_z = cell_centers(occ_idx, lo, s, g)
     w = cnt_occ.float()
     pcount = torch.zeros(b * gg + 1, dtype=torch.int32, device=dev)
     pcount.index_add_(0, tgt, cnt_occ)
@@ -188,36 +181,6 @@ def _extract_clusters(labels, cnt, lo, s, max_clusters: int, min_points: int,
     denom = pcount[groots].clamp(min=1).float()
     cents = torch.stack([psx[groots] / denom, psz[groots] / denom], dim=-1)
     return cents, mask
-
-
-def _bruteforce_voronoi(occ_idx, occ_valid, tracked_pos_b, active_b, lo, s,
-                        n_bands: int, g: int, chunk: int) -> torch.Tensor:
-    """Nearest active tracked slot of each occupied cell's band, i32[B,G,G].
-
-    Each occupied cell scores every slot of its band, chunked over the slots
-    with a running minimum; ties go to the lowest slot.  Cells that are not
-    among the first ``occ_cap`` occupied ones, and empty cells, get -1.
-    """
-    gg = g * g
-    t_cap = tracked_pos_b.shape[1]
-    occ_band = (occ_idx // gg).long()
-    ccx, ccz = _cell_centers(occ_idx, lo, s, g)
-    best_d = torch.full_like(ccx, INF)
-    best = torch.full_like(occ_idx, -1)
-    for c0 in range(0, t_cap, chunk):
-        c1 = min(c0 + chunk, t_cap)
-        tp = tracked_pos_b[:, c0:c1][occ_band]               # [occ, chunk, 2]
-        at = active_b[:, c0:c1][occ_band]
-        ex = ccx[:, None] - tp[..., 0]
-        ez = ccz[:, None] - tp[..., 1]
-        dist = torch.where(at, ex * ex + ez * ez, INF)
-        dm = dist.amin(dim=1)
-        j = torch.argmin(dist, dim=1)
-        upd = dm < best_d
-        best = torch.where(upd & (dm < INF), c0 + j.to(torch.int32), best)
-        best_d = torch.where(upd, dm, best_d)
-    tgt = torch.where(occ_valid, occ_idx, n_bands * gg)
-    return _scatter_set(n_bands * gg, -1, tgt, best).view(n_bands, g, g)
 
 
 def _seed_grids(tracked_pos_b, active_b, lo, s, g: int):
@@ -399,7 +362,7 @@ def band_scan(cnt, lo, s, d: float, cfg: SegmentationConfig):
             cents_b, cmask_b, radius, cfg.match_rounds, cfg.max_segments)
     with span("segmentation.voronoi", dev):
         if cfg.use_bruteforce_voronoi:
-            slot_grids = _bruteforce_voronoi(
+            slot_grids = kernels.nearest_slot(
                 occ_idx, occ_valid, tracked_pos_b, active_b, lo, s,
                 cnt.shape[0], g, cfg.voronoi_chunk)
             return slot_grids, n_alloc, tracked_pos_b, active_b
