@@ -24,7 +24,9 @@ Tolerances, and why:
 - ``chm.asc``: byte for byte, as tests/test_torch_rasters.py holds
   ``export_raster``;
 - the ``.ply`` exports: their row counts; the RBV distances and landmarks
-  rtol 1e-5 (tests/test_torch_focus.py's RBV mean grids);
+  rtol 1e-5 (tests/test_torch_focus.py's RBV mean grids); the port's hull
+  is exact, so the JAX CLI's hull export takes ``exact=True`` (its own
+  hull of more than 512 points is the 512 support candidates' alone);
 - the frame: the share of equal pixels at least
   tests/test_torch_render.py's ``MIN_KEY_AGREEMENT``, because the JAX CLI
   renders jitted (XLA contracts the depth key's ``p22 * vz + p23`` into an
@@ -48,6 +50,7 @@ import torch
 
 from tests.test_serve import _decode_png
 from treee_tpu import app as japp
+from treee_tpu import hull3d as jhull
 from treee_tpu_torch import app as tapp
 
 import torch_threads
@@ -101,6 +104,9 @@ def runs(tmp_path_factory):
     pytest.importorskip("PIL")  # the JAX CLI writes its frames through PIL
     mp = pytest.MonkeyPatch()
     mp.setenv("TREEE_APP_CONFIG", "small")
+    exact = jhull.convex_hull
+    mp.setattr(jhull, "convex_hull", lambda pos, mask, **kw: exact(
+        pos, mask, **{**kw, "exact": True}))
     try:
         jd = tmp_path_factory.mktemp("jax_cli")
         td = tmp_path_factory.mktemp("port_cli")

@@ -2,10 +2,11 @@
 profiling.py``) on the CPU: off, a span is one shared no-op and nothing is
 recorded; on (``enable()`` or a recording ``torch.profiler``), records hold
 names, parents, requests, host and device times and the waits of the
-marked sites; the step and the frame record their stages; the CLI's ``-v``
-prints the totals.  One test needs the card: every host sync of a step and
-of a frame there is a marked site, and children's device times fit in
-their parent's.  On the card, where JAX is absent, run it as
+marked sites; the step, the frame and the focused view record their
+stages; the CLI's ``-v`` prints the totals.  Two tests need the card: every
+host sync of a step, a frame and a focused view there is a marked site,
+and children's device times fit in their parent's.  On the card, where
+JAX is absent, run them as
 
     python -m pytest --noconftest -m cuda tests/test_torch_tracing.py
 """
@@ -245,6 +246,66 @@ def test_a_frame_records_its_stages_and_waits(stand):
     assert all(r["parent"] == req["id"] for r in recs if r is not recs[0])
 
 
+FOCUS = dict(display="curve", show_hull=True, hull_include="crown",
+             show_rbv=True, rbv_method="max", show_axis=True,
+             axis_algo="average")
+FOCUS_STAGES = {"focus.rows", "focus.property", "focus.axis", "focus.hull",
+                "focus.rbv", "focus.lines", "render.splat", "render.shade",
+                "render.readback"}
+
+
+def _largest(s):
+    counts = s.table.count.cpu().numpy()
+    return int(counts[1:].argmax()) + 1
+
+
+def test_a_focus_request_records_its_stages_and_waits(stand):
+    """A first open of a tree (caches dropped): its stages nest under the
+    ``Session.render_focus`` request, the k-NN inside the property, and its
+    host reads are counted; the frame is the untraced one."""
+    s = tpl.Session.from_points(stand, _small_config(), device="cpu")
+    s.segment(0.75)
+    sid = _largest(s)
+    cam = Camera.orbital(distance=30.0, device="cpu")
+    ref = s.render_focus(sid, cam, **FOCUS)
+    s._clear_focus()
+    with profiling.enable():
+        img = s.render_focus(sid, cam, **FOCUS)
+    assert (img == ref).all()
+    (req,) = profiling.records("Session.render_focus")
+    assert req["parent"] is None
+    assert {k: v["count"] for k, v in req["descendants"].items()} == {
+        **{k: 1 for k in FOCUS_STAGES}, "render.shade": 2,
+        "neighbors.knn": 1}
+    recs = _by_id()
+    (knn,) = profiling.records("neighbors.knn")
+    assert recs[knn["parent"]]["name"] == "focus.property"
+    assert all(r["parent"] == req["id"] for r in recs.values()
+               if r["name"] in FOCUS_STAGES)
+    # the crown holds at most 512 points here: its rows go to the host
+    assert req["waited"] == {
+        "focus.counts": 1, "render.background": 1, "focus.axis.found": 1,
+        "hull.count": 1, "hull.rows": 1, "hull.copy": 2, "rbv.lines": 2,
+        "focus.lines": 1, "render.readback": 1}
+    (hull,) = profiling.records("focus.hull")
+    assert set(hull["waited"]) == {"hull.count", "hull.rows", "hull.copy"}
+    # a second open of the same tree reads its caches: no k-NN, no counts
+    profiling.reset()
+    with profiling.enable():
+        assert (s.render_focus(sid, cam, **FOCUS) == ref).all()
+    (again,) = profiling.records("Session.render_focus")
+    assert "neighbors.knn" not in again["descendants"]
+    assert "focus.counts" not in again["waited"]
+
+
+def test_a_focus_request_records_nothing_with_tracing_off(stand):
+    s = tpl.Session.from_points(stand, _small_config(), device="cpu")
+    s.segment(0.75)
+    s.render_focus(_largest(s), Camera.orbital(distance=30.0, device="cpu"),
+                   **FOCUS)
+    assert profiling.records() == []
+
+
 def test_mesh_shards_nest_their_spans_in_their_own_stacks(stand):
     """Over a mesh each shard program's spans nest in its own stack: a
     shard's spans never hang below another shard's."""
@@ -350,4 +411,44 @@ def test_every_host_sync_of_a_step_and_a_frame_is_a_marked_wait():
     for r in recs:
         kids = [c["device_s"] for c in recs if c["parent"] == r["id"]]
         assert sum(kids) <= r["device_s"] + 0.05e-3, r["name"]
+        assert r["device_s"] > 0
+
+
+@pytest.mark.cuda
+def test_every_host_sync_of_a_focus_request_is_a_marked_wait():
+    """On the card: the syncs of a tree's first open (curvature with hull,
+    RBV and axis overlays, a crown of thousands of points, so the hull
+    takes its interior discard) equal its ``waited`` counts, and each
+    span's children take at most its own device time: those on the
+    request's stream together, the overlays' (on the second stream, beside
+    the curvature) each."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from treee_tpu_torch.ops.kernels import build
+    build.build()
+    build.library()
+    pts = tlas.synthetic_forest(n_trees=16, points_per_tree=8000,
+                                ground_points=20000)
+    s = tpl.Session.from_points(pts, device="cuda")
+    s.segment(0.75)
+    s.characteristics()
+    sid = _largest(s)
+    cam = Camera.orbital(distance=30.0, device="cuda")
+    s.render_focus(sid, cam, **FOCUS)
+    s._clear_focus()
+    with profiling.enable():
+        _, syncs = _syncs(lambda: s.render_focus(sid, cam, **FOCUS))
+    (req,) = profiling.records("Session.render_focus")
+    assert {"hull.directions", "hull.planes",
+            "hull.survivors"} <= set(req["waited"])
+    assert sum(req["waited"].values()) == len(syncs), (
+        req["waited"], "\n".join(syncs))
+    recs = profiling.records()
+    beside = {"focus.axis", "focus.hull", "focus.rbv"}
+    for r in recs:
+        kids = [c for c in recs if c["parent"] == r["id"]]
+        assert sum(c["device_s"] for c in kids
+                   if c["name"] not in beside) <= r["device_s"] + 0.05e-3, (
+            r["name"])
+        assert all(c["device_s"] <= r["device_s"] + 0.05e-3 for c in kids)
         assert r["device_s"] > 0

@@ -5,10 +5,13 @@ Replaces the reference's ``k-nearest`` KD-tree crate (k-nearest/src/
 kd_tree.rs:19-143), used for the 31-neighbour curvature property
 (treee/src/calculations.rs:328-373).
 
-- ``knn_bruteforce``: exact search in query tiles.  Squared distances by the
-  identity ``|q - p|^2 = |q|^2 + |p|^2 - 2 q.p``, clamped at 0, with the
-  cross term as three f32 products and two adds (no matrix multiply, so no
-  TF32 and the card's distances equal the CPU's bit for bit).
+- ``knn_bruteforce``: exact search in query tiles.  Squared distances from
+  the coordinates' differences, ``(dx^2 + dy^2) + dz^2`` in f32, as the
+  grid query takes them (no matrix multiply, so no TF32, and the card's
+  distances equal the CPU's bit for bit).  The JAX package's identity
+  ``|q|^2 + |p|^2 - 2 q.p`` cancels: at coordinates ~100 m from the origin
+  its error (~1e-3 m^2) exceeds the gaps between a point's 31st and 32nd
+  neighbours, and picks other neighbours for ~40% of a tree's points.
 - ``knn_grid``: a grid hash built by one stable sort of cell ids; each query
   takes up to ``cell_capacity`` candidates from each of its 27 neighbour
   cells.  Approximate where a cell overflows its cap or true neighbours lie
@@ -29,6 +32,7 @@ from __future__ import annotations
 import torch
 
 from ..config import NeighborConfig
+from ..utils.profiling import span
 from .eigen import sum3
 from .kernels.dilate import full
 
@@ -54,16 +58,14 @@ def smallest_k(d: torch.Tensor, k: int):
 
 
 def _pairwise_sqdist(q: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
-    """|q_i - p_j|^2 for f32[T,3] x f32[N,3] -> f32[T,N], by the matmul
-    identity of the JAX package, clamped at 0."""
-    qn = sum3(q[:, 0] * q[:, 0], q[:, 1] * q[:, 1], q[:, 2] * q[:, 2])
-    pn = sum3(p[:, 0] * p[:, 0], p[:, 1] * p[:, 1], p[:, 2] * p[:, 2])
-    cross = q[:, 0:1] * p[:, 0]
-    cross += q[:, 1:2] * p[:, 1]
-    cross += q[:, 2:3] * p[:, 2]
-    d = qn[:, None] + pn[None, :]
-    d -= 2.0 * cross
-    return d.clamp_(min=0.0)
+    """|q_i - p_j|^2 for f32[T,3] x f32[N,3] -> f32[T,N]: the differences
+    squared and summed as ``(dx^2 + dy^2) + dz^2``, in place."""
+    d = q[:, 0:1] - p[:, 0]
+    d.mul_(d)
+    for c in (1, 2):
+        t = q[:, c:c + 1] - p[:, c]
+        d += t.mul_(t)
+    return d
 
 
 def knn_bruteforce(pos: torch.Tensor, valid: torch.Tensor, k: int = 31,
@@ -77,15 +79,16 @@ def knn_bruteforce(pos: torch.Tensor, valid: torch.Tensor, k: int = 31,
     unbounded radius (calculations.rs:279-280: k=31, max_distance=f32::MAX).
     """
     n = pos.shape[0]
-    idx = torch.empty((n, k), dtype=torch.int32, device=pos.device)
-    dist = torch.empty((n, k), dtype=torch.float32, device=pos.device)
-    for t0 in range(0, n, tile):
-        d = _pairwise_sqdist(pos[t0:t0 + tile], pos)
-        d = torch.where(valid[None, :], d, INF)
-        i, v = smallest_k(d, k)
-        idx[t0:t0 + tile] = i.to(torch.int32)
-        dist[t0:t0 + tile] = v
-    return idx, dist
+    with span("neighbors.knn", pos.device):
+        idx = torch.empty((n, k), dtype=torch.int32, device=pos.device)
+        dist = torch.empty((n, k), dtype=torch.float32, device=pos.device)
+        for t0 in range(0, n, tile):
+            d = _pairwise_sqdist(pos[t0:t0 + tile], pos)
+            d = torch.where(valid[None, :], d, INF)
+            i, v = smallest_k(d, k)
+            idx[t0:t0 + tile] = i.to(torch.int32)
+            dist[t0:t0 + tile] = v
+        return idx, dist
 
 
 class GridHash:
@@ -180,15 +183,17 @@ def knn_grid_reduce(pos: torch.Tensor, valid: torch.Tensor, cell_size,
     returns a tuple of ``[B, ...]`` tensors, called on blocks of rows sized
     by :func:`query_block`; returns those tensors for all query rows.  The
     hash holds the valid points; a result does not depend on the blocks."""
-    grid = GridHash(pos, valid, cell_size, grid_bits)
-    if rows is None:
-        rows = torch.arange(pos.shape[0], device=pos.device)
-    block = query_block(cell_capacity, pos.device)
-    parts = [per_row(*_query(grid, rows[b0:b0 + block], k, cell_capacity))
-             for b0 in range(0, rows.shape[0], block)]
-    if not parts:
-        parts = [per_row(*_query(grid, rows[:0], k, cell_capacity))]
-    return tuple(torch.cat(leaves) for leaves in zip(*parts))
+    with span("neighbors.knn", pos.device):
+        grid = GridHash(pos, valid, cell_size, grid_bits)
+        if rows is None:
+            rows = torch.arange(pos.shape[0], device=pos.device)
+        block = query_block(cell_capacity, pos.device)
+        parts = [per_row(*_query(grid, rows[b0:b0 + block], k,
+                                 cell_capacity))
+                 for b0 in range(0, rows.shape[0], block)]
+        if not parts:
+            parts = [per_row(*_query(grid, rows[:0], k, cell_capacity))]
+        return tuple(torch.cat(leaves) for leaves in zip(*parts))
 
 
 def knn_grid(pos: torch.Tensor, valid: torch.Tensor, cell_size, k: int = 31,

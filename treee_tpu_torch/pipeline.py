@@ -35,6 +35,7 @@ cloud's curvature of ``export_points_ply``).
 
 from __future__ import annotations
 
+import contextlib
 import logging
 
 import numpy as np
@@ -225,6 +226,8 @@ class Session:
         # display properties on the device, per name (attribute_prop)
         self.attributes: dict[str, np.ndarray] = {}
         self._attr_dev: dict[str, tuple] = {}
+        # the focused view's second stream of the card (_beside)
+        self._side: torch.cuda.Stream | None = None
 
     # ---- the two forms of a per-point value ----------------------------------
 
@@ -799,6 +802,7 @@ class Session:
         cnt = None
         if self.table is not None and not self._counts_stale:
             if self._counts_np is None:
+                waited("focus.counts")
                 self._counts_np = self.table.count.cpu().numpy()
             if 0 <= segment_id < len(self._counts_np):
                 cnt = int(self._counts_np[segment_id])
@@ -806,6 +810,7 @@ class Session:
             cnt = _lru_get(self._focus_cnt_cache, segment_id)
         if cnt is None:
             member = self._member_mask(segment_id)
+            waited("focus.count")
             cnt = self._count(member)
             self._focus_cnt_cache[segment_id] = cnt
             _evict_oldest(self._focus_cnt_cache, 64)
@@ -970,108 +975,176 @@ class Session:
         """
         if display not in FOCUS_DISPLAYS and display not in self.attributes:
             raise ValueError(f"unknown display {display!r}")
+        dev = self.device
+        rcfg = self.config.render
+        with span("Session.render_focus", dev):
+            kimg, cam, pal, rows_ready, f_pos, f_member, f_cls = (
+                self._focus_keys(segment_id, camera, display))
+            ep = None
+            if show_hull or show_rbv or show_axis:
+                # the overlays take no curvature: on a card they run on a
+                # second stream while the first computes it
+                with self._beside(rows_ready) as main:
+                    # each overlay's lines, drawn in one pass: they share
+                    # their colour, and each line's pixels depend on the
+                    # splat's depth alone
+                    host_lines, dev_lines = [], []
+                    tf = None
+                    if show_rbv or show_axis:
+                        with span("focus.axis", dev):
+                            axis_fn = (trunk_axis.low_high_layer
+                                       if axis_algo == "lowhigh"
+                                       else trunk_axis.average_direction)
+                            axis = axis_fn(f_pos,
+                                           f_member & (f_cls == CLASS_TRUNK))
+                            tf = trunk_axis.axis_transform(axis)
+                            if show_axis:
+                                waited("focus.axis.found")
+                                if bool(axis.found):
+                                    y = f_pos[:, 1]
+                                    extent = (
+                                        torch.where(f_member, y, -3e38).amax()
+                                        - torch.where(f_member, y,
+                                                      3e38).amin())
+                                    dev_lines.append(
+                                        trunk_axis.axis_lines(axis, extent))
+                    if show_hull:
+                        with span("focus.hull", dev):
+                            h = hull3d.convex_hull(f_pos, f_member & (
+                                include_mask(f_cls, hull_include)))
+                            if h is not None:
+                                host_lines.append(
+                                    h.vertices[hull3d.hull_edges(h.faces)])
+                    if show_rbv:
+                        with span("focus.rbv", dev):
+                            kw = dict(transform=tf, symmetric=rbv_symmetric,
+                                      method=(rbv_mod.METHOD_MEAN
+                                              if rbv_method == "mean"
+                                              else rbv_mod.METHOD_MAX))
+                            if rbv_slices is not None:
+                                kw.update(crown_slices=rbv_slices,
+                                          trunk_slices=rbv_slices)
+                            if rbv_sectors is not None:
+                                kw.update(crown_sectors=rbv_sectors,
+                                          trunk_sectors=rbv_sectors)
+                            crown, trunk = rbv_mod.split_rbv(
+                                f_pos, f_cls, f_member, **kw)
+                            host_lines += [rbv_mod.rbv_lines(crown),
+                                           rbv_mod.rbv_lines(trunk)]
+                    host_lines = [e for e in host_lines if len(e)]
+                    if host_lines:
+                        waited("focus.lines")        # a copy to the device
+                        dev_lines.insert(0, torch.as_tensor(
+                            np.concatenate(host_lines), device=dev))
+                    if dev_lines:
+                        ep = torch.cat(dev_lines)
+                        if main is not None:
+                            ep.record_stream(main)
+            color, z01, _ = splat.resolve_keys(kimg, cam, pal, rcfg)
+            if ep is not None:
+                with span("focus.lines", dev):
+                    color = lines.overlay(color, z01, ep, cam, rcfg)
+            return _u8(splat.eye_dome(color, z01, rcfg))
+
+    @contextlib.contextmanager
+    def _beside(self, ready):
+        """Run the block on the session's second stream of its card, from
+        ``ready`` (an event of the current stream) on, and have the current
+        stream wait for the block's work; yields the current stream.  With
+        no event (on the CPU) the block runs as it is and yields None."""
+        if ready is None:
+            yield None
+            return
+        main = torch.cuda.current_stream(self.device)
+        if self._side is None:
+            self._side = torch.cuda.Stream(self.device)
+        self._side.wait_event(ready)
+        with torch.cuda.stream(self._side):
+            yield main
+        main.wait_stream(self._side)
+
+    def _focus_keys(self, segment_id: int, camera: Camera | None,
+                    display: str):
+        """The focused view's splat pass up to its key image: (keys
+        i32[H,W], camera, palette, an event of the current stream once the
+        rows are gathered (None off a card), and the pos, member and
+        classification of the rows drawn), in spans ``focus.rows`` and
+        ``focus.property``."""
         cam = camera if camera is not None else self.camera
         pal = self.palette
-        rcfg = self.config.render
         if display in ("expansion", "height") and self.table is None:
             # before any gather: characteristics() replaces the classes,
             # which the expansion's crown filter and the overlays read
             self.characteristics()
-        member, cnt, use_grid = self._member_and_grid(segment_id)
-        if use_grid:
-            if member is None:
-                member = self._member_mask(segment_id)
-            f_pos = self._whole(self._col("pos"))
-            f_member = self._whole(member)
-            f_cls = self._whole(self._col("classification"))
-
-            def rows(x):
-                return self._whole(x)
-        else:
-            idx, seg_sub, f_member, f_pos, f_cls = self._focus_rows(
-                segment_id, member, cnt)
-
-            def rows(x):
-                return self._take(x, idx)
-
-        if display in self.attributes:
-            # the cached full-cloud property; rgb brings its own palette
-            prop, pal_over = self.attribute_prop(display)
-            if pal_over is not None:
-                pal = pal_over
-            f_prop = rows(prop)
-        elif display == "hag":
-            f_prop = rows(self.hag_prop())  # the cached full-cloud property
-        elif display == "classification":
-            # Ground, Trunk, Crown -> 1/8, 3/8, 6/8 of the palette
-            # (mod.rs:1031-1039)
-            f_prop = torch.tensor([1 / 8, 3 / 8, 6 / 8], dtype=torch.float32,
-                                  device=self.device)[f_cls.long()]
-        elif display in ("expansion", "height"):
+        with span("focus.rows", self.device):
+            member, cnt, use_grid = self._member_and_grid(segment_id)
             if use_grid:
-                exp, hgt = (self._whole(x) for x in self.properties())
+                if member is None:
+                    member = self._member_mask(segment_id)
+                f_pos = self._whole(self._col("pos"))
+                f_member = self._whole(member)
+                f_cls = self._whole(self._col("classification"))
+
+                def rows(x):
+                    return self._whole(x)
             else:
-                # the slice areas are segment-local and the rows hold all
-                # of the segment's points, so member rows get the values
-                # of the full cloud's run
-                exp, hgt = ch.segment_properties(
-                    f_pos, seg_sub, f_member, f_cls, self.table,
-                    self.config.segmentation.max_segments + 1,
-                    self.config.characteristics)
-            f_prop = exp if display == "expansion" else hgt
-            if display == "expansion":
-                f_prop = torch.div(f_prop, torch.clamp(
-                    torch.where(f_member, f_prop, 0.0).amax(), min=1e-6))
-        elif display == "curve":
-            f_prop = (self._whole(self.curvature(segment_id)) if use_grid
-                      else self._focus_sub("curve", segment_id, member,
-                                           cnt)[0])
-        else:   # shaded: Lambert brightness from the k-NN normals
-            nrm = (self._whole(self.normals(segment_id)) if use_grid else
-                   self._focus_sub("normals", segment_id, member, cnt)[0])
-            light = torch.tensor(SHADE_LIGHT, dtype=torch.float32,
-                                 device=self.device)
-            lam = nrm * light
-            lam = torch.clamp((lam[:, 0] + lam[:, 1]) + lam[:, 2], min=0.0)
-            f_prop = 0.15 + 0.85 * lam
+                idx, seg_sub, f_member, f_pos, f_cls = self._focus_rows(
+                    segment_id, member, cnt)
 
-        color, z01, _ = splat.render_points(f_pos, f_prop, f_member, cam,
-                                            pal, rcfg)
+                def rows(x):
+                    return self._take(x, idx)
+            rows_ready = None
+            if f_pos.is_cuda:
+                rows_ready = torch.cuda.Event()
+                rows_ready.record(torch.cuda.current_stream(self.device))
 
-        overlays = []
-        axis = tf = None
-        if show_rbv or show_axis:
-            axis_fn = (trunk_axis.low_high_layer if axis_algo == "lowhigh"
-                       else trunk_axis.average_direction)
-            axis = axis_fn(f_pos, f_member & (f_cls == CLASS_TRUNK))
-            tf = trunk_axis.axis_transform(axis)
-        if show_hull:
-            h = hull3d.convex_hull(f_pos,
-                                   f_member & include_mask(f_cls, hull_include))
-            if h is not None:
-                overlays.append(h.vertices[hull3d.hull_edges(h.faces)])
-        if show_rbv:
-            kw = dict(transform=tf, symmetric=rbv_symmetric,
-                      method=(rbv_mod.METHOD_MEAN if rbv_method == "mean"
-                              else rbv_mod.METHOD_MAX))
-            if rbv_slices is not None:
-                kw.update(crown_slices=rbv_slices, trunk_slices=rbv_slices)
-            if rbv_sectors is not None:
-                kw.update(crown_sectors=rbv_sectors, trunk_sectors=rbv_sectors)
-            crown, trunk = rbv_mod.split_rbv(f_pos, f_cls, f_member, **kw)
-            overlays += [rbv_mod.rbv_lines(crown), rbv_mod.rbv_lines(trunk)]
-        if show_axis and bool(axis.found):
-            y = f_pos[:, 1]
-            lo_y = float(torch.where(f_member, y, 3e38).amin())
-            hi_y = float(torch.where(f_member, y, -3e38).amax())
-            overlays.append(trunk_axis.axis_lines(axis, hi_y - lo_y))
-
-        for ep in overlays:
-            if len(ep):
-                color = lines.overlay(color, z01,
-                                      torch.as_tensor(ep, device=self.device),
-                                      cam, rcfg)
-        return _u8(splat.eye_dome(color, z01, rcfg))
+        with span("focus.property", self.device):
+            if display in self.attributes:
+                # the cached full-cloud property; rgb brings its own palette
+                prop, pal_over = self.attribute_prop(display)
+                if pal_over is not None:
+                    pal = pal_over
+                f_prop = rows(prop)
+            elif display == "hag":
+                f_prop = rows(self.hag_prop())  # the cached full property
+            elif display == "classification":
+                # Ground, Trunk, Crown -> 1/8, 3/8, 6/8 of the palette
+                # (mod.rs:1031-1039)
+                f_prop = torch.tensor([1 / 8, 3 / 8, 6 / 8],
+                                      dtype=torch.float32,
+                                      device=self.device)[f_cls.long()]
+            elif display in ("expansion", "height"):
+                if use_grid:
+                    exp, hgt = (self._whole(x) for x in self.properties())
+                else:
+                    # the slice areas are segment-local and the rows hold
+                    # all of the segment's points, so member rows get the
+                    # values of the full cloud's run
+                    exp, hgt = ch.segment_properties(
+                        f_pos, seg_sub, f_member, f_cls, self.table,
+                        self.config.segmentation.max_segments + 1,
+                        self.config.characteristics)
+                f_prop = exp if display == "expansion" else hgt
+                if display == "expansion":
+                    f_prop = torch.div(f_prop, torch.clamp(
+                        torch.where(f_member, f_prop, 0.0).amax(), min=1e-6))
+            elif display == "curve":
+                f_prop = (self._whole(self.curvature(segment_id)) if use_grid
+                          else self._focus_sub("curve", segment_id, member,
+                                               cnt)[0])
+            else:   # shaded: Lambert brightness from the k-NN normals
+                nrm = (self._whole(self.normals(segment_id)) if use_grid
+                       else self._focus_sub("normals", segment_id, member,
+                                            cnt)[0])
+                light = torch.tensor(SHADE_LIGHT, dtype=torch.float32,
+                                     device=self.device)
+                lam = nrm * light
+                lam = torch.clamp((lam[:, 0] + lam[:, 1]) + lam[:, 2],
+                                  min=0.0)
+                f_prop = 0.15 + 0.85 * lam
+        kimg = splat.rasterize_keys(f_pos, f_prop, f_member, cam,
+                                    self.config.render)
+        return kimg, cam, pal, rows_ready, f_pos, f_member, f_cls
 
     def inventory(self, method: str = "max", symmetric: bool = False,
                   crown_slices: int = 26, crown_sectors: int = 32,

@@ -46,6 +46,7 @@ from .ops import kernels
 from .ops.kernels.dilate import div, full
 from .ops.sums import ordered_sums, sums_by_key
 from .parallel.program import run_alone
+from .utils.profiling import waited
 
 INF = 3.0e38
 
@@ -415,14 +416,19 @@ def rbv_lines(rbv: RadialBoundingVolume, arc_detail: int = 4) -> np.ndarray:
     frame (``transform * p``, hull.rs:784-786).  Built as arrays in f64 and
     rounded to f32 once, where the JAX package loops over the ~10k lines in
     Python and rounds some coordinates to f32 on the way (so the two agree
-    to about an f32 ulp of the coordinates).
+    to about an f32 ulp of the coordinates).  The grid and its frame come
+    to the host in one copy.
     """
     s, k, arcs = rbv.slices, rbv.sectors, arc_detail
-    d = rbv.distances.cpu().numpy().astype(np.float64).reshape(s, k, 1)
-    cx, cz = (float(v) for v in rbv.center.cpu())
-    min_y, sh = float(rbv.min_y), float(rbv.slice_height)
+    waited("rbv.lines")
+    host = torch.cat([rbv.distances.reshape(-1), rbv.center.reshape(-1),
+                      rbv.min_y.reshape(1), rbv.slice_height.reshape(1),
+                      rbv.transform.reshape(-1)]).cpu().numpy().astype(
+                          np.float64)
+    d = host[:s * k].reshape(s, k, 1)
+    cx, cz, min_y, sh = host[s * k:s * k + 4]
+    tf = host[s * k + 4:].reshape(4, 4)
     sector_angle = 2.0 * math.pi / k
-    tf = rbv.transform.cpu().numpy().astype(np.float64)
 
     # the sector's arc points p_0 .. p_arcs at angles a0 + angle * j / arcs
     ang = (sector_angle * np.arange(k)[:, None]

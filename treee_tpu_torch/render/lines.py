@@ -3,15 +3,17 @@
 
 Each segment is sampled densely, the samples are projected with the splat
 pass's camera, depth-tested against its z-buffer with a small bias (so lines
-win ties against their own surface), and the hit pixels are painted.
+win ties against their own surface), and the hit pixels are painted.  The
+sample parameters and the line colour are made on the frame's device, so
+a call copies nothing from the host but endpoints given as host arrays.
 """
 
 from __future__ import annotations
 
-import numpy as np
 import torch
 
 from ..config import RenderConfig
+from ..ops.kernels.dilate import full
 from .camera import Camera
 from .splat import _pixel, _project, f32
 
@@ -22,11 +24,11 @@ def sample_lines(endpoints: torch.Tensor, samples: int = 32) -> torch.Tensor:
     The sample parameters are XLA's ``linspace(0, 1, samples)`` in f32:
     i * f32(1/(samples-1)), the last one exactly 1.
     """
-    t = np.arange(samples, dtype=np.float32)
+    t = torch.arange(samples, dtype=torch.float32, device=endpoints.device)
     if samples > 1:
-        t *= np.float32(1.0 / (samples - 1))
-        t[-1] = 1.0
-    t = torch.from_numpy(t).to(endpoints.device)[None, :, None]
+        t = t * full(f32(1.0 / (samples - 1)), t)
+        t[-1].fill_(1.0)
+    t = t[None, :, None]
     a = endpoints[:, 0:1, :]
     b = endpoints[:, 1:2, :]
     return (a + (b - a) * t).reshape(-1, 3)
@@ -55,7 +57,7 @@ def overlay(
     visible = ok & (z01_s <= ref + f32(depth_bias))
     tgt = torch.where(visible, pix, w * h).long()
     painted = torch.zeros(w * h + 1, dtype=torch.bool, device=color.device)
-    painted[tgt] = True
+    painted.index_fill_(0, tgt, True)
     painted = painted[: w * h].view(h, w)
-    lc = torch.tensor(line_color, dtype=torch.float32, device=color.device)
+    lc = torch.stack([full(c, color) for c in line_color])
     return torch.where(painted[..., None], lc, color)

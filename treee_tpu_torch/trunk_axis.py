@@ -54,9 +54,17 @@ def _norm(v: torch.Tensor) -> torch.Tensor:
                       + v[..., 2] * v[..., 2])
 
 
+def _unit(axis: int, value: float, like: torch.Tensor) -> torch.Tensor:
+    """f32[3] with ``value`` at ``axis``, 0 elsewhere, made on ``like``'s
+    device by fills: a tensor from a list, or an entry set to a Python
+    number, is a copy from the host, which waits for the card."""
+    v = torch.zeros(3, dtype=torch.float32, device=like.device)
+    v[axis].fill_(value)
+    return v
+
+
 def _up(like: torch.Tensor) -> torch.Tensor:
-    return torch.tensor([0.0, 1.0, 0.0], dtype=torch.float32,
-                        device=like.device)
+    return _unit(1, 1.0, like)
 
 
 def _segment_minmax_y(y, mask, seg_t, n_segments, across: bool):
@@ -220,7 +228,7 @@ def batched_axis_transform(axes: TrunkAxis) -> torch.Tensor:
     yv = axes.direction
     s = yv.shape[0]
     ez = torch.zeros_like(yv)
-    ez[:, 2] = 1.0
+    ez[:, 2].fill_(1.0)     # no copy from the host (see _unit)
     xv = eigen.cross(yv, ez)
     xv = xv / torch.clamp(_norm(xv)[:, None], min=1e-6)
     zv = eigen.cross(xv, yv)
@@ -308,10 +316,10 @@ def axis_transform(axis: TrunkAxis) -> torch.Tensor:
 
 def axis_lines(axis: TrunkAxis, scale) -> torch.Tensor:
     """Render lines of an axis: the axis and a ground cross, f32[3,2,3]
-    endpoints (TrunkAxisRender, trunk_axis.rs:24-43)."""
+    endpoints (TrunkAxisRender, trunk_axis.rs:24-43); ``scale``, the axis's
+    length, is a number or an f32 0-d tensor on the axis's device."""
     o, d = axis.origin, axis.direction
-    ex = torch.tensor([2.5, 0.0, 0.0], dtype=torch.float32, device=o.device)
-    ez = torch.tensor([0.0, 0.0, 2.5], dtype=torch.float32, device=o.device)
+    ex, ez = _unit(0, 2.5, o), _unit(2, 2.5, o)
     return torch.stack([torch.stack([o, o + d * scale]),
                         torch.stack([o - ex, o + ex]),
                         torch.stack([o - ez, o + ez])])
