@@ -8,7 +8,7 @@ Phases, each of which raises on failure:
 
 0. The device: the card's name and power limit, the toolchain, the build
    of the port's CUDA kernels (the eight TPU kernels', the rasters' grid
-   flood and the step's Voronoi) from ``treee_tpu_torch/ops/kernels/csrc``
+   flood, the step's Voronoi and the focused view's k-NN) from ``treee_tpu_torch/ops/kernels/csrc``
    (into ``build/treee_tpu_torch/``).
 1-7. Each kernel of a path on the card at the shapes its path gives it (its
    inputs are recorded from one run of the main path, one ``Session.render``,
@@ -27,6 +27,10 @@ Phases, each of which raises on failure:
    JAX package runs XLA ops there), the same way at the main path's
    recorded call, with its device time a call from calls queued back to
    back.
+7c. The focused view's exact k-NN, ``knn_select`` (no TPU kernel: the JAX
+   package selects with ``lax.top_k``), the same way at the recorded call
+   of the largest tree's curvature and at a 40,000-point tree snug in
+   40,960 rows (k = 31), where one call must count one launch.
 8. The main path as a user drives it: ``Session.from_points(...).segment()``
    and ``.table``, then ``octree.build_keys``, on the 15M-point synthetic
    forest that ``bench.py`` times (937 trees of 12,000 points, 7 m apart,
@@ -275,8 +279,17 @@ KERNELS = (
     # XLA ops there, treee_tpu/segmentation.py:465 _bruteforce_voronoi)
     ("nearest_slot", "treee_tpu_torch/ops/kernels/csrc/nearest_slot.cu",
      "no TPU kernel: treee_tpu/segmentation.py:465"),
+    # the focused view's exact k-NN: no TPU kernel (the JAX package selects
+    # with lax.top_k, treee_tpu/ops/neighbors.py:67)
+    ("knn_select", "treee_tpu_torch/ops/kernels/csrc/knn_select.cu",
+     "no TPU kernel: treee_tpu/ops/neighbors.py:67"),
 )
-# the kernels that phases 1-7 hold against their plain versions on the
+# the phases of the kernels that replace no TPU kernel
+SIDE_PHASES = {"nearest_slot": "7b", "knn_select": "7c"}
+# phase 7c's snug tree: the focus cell's largest, 40,000 members in 40,960
+# rows, the port's snug capacity
+KNN_SNUG = (40_000, 40_960)
+# the kernels that phases 1-7c hold against their plain versions on the
 # paths' recorded inputs; the gather probe's kernel has only the probe
 # tool's path (phase 13), the rasters' flood phase 16
 PATH_KERNELS = tuple(k for k, _, _ in KERNELS
@@ -465,7 +478,8 @@ def work(name: str, args: tuple, kernels) -> tuple[int, int]:
     bands that hold a seed (a band without one is its input copied), and
     jump_flood_grid likewise over its one grid;
     take_along_axis one per output; nearest_slot 5 per valid row and
-    active slot of its band, the bytes of its -1 fill included)."""
+    active slot of its band, the bytes of its -1 fill included;
+    knn_select 8 per pair of rows, 13 bytes a row in and 8 k out)."""
     if name == "cc_sweep":
         lbl, sweeps = args[:2]
         fix = sweeps_to_fixpoint(kernels.cc_sweep_plain, lbl, sweeps)
@@ -507,6 +521,10 @@ def work(name: str, args: tuple, kernels) -> tuple[int, int]:
         pairs = int(act.sum(1)[band].sum())
         return (5 * occ_idx.numel() + 9 * act.numel() + 4 * n_bands * g * g,
                 5 * pairs)
+    if name == "knn_select":
+        pos, _, k = args[:3]
+        n = pos.shape[0]
+        return 13 * n + 8 * k * n, 8 * n * n
     raise KeyError(name)
 
 
@@ -748,6 +766,19 @@ def frame_extras(calls: list, device) -> list:
     dense = dense_keys(*kimg.shape, 0, device)
     return [(f"dense {list(kimg.shape)}, r={r}", (dense, r, *params))
             for r in (3, 8)]
+
+
+def knn_extras(las, device) -> list:
+    """The k-NN at phase 7c's snug shape: a synthetic tree's members, then
+    the invalid tail of its snug buffer (zeros, as compaction leaves it)."""
+    members, rows = KNN_SNUG
+    rng = np.random.default_rng(21)
+    pos = np.zeros((rows, 3), np.float32)
+    pos[:members] = las.synthetic_tree(rng, np.array([30.0, 2.0, -40.0]),
+                                       n_points=members)
+    valid = torch.arange(rows, device=device) < members
+    return [(f"a {members}-point tree snug in {rows} rows, k=31",
+             (torch.from_numpy(pos).to(device), valid, 31, 1024))]
 
 
 def log_tile_stats(calls: list, extra: list) -> None:
@@ -2420,9 +2451,11 @@ def main() -> int:
         # the focused view: properties() and a focus frame of the largest
         # tree, which runs segment_properties on its compacted rows
         session.properties()
-        session.render_focus(int(torch.argmax(session.table.count[1:])) + 1,
+        largest = int(torch.argmax(session.table.count[1:])) + 1
+        session.render_focus(largest,
                              Camera.orbital(distance=ORBIT_DISTANCE,
                                             device=dev), display="expansion")
+        session.curvature(largest)      # the brute-force k-NN
         for kw in INVENTORY_CALLS:
             session.inventory(**kw)
         del session
@@ -2430,16 +2463,24 @@ def main() -> int:
             MAX_DISTANCE)
     results = {}
     for i, k in enumerate(PATH_KERNELS, start=1):
-        # phases 1-7 hold the TPU kernels' ports, 7b the step's Voronoi
-        log(f"phase {'7b' if k == 'nearest_slot' else i}: {k}")
+        # phases 1-7 hold the TPU kernels' ports, 7b the step's Voronoi, 7c
+        # the focused view's k-NN
+        log(f"phase {SIDE_PHASES.get(k, i)}: {k}")
         if not calls[k]:
             raise AssertionError(f"the port's paths never called {k}")
         extra = (synthetic_scans(calls[k], dev)
                  if k in ("segmented_cummax", "segmented_cumsum") else
-                 frame_extras(calls[k], dev) if k == "dilate" else ())
+                 frame_extras(calls[k], dev) if k == "dilate" else
+                 knn_extras(las, dev) if k == "knn_select" else ())
+        if k == "knn_select":
+            kernels.reset_launches()
+            kernels.knn_select(*extra[0][1])
+            if kernels.knn_select.launches != 1:
+                raise AssertionError(f"{extra[0][0]}: knn_select launched "
+                                     f"{kernels.knn_select.launches} times")
         results[k] = check_kernel(
             k, kernels, calls[k], extra=extra,
-            device="queued" if k == "nearest_slot" else k in FRAME_KERNELS)
+            device="queued" if k in SIDE_PHASES else k in FRAME_KERNELS)
         if k == "dilate":
             log_tile_stats(calls[k], extra)
     del calls
@@ -3012,7 +3053,7 @@ def main() -> int:
     del props, plain_props
 
     # (b) curvature and normals on the brute path
-    curve, c_first = counted(lambda: session.curvature(sid), (),
+    curve, c_first = counted(lambda: session.curvature(sid), ("knn_select",),
                              "curvature")
     _, c_cached = counted(lambda: session.curvature(sid), (), "curvature")
     nrm, n_ms = counted(lambda: session.normals(sid), (), "normals")

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Time two builds of the ``cc_sweep``, ``match_scan``, ``segmented_cummax``,
-``segmented_cumsum``, ``jump_flood``, ``take_along_axis`` and
-``nearest_slot`` kernels (and the frame's) against
+``segmented_cumsum``, ``jump_flood``, ``take_along_axis``,
+``nearest_slot`` and ``knn_select`` kernels (and the frame's) against
 each other on one CUDA card: this tree's sources and those of another
 commit.
 
@@ -9,7 +9,7 @@ commit.
     git archive <commit> treee_tpu_torch/ops/kernels/csrc \\
         | tar -x --strip-components=4 -C build/parent
     python3 compare_kernels.py build/parent [--reps 7] \\
-        [--only cc|scans|flood|grid|gather|frame|voronoi]
+        [--only cc|scans|flood|grid|gather|frame|voronoi|knn]
 
 Each build takes the chosen kernels' sources and ``common.cu`` from its
 directory and the port's nvcc flags, into ``build/compare_kernels/``.
@@ -61,7 +61,15 @@ against this tree's only where no zero is involved):
 - ``--only voronoi``: ``nearest_slot`` (the step's occupied-cell Voronoi)
   at the call of one ``Session.segment(0.75)`` on that scan and with every
   row valid and every slot active; a tree without ``nearest_slot.cu``
-  builds none, and the kernel is timed beside the plain version alone.
+  builds none, and the kernel is timed beside the plain version alone;
+- ``--only knn``: ``knn_select`` (the focused view's brute-force k-NN, k =
+  31) on one synthetic tree of 8,000, 16,000 and 40,072 members in snug
+  buffers of 8,192, 16,384 and 40,960 rows (the focus cell's trees), with
+  its bound (8 operations a pair at 67 TFLOP/s), the wrapper against the
+  plain version in turns, one ``torch.topk`` over the plain version's
+  [rows, rows] int64 keys (made outside the timing) as the library's
+  yardstick, and the device time a call; a tree without
+  ``knn_select.cu`` builds none.
 
 Times are medians of ``--reps`` CUDA-event intervals around one call of the
 C entry point (no wrapper), the builds in turns.
@@ -89,7 +97,7 @@ SOURCES = {"cc": ("cc_sweep.cu", "match_scan.cu"),
            "flood": ("jump_flood.cu",), "grid": ("jump_flood.cu",),
            "gather": ("take_along.cu",),
            "frame": ("dilate.cu", "eye_dome.cu"),
-           "voronoi": ("nearest_slot.cu",)}
+           "voronoi": ("nearest_slot.cu",), "knn": ("knn_select.cu",)}
 # the eye-dome design that linearizes each depth once, timed beside the
 # shipped one
 EYE_DOME_TILE = (Path(__file__).resolve().parent / "variants"
@@ -150,6 +158,8 @@ def load(name: str, where: Path, groups) -> ctypes.CDLL:
         lib.treee_take_along.argtypes = [p, p, p, i, i, i, i, p]
     if "voronoi" in groups:
         lib.treee_nearest_slot.argtypes = [p] * 7 + [i] * 4 + [p]
+    if "knn" in groups:
+        lib.treee_knn_select.argtypes = [p] * 4 + [i] * 2 + [p]
     if "frame" in groups:
         # this tree's dilation takes a stats pointer before the stream
         lib.tile_dilate = hasattr(lib, "treee_dilate_core_cols")
@@ -368,7 +378,8 @@ def main(argv=None) -> int:
     ap.add_argument("--only", choices=tuple(SOURCES), default=None,
                     help="one group's kernels only: cc_sweep and match_scan, "
                          "the two scans, jump_flood, take_along_axis, "
-                         "the frame's dilate and eye_dome, or nearest_slot")
+                         "the frame's dilate and eye_dome, nearest_slot "
+                         "or knn_select")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("compare_kernels: needs a CUDA card", file=sys.stderr)
@@ -387,7 +398,11 @@ def main(argv=None) -> int:
             "shipped": load("shipped", build.CSRC, groups)}
     if "gather" in groups:
         compare_gather(libs, kernels, args.reps, card)
-    if groups == ("gather",):
+    if "knn" in groups:
+        compare_knn({n: lib for n, lib in libs.items()
+                     if n == "shipped" or "knn" in there},
+                    las, kernels, args.reps, card)
+    if groups in (("gather",), ("knn",)):
         return 0
     pts = las.synthetic_forest(n_trees=937, spacing=7.0,
                                points_per_tree=12_000,
@@ -617,6 +632,80 @@ def compare_voronoi(libs, pts, pipeline, kernels, reps, card) -> None:
         launch_times("    shipped", lambda: voronoi_call(libs["shipped"],
                                                          *entry))
         del ref
+
+
+def knn_call(lib, pos, valid, k):
+    """One k-NN selection through a build's entry, its outputs made once a
+    shape (outside the timing)."""
+    n = pos.shape[0]
+    key = (id(lib), "knn", n, k)
+    if key not in _scratch:
+        _scratch[key] = (
+            torch.empty((n, k), dtype=torch.int32, device=pos.device),
+            torch.empty((n, k), dtype=torch.float32, device=pos.device))
+    idx, dist = _scratch[key]
+    build.check(lib.treee_knn_select(
+        pos.data_ptr(), valid.data_ptr(), idx.data_ptr(), dist.data_ptr(), n,
+        k, build.stream(pos)), "knn_select")
+    return idx, dist
+
+
+def compare_knn(libs, las, kernels, reps, card, k: int = 31) -> None:
+    """The focused view's k-NN on one synthetic tree a size, its members
+    first and the snug buffer's invalid tail at the origin.  Each build's
+    C entry alone (bit-equal to the plain version, in turns), the wrapper
+    and the plain version in turns, one ``torch.topk`` over the plain
+    version's keys for all rows at once, each build's device time a call
+    queued back to back, the bound and each launch's device time."""
+    from treee_tpu_torch.ops.kernels.knn_select import _pairwise_sqdist
+
+    for rows, members in ((8192, 8000), (16384, 16000), (40960, 40072)):
+        rng = np.random.default_rng(rows)
+        tree = las.synthetic_tree(rng, np.array([30.0, 2.0, -40.0]),
+                                  trunk_height=6.0, crown_height=12.0,
+                                  crown_radius=4.0, n_points=members)
+        pos = torch.zeros((rows, 3), dtype=torch.float32, device="cuda")
+        pos[:members] = torch.from_numpy(tree).cuda()
+        valid = torch.arange(rows, device="cuda") < members
+        ops = 8 * rows * rows
+        print(f"knn_select {rows} rows ({members} valid), k = {k}: "
+              f"{rows * rows} pairs; bound {ops / 67e12 * 1e3:.4f} ms "
+              f"({ops} operations)", flush=True)
+        ref = kernels.knn_select_plain(pos, valid, k, 1024)
+        compare(f"knn_select {rows} rows, the C entry alone", libs, knn_call,
+                (pos, valid, k), ref, reps, card)
+        print_in_turns(
+            {"wrapper": lambda: kernels.knn_select(pos, valid, k, 1024),
+             "plain": lambda: kernels.knn_select_plain(pos, valid, k, 1024)},
+            reps)
+        d = torch.empty((rows, rows), dtype=torch.float32, device="cuda")
+        for t0 in range(0, rows, 1024):
+            d[t0:t0 + 1024] = _pairwise_sqdist(pos[t0:t0 + 1024], pos)
+        d = torch.where(valid[None, :], d, 3.0e38)
+        keys = d.view(torch.int32).to(torch.int64)
+        del d
+        keys <<= 32
+        keys |= torch.arange(rows, device="cuda")
+        top = torch.topk(keys, k, dim=1, largest=False, sorted=True).values
+        if not torch.equal((top & 0xFFFFFFFF).to(torch.int32), ref[0]):
+            raise AssertionError("knn_select: topk over all keys differs")
+        lib_ms = statistics.median(event_ms(lambda: torch.topk(
+            keys, k, dim=1, largest=False, sorted=True)) for _ in range(reps))
+        print(f"    library: one torch.topk over [{rows}, {rows}] int64 keys "
+              f"{lib_ms:.4f} ms", flush=True)
+        del keys, top
+        for name, lib in libs.items():
+            knn_call(lib, pos, valid, k)
+            torch.cuda.synchronize()
+            n = 10
+            ms = event_ms(lambda: [knn_call(lib, pos, valid, k)
+                                   for _ in range(n)]) / n
+            print(f"    {name}: device {ms:.4f} ms a call ({n} calls queued "
+                  "back to back between CUDA events)", flush=True)
+        launch_times("    shipped", lambda: knn_call(libs["shipped"], pos,
+                                                     valid, k))
+        del ref
+        torch.cuda.empty_cache()
 
 
 def dtm_holes(g: int, seed: int) -> torch.Tensor:

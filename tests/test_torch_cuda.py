@@ -24,7 +24,10 @@ axis, with the wrapper's plan and with small tiles, with seeds at their
 cells and with given positions, and the CUDA launches a call it makes; the
 occupied-cell Voronoi with exact ties, duplicate slots, bands without an
 active slot, slots past one stage, G of 64 to 480, padding rows, rows in
-no order, and on the bench stand's step; a launch that CUDA refuses.  Each
+no order, and on the bench stand's step; the brute-force k-NN's selection
+at row counts ragged over its tiles and chunks, a snug buffer with an
+invalid tail and exact copies across tiles, at k of 1 to 64, and its
+refusal of k past 64; a launch that CUDA refuses.  Each
 output must equal the plain
 version's bit for bit, and each call must count the launches its design
 makes: one, or ceil(radius / passes per launch) for the dilation.  The
@@ -1146,11 +1149,29 @@ def test_interactive_session_runs_on_the_card(dev):
         assert np.abs(a.astype(int) - b.astype(int)).max() <= 1
 
 
+# the knn_select kernel's own shapes: rows ragged over its 16-row tiles and
+# 1024-candidate chunks, a snug buffer with an invalid tail, exact copies
+# 1500 rows apart (across tiles and chunks, so ties meet in one list)
+KNN_KERNEL_CASES = ("rows_8191", "rows_12289", "snug_16384", "duplicates")
+
+
 def _knn_case(case: str):
     """(pos f32[N,3], valid bool[N]) on the CPU for a k-NN edge case."""
     rng = np.random.default_rng(7)
     if case == "empty":
         return torch.zeros((0, 3)), torch.zeros(0, dtype=torch.bool)
+    if case in KNN_KERNEL_CASES:
+        n = {"rows_8191": 8191, "rows_12289": 12289, "snug_16384": 16384,
+             "duplicates": 10000}[case]
+        pos = tlas.synthetic_tree(rng, np.array([30.0, 2.0, -40.0]),
+                                  n_points=n)
+        valid = rng.random(n) < 0.97
+        if case == "snug_16384":
+            valid = np.arange(n) < n - n // 50
+            pos[~valid] = 0.0
+        elif case == "duplicates":
+            pos = pos[np.arange(n) % 1500]
+        return torch.from_numpy(pos), torch.from_numpy(valid)
     pos = torch.from_numpy(rng.uniform(-3, 3, (3000, 3)).astype(np.float32))
     valid = torch.from_numpy(rng.random(3000) < 0.9)
     if case == "no_point":
@@ -1169,19 +1190,37 @@ def _knn_case(case: str):
 
 @pytest.mark.parametrize("case", ["empty", "no_point", "one_point",
                                   "few_members", "all_ties", "overflow",
-                                  "random"])
+                                  "random", *KNN_KERNEL_CASES])
 def test_knn_on_the_card_equals_the_cpu(dev, case):
     """Both k-NNs on the card equal the CPU's bit for bit (elementwise f32
-    arithmetic, one int64 key per candidate, a stable sort), and repeat."""
+    arithmetic; the brute force's ``knn_select`` kernel against the plain
+    version's int64 keys through topk, the grid's stable sort), and
+    repeat.  At the kernel's own shapes the brute force alone, at k = 1,
+    8, 31 and 64."""
     pos, valid = _knn_case(case)
+    if case in KNN_KERNEL_CASES:
+        for k in (1, 8, 31, 64):
+            ref = tnb.knn_bruteforce(pos, valid, k=k)
+            kernels.reset_launches()
+            got = tnb.knn_bruteforce(pos.to(dev), valid.to(dev), k=k)
+            again = tnb.knn_bruteforce(pos.to(dev), valid.to(dev), k=k)
+            assert kernels.knn_select.launches == 2
+            for g, a, r in zip(got, again, ref):
+                assert torch.equal(g, a)
+                assert torch.equal(g.cpu(), r), (case, k)
+        return
     for fn, kw in ((tnb.knn_bruteforce, {}),
                    (tnb.knn_grid, dict(cell_size=0.5, cell_capacity=2)),
                    (tnb.knn_grid, dict(cell_size=0.5))):
         if case == "empty" and fn is tnb.knn_grid:
             continue    # the grid's origin is a reduction over the rows
         ref = fn(pos, valid, **kw)
+        kernels.reset_launches()
         got = fn(pos.to(dev), valid.to(dev), **kw)
         again = fn(pos.to(dev), valid.to(dev), **kw)
+        if fn is tnb.knn_bruteforce:    # no launch for no rows
+            assert kernels.knn_select.launches == (0 if case == "empty"
+                                                   else 2)
         for g, a, r in zip(got, again, ref):
             assert torch.equal(g, a)
             assert torch.equal(g.cpu(), r), (fn.__name__, kw)
@@ -1194,6 +1233,18 @@ def test_knn_on_the_card_equals_the_cpu(dev, case):
         _, dist = tnb.knn_grid(pos.to(dev), valid.to(dev), 0.5,
                                cell_capacity=2)
         assert (dist == 3.0e38).any()
+
+
+def test_knn_select_refuses_k_past_its_lists_on_the_card(dev):
+    """On the card the brute force takes k up to the kernel's 64; past it,
+    where the CPU's plain version still answers, it raises and launches
+    nothing."""
+    pos, valid = _knn_case("random")
+    assert tnb.knn_bruteforce(pos, valid, k=65)[0].shape == (3000, 65)
+    kernels.reset_launches()
+    with pytest.raises(ValueError, match="at most 64"):
+        tnb.knn_bruteforce(pos.to(dev), valid.to(dev), k=65)
+    assert kernels.knn_select.launches == 0
 
 
 def test_eigen_degenerate_branches_on_the_card(dev):

@@ -1781,11 +1781,16 @@ def test_wrappers_take_plain_path_on_cpu_and_count_no_launch():
     vor = voronoi_cases.case("mixed")
     assert torch.equal(kernels.nearest_slot(*vor, 256),
                        kernels.nearest_slot_plain(*vor, 256))
+    pts = val[:, :3].contiguous()
+    for a, b in zip(kernels.knn_select(pts, key > 2, 5, 16),
+                    kernels.knn_select_plain(pts, key > 2, 5, 16)):
+        assert torch.equal(a, b)
     assert kernels.launches() == {"cc_sweep": 0, "match_scan": 0,
                                   "segmented_cummax": 0, "dilate": 0,
                                   "eye_dome": 0, "segmented_cumsum": 0,
                                   "jump_flood": 0, "take_along_axis": 0,
-                                  "jump_flood_grid": 0, "nearest_slot": 0}
+                                  "jump_flood_grid": 0, "nearest_slot": 0,
+                                  "knn_select": 0}
 
 
 def test_wrappers_refuse_devices_without_a_kernel():
@@ -1813,6 +1818,8 @@ def test_wrappers_refuse_devices_without_a_kernel():
     with pytest.raises(ValueError, match="device"):
         kernels.nearest_slot(*(a.to("meta") for a in vor[:6]), *vor[6:],
                              256)
+    with pytest.raises(ValueError, match="device"):
+        kernels.knn_select(meta[4][:, :3].contiguous(), meta[3] > 2, 5, 16)
     assert sum(kernels.launches().values()) == 0
 
 
@@ -1864,7 +1871,7 @@ def test_build_targets_hopper_without_fma_contraction(monkeypatch, tmp_path):
     names = {p.name for p in build.sources()}
     assert {"cc_sweep.cu", "match_scan.cu", "seg_cummax.cu", "dilate.cu",
             "eye_dome.cu", "seg_cumsum.cu", "jump_flood.cu",
-            "take_along.cu", "nearest_slot.cu"} <= names
+            "take_along.cu", "nearest_slot.cu", "knn_select.cu"} <= names
     assert "tools/probe_extract.py::try_kernel" in (
         build.CSRC / "take_along.cu").read_text()
     # the two step kernels and the flood run as one thread-block cluster

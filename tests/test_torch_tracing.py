@@ -436,9 +436,12 @@ def test_every_host_sync_of_a_focus_request_is_a_marked_wait():
     cam = Camera.orbital(distance=30.0, device="cuda")
     s.render_focus(sid, cam, **FOCUS)
     s._clear_focus()
+    knn = kernels.knn_select.launches
     with profiling.enable():
         _, syncs = _syncs(lambda: s.render_focus(sid, cam, **FOCUS))
     (req,) = profiling.records("Session.render_focus")
+    # the curvature's k-NN is one kernel launch and adds no wait
+    assert kernels.knn_select.launches == knn + 1
     assert {"hull.directions", "hull.planes",
             "hull.survivors"} <= set(req["waited"])
     assert sum(req["waited"].values()) == len(syncs), (

@@ -35,8 +35,9 @@ Fields left out, and why:
 
 ``cc_pallas_sweeps`` is called ``cc_sweeps`` here, with the same meaning.
 ``NeighborConfig`` and ``InteractiveConfig`` carry the JAX package's
-defaults: the focused view routes a segment by ``brute_force_max`` and
-tiles its brute-force queries by ``query_tile``; ``source_location`` is the
+defaults: the focused view routes a segment by ``brute_force_max``, and
+the brute force's plain (CPU) version tiles its queries by ``query_tile``
+(the card's kernel stages as shared memory allows); ``source_location`` is the
 session's proj string and ``draw_radius`` the edits' default radius.
 """
 
@@ -96,7 +97,7 @@ class NeighborConfig:
     # brute-force threshold: segments smaller than this use exact tiled
     # brute force (the JAX package's value, tuned on its TPU)
     brute_force_max: int = 131072
-    query_tile: int = 1024              # queries per brute-force tile
+    query_tile: int = 1024              # queries a plain brute-force tile
 
 
 @dataclasses.dataclass(frozen=True)

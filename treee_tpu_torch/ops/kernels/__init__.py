@@ -17,6 +17,7 @@ from .jump_flood import grid_plan as jump_flood_grid_plan
 from .jump_flood import resident_clusters as jump_flood_clusters
 from .jump_flood import route as jump_flood_route
 from .jump_flood import steps as jump_flood_steps
+from .knn_select import knn_select, knn_select_plain
 from .match_scan import match_scan, match_scan_plain
 from .nearest_slot import nearest_slot, nearest_slot_plain
 from .seg_cummax import segmented_cummax, segmented_cummax_plain
@@ -25,7 +26,7 @@ from .take_along import take_along_axis, take_along_axis_plain
 
 WRAPPERS = (cc_sweep, match_scan, segmented_cummax, dilate, eye_dome,
             segmented_cumsum, jump_flood, take_along_axis, jump_flood_grid,
-            nearest_slot)
+            nearest_slot, knn_select)
 
 
 def reset_launches() -> None:

@@ -106,6 +106,7 @@ LAUNCHERS = {
     "treee_jump_flood_grid": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     "treee_take_along": [_P, _P, _P, _I, _I, _I, _I, _P],
     "treee_nearest_slot": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "treee_knn_select": [_P, _P, _P, _P, _I, _I, _P],
 }
 _STRUCT_CODES = {_P: "P", _I: "i", _F: "f", _LL: "q"}
 _one_device = False     # one CUDA device: a tensor there is on the current one

@@ -5,9 +5,10 @@ Replaces the reference's ``k-nearest`` KD-tree crate (k-nearest/src/
 kd_tree.rs:19-143), used for the 31-neighbour curvature property
 (treee/src/calculations.rs:328-373).
 
-- ``knn_bruteforce``: exact search in query tiles.  Squared distances from
-  the coordinates' differences, ``(dx^2 + dy^2) + dz^2`` in f32, as the
-  grid query takes them (no matrix multiply, so no TF32, and the card's
+- ``knn_bruteforce``: exact search, ``kernels.knn_select`` (one hand kernel
+  on the card, query tiles on the CPU).  Squared distances from the
+  coordinates' differences, ``(dx^2 + dy^2) + dz^2`` in f32, as the grid
+  query takes them (no matrix multiply, so no TF32, and the card's
   distances equal the CPU's bit for bit).  The JAX package's identity
   ``|q|^2 + |p|^2 - 2 q.p`` cancels: at coordinates ~100 m from the origin
   its error (~1e-3 m^2) exceeds the gaps between a point's 31st and 32nd
@@ -33,8 +34,10 @@ import torch
 
 from ..config import NeighborConfig
 from ..utils.profiling import span
+from . import kernels
 from .eigen import sum3
 from .kernels.dilate import full
+from .kernels.knn_select import smallest_k
 
 INF = 3.0e38
 INVALID_CID = 0x7FFFFFFF
@@ -46,28 +49,6 @@ _OFFSETS = [(dx, dy, dz) for dx in (-1, 0, 1) for dy in (-1, 0, 1)
 _GRID_BYTES_PER_CANDIDATE = 48
 
 
-def smallest_k(d: torch.Tensor, k: int):
-    """(position i64[T,k], value f32[T,k]) of the k smallest of each row of
-    d f32[T,M] >= 0, ascending, ties to the lower position: one int64 key
-    (the value's bits above the position) makes every entry distinct."""
-    m = d.shape[1]
-    pos = torch.arange(m, dtype=torch.int64, device=d.device)
-    key = (d.view(torch.int32).to(torch.int64) << 32) | pos
-    top = torch.topk(key, k, dim=1, largest=False, sorted=True).values
-    return top & 0xFFFFFFFF, (top >> 32).to(torch.int32).view(torch.float32)
-
-
-def _pairwise_sqdist(q: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
-    """|q_i - p_j|^2 for f32[T,3] x f32[N,3] -> f32[T,N]: the differences
-    squared and summed as ``(dx^2 + dy^2) + dz^2``, in place."""
-    d = q[:, 0:1] - p[:, 0]
-    d.mul_(d)
-    for c in (1, 2):
-        t = q[:, c:c + 1] - p[:, c]
-        d += t.mul_(t)
-    return d
-
-
 def knn_bruteforce(pos: torch.Tensor, valid: torch.Tensor, k: int = 31,
                    tile: int = NeighborConfig.query_tile
                    ) -> tuple[torch.Tensor, torch.Tensor]:
@@ -77,18 +58,11 @@ def knn_bruteforce(pos: torch.Tensor, valid: torch.Tensor, k: int = 31,
     distance INF, so a query with fewer than k valid points is padded with
     them, lowest index first.  Exact counterpart of KDTree::k_nearest with
     unbounded radius (calculations.rs:279-280: k=31, max_distance=f32::MAX).
+    ``k`` is at least 1 and, but for N = 0, at most N; on the card at most
+    ``kernels.knn_select``'s 64.
     """
-    n = pos.shape[0]
     with span("neighbors.knn", pos.device):
-        idx = torch.empty((n, k), dtype=torch.int32, device=pos.device)
-        dist = torch.empty((n, k), dtype=torch.float32, device=pos.device)
-        for t0 in range(0, n, tile):
-            d = _pairwise_sqdist(pos[t0:t0 + tile], pos)
-            d = torch.where(valid[None, :], d, INF)
-            i, v = smallest_k(d, k)
-            idx[t0:t0 + tile] = i.to(torch.int32)
-            dist[t0:t0 + tile] = v
-        return idx, dist
+        return kernels.knn_select(pos, valid, k, tile)
 
 
 class GridHash:
