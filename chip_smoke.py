@@ -1454,6 +1454,8 @@ def overlay_stages(session, sid, cam, trunk_axis, rbv, splat) -> dict:
 def raster_stages(session, cell: float, rasters) -> dict:
     """Host-clock ms of each stage of ``Session.rasters(cell)`` as
     ``compute_rasters`` runs them (median of MAIN_PATH_REPS)."""
+    from treee_tpu_torch.ops.f32 import full
+
     cloud = session.cloud
     stages = {}
     timed = stage_timer(stages, MAIN_PATH_REPS)
@@ -1462,8 +1464,7 @@ def raster_stages(session, cell: float, rasters) -> dict:
     (rows, cols), shape, cell = rasters.grid_dims(lo, hi, cell)
     pos = cloud.pos
     ground = live & (cloud.classification == rasters.CLASS_GROUND)
-    scale = (rasters.f32(lo[0], pos), rasters.f32(lo[2], pos),
-             rasters.f32(1.0 / cell, pos))
+    scale = (full(lo[0], pos), full(lo[2], pos), full(1.0 / cell, pos))
     dtm, dsm = timed("height_grids (cell index, scatter-min and -max)",
                      lambda: rasters.height_grids(pos, ground, live, *scale,
                                                   shape, (rows, cols)))
@@ -1501,7 +1502,7 @@ def nearest_trees(table, sid: int, need: int) -> list[int]:
 
 def decode_png(data: bytes) -> np.ndarray:
     """u8[H,W,3] of an RGB8 PNG whose rows all have filter 0, as
-    ``serve.png_encode`` writes them; anything else raises."""
+    ``io.exports.png_encode`` writes them; anything else raises."""
     if data[:8] != b"\x89PNG\r\n\x1a\n":
         raise AssertionError("not a PNG")
     pos, idat, w, h = 8, b"", None, None

@@ -198,8 +198,8 @@ def test_run_fill_and_extents_edge_cases():
     ref = np.asarray(jrbv._run_fill(jnp.asarray(key), jnp.asarray(left),
                                     jnp.asarray(right), jnp.asarray(table),
                                     True, True))
-    got = trbv.run_fill(_t(key), _t(left).long(), _t(right).long(),
-                        _t(table)).numpy()
+    got = tta.run_fill(_t(key), _t(left).long(), _t(right).long(),
+                       _t(table)).numpy()
     np.testing.assert_array_equal(got, ref)
     np.testing.assert_array_equal(got[:6], table[[0, 0, 2, 2, 2, 3]])
     assert (got[6:] == -3.0e38).all()

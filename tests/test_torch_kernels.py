@@ -21,8 +21,8 @@ from treee_tpu.ops import pallas_kernels as pk
 from treee_tpu_torch.ops import kernels
 from treee_tpu_torch.config import RenderConfig
 from treee_tpu_torch.ops.kernels import build
-from treee_tpu_torch.ops.kernels.dilate import (DIRECTIONS, full,
-                                                radius_from_key)
+from treee_tpu_torch.ops.f32 import full
+from treee_tpu_torch.ops.kernels.dilate import DIRECTIONS, radius_from_key
 from treee_tpu_torch.ops.kernels.eye_dome import (
     _constants as eye_dome_constants)
 from treee_tpu_torch import rasters as trs

@@ -316,12 +316,23 @@ def test_support_directions_match_jax(k):
 
 def test_exports_copy_is_byte_equal():
     """The port's io/exports.py is the JAX package's (numpy only), byte for
-    byte."""
+    byte, but for one addition: the PNG encoder, which the JAX package keeps
+    in serve.py, appended whole, and the two stdlib imports it needs
+    (tests/test_torch_serve.py holds its output to the JAX encoder's)."""
+    import inspect
+
+    from treee_tpu_torch.io import exports
+
     with open(os.path.join(REPO, "treee_tpu", "io", "exports.py"), "rb") as f:
         ref = f.read()
     with open(os.path.join(REPO, "treee_tpu_torch", "io", "exports.py"),
               "rb") as f:
-        assert f.read() == ref
+        port = f.read()
+    encoder = ("\n\n" + inspect.getsource(exports.png_encode)).encode()
+    assert port.endswith(encoder)
+    imports = b"import json\nimport struct\nimport zlib\n"
+    assert port.count(imports) == 1
+    assert port[:-len(encoder)].replace(imports, b"import json\n") == ref
 
 
 def test_change_copy_matches_jax():
@@ -353,3 +364,152 @@ def test_change_copy_matches_jax():
     assert tchange.NODATA == jchange.NODATA == trasters.NODATA == jrasters.NODATA
     assert inspect.getsource(trasters.grid_dims) == inspect.getsource(
         jrasters.grid_dims)
+
+
+# ---- the package's layering -------------------------------------------------
+
+PACKAGE = os.path.join(REPO, "treee_tpu_torch")
+
+
+def _modules() -> dict[str, str]:
+    """Every module of the port by dotted name (a package by its own name)
+    -> its file."""
+    mods = {}
+    for d, _, files in os.walk(PACKAGE):
+        for f in files:
+            if f.endswith(".py"):
+                path = os.path.join(d, f)
+                parts = os.path.relpath(path, REPO)[:-3].split(os.sep)
+                if parts[-1] == "__init__":
+                    parts = parts[:-1]
+                mods[".".join(parts)] = path
+    return mods
+
+
+def _import_graph() -> dict[str, set[str]]:
+    """Module -> the port's modules it imports, function-level imports
+    included.  ``from X import n`` points at the submodule X.n where there
+    is one, else at X; a parent package's ``__init__`` is not counted, as
+    Python runs it before any of its submodules."""
+    import ast
+
+    mods = _modules()
+    graph = {m: set() for m in mods}
+    for m, path in mods.items():
+        here = m.split(".")
+        if not path.endswith("__init__.py"):
+            here = here[:-1]
+        with open(path) as f:
+            tree = ast.parse(f.read())
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                graph[m] |= {a.name for a in node.names if a.name in mods}
+            elif isinstance(node, ast.ImportFrom):
+                if node.level:
+                    base = here[:len(here) - node.level + 1]
+                    src = ".".join(base + [node.module] if node.module
+                                   else base)
+                else:
+                    src = node.module
+                if src not in mods:
+                    continue
+                for a in node.names:
+                    sub = f"{src}.{a.name}"
+                    graph[m].add(sub if sub in mods else src)
+    return graph
+
+
+def _cycles(graph: dict[str, set[str]]) -> list[list[str]]:
+    """The strongly connected components of more than one module, or of one
+    that imports itself (Tarjan's algorithm, iterative)."""
+    index, low, stack, on, out = {}, {}, [], set(), []
+    for root in graph:
+        if root in index:
+            continue
+        work = [(root, iter(sorted(graph[root])))]
+        index[root] = low[root] = len(index)
+        stack.append(root)
+        on.add(root)
+        while work:
+            v, it = work[-1]
+            w = next(it, None)
+            if w is not None:
+                if w not in index:
+                    index[w] = low[w] = len(index)
+                    stack.append(w)
+                    on.add(w)
+                    work.append((w, iter(sorted(graph[w]))))
+                elif w in on:
+                    low[v] = min(low[v], index[w])
+                continue
+            work.pop()
+            if work:
+                low[work[-1][0]] = min(low[work[-1][0]], low[v])
+            if low[v] == index[v]:
+                comp = []
+                while True:
+                    w = stack.pop()
+                    on.discard(w)
+                    comp.append(w)
+                    if w == v:
+                        break
+                if len(comp) > 1 or v in graph[v]:
+                    out.append(sorted(comp))
+    return out
+
+
+def test_package_imports_form_no_cycle():
+    """The port's imports point one way: no module reaches itself through
+    the modules it imports, counting imports inside functions too."""
+    graph = _import_graph()
+    assert len(graph) >= 55
+    # the graph sees imports at module level and inside functions
+    assert ("treee_tpu_torch.pipeline"
+            in graph["treee_tpu_torch.parallel.tiles"])
+    assert "treee_tpu_torch.serve" in graph["treee_tpu_torch.app"]
+    assert _cycles(graph) == []
+    assert _cycles({"a": {"b"}, "b": {"c"}, "c": {"a"}, "d": {"a"}}) == [
+        ["a", "b", "c"]]
+
+
+def test_float_rules_are_defined_only_in_f32():
+    """``full``, ``div``, ``sum3``, ``order``, ``unorder`` and ``NAN_ORDER``
+    have one definition in the port, in ops/f32.py."""
+    import ast
+
+    names = {"full", "div", "sum3", "order", "unorder", "NAN_ORDER"}
+    found = {}
+    for m, path in _modules().items():
+        with open(path) as f:
+            tree = ast.parse(f.read())
+        for node in ast.walk(tree):
+            if isinstance(node, ast.FunctionDef) and node.name in names:
+                found.setdefault(node.name, []).append(m)
+            elif isinstance(node, ast.Assign):
+                for t in node.targets:
+                    if isinstance(t, ast.Name) and t.id == "NAN_ORDER":
+                        found.setdefault(t.id, []).append(m)
+    assert found == {n: ["treee_tpu_torch.ops.f32"] for n in names}
+
+
+@pytest.mark.parametrize("value", [
+    # scene coordinates: a bound's x or z, as numpy f32 and f64 scalars
+    np.float32(-123.456789), np.float32(4321.0625), np.float64(-0.3),
+    np.float32(0.1), np.float64(65432.1234567), -0.0, 0.0, 1e-40,
+    # 1 / cell for cells 0.1 to 1.0, and a cell grown past the cap
+    1.0 / 0.1, 1.0 / 0.2, 1.0 / 0.25, 1.0 / 0.3, 1.0 / 0.5, 1.0 / 0.75,
+    1.0 / 1.0, 1.0 / 3.0, 1.0 / 0.1234567,
+    # a y offset
+    -12.345, 387.25,
+])
+def test_full_is_the_f32_rounding_of_a_python_number(value):
+    """``f32.full(v, like)`` holds the bits of ``np.float32(v)`` on
+    ``like``'s device, for the kinds of value the rasters and tiles pass."""
+    from treee_tpu_torch.ops.f32 import full
+
+    like = torch.zeros(3, dtype=torch.int32)
+    got = full(value, like)
+    assert got.dtype == torch.float32 and got.shape == ()
+    assert got.device == like.device
+    assert got.view(torch.int32).item() == int(
+        np.float32(value).view(np.int32))

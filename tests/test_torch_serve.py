@@ -26,7 +26,7 @@ torch_threads.share_cores()
 @pytest.mark.parametrize("shape", [(11, 7), (1, 1), (108, 192)])
 def test_png_encode_matches_jax(shape):
     from treee_tpu.serve import png_encode as jpng
-    from treee_tpu_torch.serve import png_encode
+    from treee_tpu_torch.io.exports import png_encode
 
     img = np.random.default_rng(0).integers(0, 256, shape + (3,), np.uint8)
     got = png_encode(img)

@@ -33,6 +33,7 @@ from treee_tpu_torch import characteristics as tch
 from treee_tpu_torch import rasters as trs
 from treee_tpu_torch.config import Config as TConfig
 from treee_tpu_torch.config import SegmentationConfig as TSC
+from treee_tpu_torch.ops.f32 import full
 from treee_tpu_torch.ops import kernels
 from treee_tpu_torch.parallel import sharding as tsh
 from treee_tpu_torch.pipeline import full_pipeline
@@ -288,6 +289,7 @@ def test_mesh_devices_and_shard_checks():
 
 from treee_tpu_torch import interactive as tedit        # noqa: E402
 from treee_tpu_torch import pipeline as tpl             # noqa: E402
+from treee_tpu_torch import rbv as trbv                 # noqa: E402
 from treee_tpu_torch.cloud import PointCloud            # noqa: E402
 from treee_tpu_torch.ops import octree as toct          # noqa: E402
 from treee_tpu_torch.parallel.program import run_alone  # noqa: E402
@@ -489,7 +491,7 @@ def test_sharded_inventory_equals_one_device(scene, d, kw):
     n_seg = SEG["max_segments"] + 1
     rbv_kw = dict(crown_slices=26, crown_sectors=32, trunk_slices=5,
                   trunk_sectors=32)
-    ref = run_alone(tpl._inventory_shard(
+    ref = run_alone(trbv.inventory_shard(
         pos, seg, cls, valid, n_seg, kw["method"], kw["symmetric"],
         kw["axis_algo"], rbv_kw, across=False))
     got = tsh.sharded_inventory(mesh, TCFG, kw["method"], kw["symmetric"],
@@ -512,7 +514,6 @@ def test_sharded_inventory_equals_one_device(scene, d, kw):
 def test_sharded_rbv_grids_equal_one_device(scene, d):
     """Through the same frames, the max grids and every y extent are equal
     bit for bit over shards; the mean grids within rtol 1e-6."""
-    from treee_tpu_torch import rbv as trbv
     from treee_tpu_torch import trunk_axis as tta
 
     mesh = _cpu_mesh(d)
@@ -550,8 +551,8 @@ def test_sharded_height_above_ground_equals_one_device(scene, d):
     lo = scene["pos"][scene["valid"]].min(0)
     hi = scene["pos"][scene["valid"]].max(0)
     (rows, cols), shape, cell = trs.grid_dims(lo, hi, 1.0, cap=128)
-    ref = trs.height_above_ground(pos, cls, live, trs.f32(lo[0], pos),
-                                  trs.f32(lo[2], pos), trs.f32(1.0, pos),
+    ref = trs.height_above_ground(pos, cls, live, full(lo[0], pos),
+                                  full(lo[2], pos), full(1.0, pos),
                                   shape, (rows, cols))
     assert float(ref.max()) > 1.0
     got = tsh.sharded_height_above_ground(

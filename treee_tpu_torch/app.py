@@ -12,7 +12,7 @@ checkpoint for save/resume.
 Every session and camera of a run lives on the CUDA card; ``--cpu`` puts
 them on the CPU instead (the plain PyTorch versions of the kernels).  Without
 ``--cpu`` on a machine with no card, the run raises rather than falling back.
-Frames are written as PNG by ``serve.png_encode`` (no imaging package).
+Frames are written as PNG by ``io.exports.png_encode`` (no imaging package).
 
 Examples:
   python -m treee_tpu_torch scan.las --distance 0.75 --save session.npz
@@ -272,7 +272,6 @@ def _run(args) -> int:
     from .io import exports, las
     from .pipeline import Session
     from .render import Camera
-    from .serve import png_encode
     from .utils.profiling import span
 
     cfg = build_config(args)
@@ -361,7 +360,7 @@ def _run(args) -> int:
                                      palette=pal)
             with open(os.path.join(args.out_dir, f"frame_{i:03d}.png"),
                       "wb") as fh:
-                fh.write(png_encode(img))
+                fh.write(exports.png_encode(img))
         print(f"wrote {args.frames} frames to {args.out_dir}/")
 
     if args.save:

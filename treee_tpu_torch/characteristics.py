@@ -43,7 +43,7 @@ from .cloud import CLASS_CROWN, CLASS_GROUND, CLASS_TRUNK
 from .config import CharacteristicsConfig
 from .device import DEFAULT_DEVICE
 from .ops import eigen, kernels, neighbors
-from .ops.kernels.dilate import full
+from .ops.f32 import full
 from .parallel.program import run_alone
 from .utils.profiling import span
 

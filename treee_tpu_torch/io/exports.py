@@ -12,6 +12,8 @@ Byte-compatible in spirit with the reference savers:
 from __future__ import annotations
 
 import json
+import struct
+import zlib
 
 import numpy as np
 
@@ -164,3 +166,31 @@ def save_ascii_grid(fh, grid: np.ndarray, xll: float, yll: float,
     fh.write(f"cellsize {cell:.6f}\n")
     fh.write(f"NODATA_value {nodata:g}\n")
     np.savetxt(fh, grid, fmt="%.4f", delimiter=" ")
+
+
+def png_encode(img: np.ndarray) -> bytes:
+    """Minimal RGB8 PNG writer (stdlib zlib; no imaging dependency).
+
+    The viewer page polls frames, so encode speed matters more than ratio:
+    filter type 0 on every row + one zlib deflate (level 6).  The CLI's
+    ``--frames`` and the REPL's ``render`` write their PNGs through it too.
+    """
+    h, w, c = img.shape
+    assert c == 3 and img.dtype == np.uint8
+
+    def chunk(tag: bytes, payload: bytes) -> bytes:
+        return (
+            struct.pack(">I", len(payload)) + tag + payload
+            + struct.pack(">I", zlib.crc32(tag + payload) & 0xFFFFFFFF)
+        )
+
+    ihdr = struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0)  # 8-bit truecolor
+    raw = np.empty((h, 1 + w * 3), np.uint8)
+    raw[:, 0] = 0  # per-row filter byte: None
+    raw[:, 1:] = img.reshape(h, w * 3)
+    return (
+        b"\x89PNG\r\n\x1a\n"
+        + chunk(b"IHDR", ihdr)
+        + chunk(b"IDAT", zlib.compress(raw.tobytes(), 6))
+        + chunk(b"IEND", b"")
+    )

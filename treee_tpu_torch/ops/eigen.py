@@ -20,14 +20,9 @@ import math
 
 import torch
 
-from .kernels.dilate import div, full
+from .f32 import div, full, sum3
 
 TWO_THIRDS_PI = 2.0 * math.pi / 3.0
-
-
-def sum3(a, b, c):
-    """``(a + b) + c``: a three-term sum in the order XLA reduces it."""
-    return (a + b) + c
 
 
 def eigvals_sym3(m: torch.Tensor) -> torch.Tensor:

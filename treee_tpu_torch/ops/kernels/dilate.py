@@ -16,6 +16,7 @@ import functools
 import numpy as np
 import torch
 
+from ..f32 import full
 from . import build
 
 IBIG = 0x7FFFFFFF
@@ -36,23 +37,6 @@ def _check(kimg: torch.Tensor, radius: int) -> None:
     if not 1 <= radius <= MAX_RADIUS:
         raise ValueError(f"dilate: radius must be in [1, {MAX_RADIUS}], "
                          f"got {radius}")
-
-
-def full(value: float, like: torch.Tensor) -> torch.Tensor:
-    """``value`` as an f32 0-d tensor on ``like``'s device.
-
-    Divisions take their scalars in this form: torch computes
-    ``float / tensor`` as ``float * reciprocal(tensor)``, and on CUDA
-    ``tensor / float`` as ``tensor * (1 / float)``, each rounded twice; a
-    division of two tensors on one device rounds once, as IEEE and XLA do.
-    """
-    return torch.full((), value, dtype=torch.float32, device=like.device)
-
-
-def div(a: torch.Tensor, b: float) -> torch.Tensor:
-    """``a / b`` for a Python number ``b``, rounded once as IEEE and XLA
-    divide (see :func:`full`)."""
-    return torch.div(a, full(b, a))
 
 
 def radius_from_key(k: torch.Tensor, p22: float, p23: float,

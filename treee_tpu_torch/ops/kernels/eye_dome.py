@@ -14,7 +14,7 @@ import numpy as np
 import torch
 
 from . import build
-from .dilate import full
+from ..f32 import full
 
 
 def _check(color: torch.Tensor, z01: torch.Tensor) -> None:

@@ -9,6 +9,7 @@ from __future__ import annotations
 
 import torch
 
+from ..f32 import order, unorder
 from . import build
 
 MAX_CHANNELS = 16
@@ -28,23 +29,6 @@ def _check(key: torch.Tensor, val: torch.Tensor) -> None:
                          f"got {val.shape[1]}")
     if val.device != key.device:
         raise ValueError("segmented_cummax: keys and values on different devices")
-
-
-NAN_ORDER = 0x7FC00000
-
-
-def order(val: torch.Tensor) -> torch.Tensor:
-    """f32 -> i32 whose signed order is the floats' order, with -0.0 just
-    below +0.0 and every NaN at one place above +inf.  An integer max over
-    these picks the same bits in any grouping."""
-    bits = val.contiguous().view(torch.int32)
-    key = bits ^ ((bits >> 31) & 0x7FFFFFFF)
-    return torch.where(torch.isnan(val), NAN_ORDER, key)
-
-
-def unorder(key: torch.Tensor) -> torch.Tensor:
-    """Inverse of :func:`order` (a NaN comes back as 0x7FC00000)."""
-    return (key ^ ((key >> 31) & 0x7FFFFFFF)).view(torch.float32)
 
 
 def segmented_cummax_plain(key: torch.Tensor, val: torch.Tensor) -> torch.Tensor:

@@ -35,8 +35,7 @@ import torch
 from ..config import NeighborConfig
 from ..utils.profiling import span
 from . import kernels
-from .eigen import sum3
-from .kernels.dilate import full
+from .f32 import full, sum3
 from .kernels.knn_select import smallest_k
 
 INF = 3.0e38

@@ -20,7 +20,7 @@
 
 The JAX package's blocked doubling scan, a TPU workaround, is
 ``torch.cummax``/``cummin`` here.  Every division by a constant divides two
-tensors (``kernels.dilate.full``), and every sum of three terms is written
+tensors (``f32.full``), and every sum of three terms is written
 out as ``(a + b) + c``, so that the card rounds as the CPU does.
 """
 
@@ -33,7 +33,7 @@ import torch
 from ..parallel.program import (gathered, next_min, prev_max, prev_sum,
                                 run_alone)
 from . import morton
-from .kernels.dilate import full
+from .f32 import full
 
 INVALID_KEY = 0x7FFFFFFF
 _BIG = 3.0e38

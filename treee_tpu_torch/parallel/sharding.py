@@ -51,13 +51,13 @@ import torch
 from .. import characteristics as ch
 from .. import interactive as edit
 from .. import rasters as rs
+from .. import rbv
 from .. import segmentation as seg
 from ..cloud import CLASS_GROUND, PointCloud
 from ..config import Config, DEFAULT_CONFIG
 from ..device import resolve
 from ..ops import morton, octree
-from ..ops.kernels.seg_cummax import order as f32_order
-from ..ops.kernels.seg_cummax import unorder as f32_unorder
+from ..ops.f32 import full, order, unorder
 from ..render import splat
 from ..utils import profiling
 
@@ -106,17 +106,17 @@ def auto_mesh(device) -> Mesh | None:
 
 def minimum(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Elementwise min; floats in the total order of
-    ``seg_cummax.order`` (-0.0 below +0.0), as the rasters' integer
+    ``f32.order`` (-0.0 below +0.0), as the rasters' integer
     scatter takes it, so that no grouping changes a bit."""
     if a.dtype == torch.float32:
-        return f32_unorder(torch.minimum(f32_order(a), f32_order(b)))
+        return unorder(torch.minimum(order(a), order(b)))
     return torch.minimum(a, b)
 
 
 def maximum(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Elementwise max, floats as in :func:`minimum`."""
     if a.dtype == torch.float32:
-        return f32_unorder(torch.maximum(f32_order(a), f32_order(b)))
+        return unorder(torch.maximum(order(a), order(b)))
     return torch.maximum(a, b)
 
 
@@ -476,8 +476,8 @@ def sharded_rasters(mesh: Mesh, pos_s, classification_s, live_s, lo, hi,
     dtm, dsm = [], []
     for p, c, live in zip(pos_s, classification_s, live_s):
         d, s = rs.height_grids(
-            p, live & (c == CLASS_GROUND), live, rs.f32(lo[0], p),
-            rs.f32(lo[2], p), rs.f32(1.0 / cell, p), (ph, pw), (rows, cols))
+            p, live & (c == CLASS_GROUND), live, full(lo[0], p),
+            full(lo[2], p), full(1.0 / cell, p), (ph, pw), (rows, cols))
         dtm.append(d)
         dsm.append(s)
     return (rs.finalize_rasters(_fold(dtm, minimum), _fold(dsm, maximum),
@@ -583,12 +583,10 @@ def sharded_inventory(mesh: Mesh, cfg: Config = DEFAULT_CONFIG,
     extents and max grids combine by a min and a max (exact), the counts by
     an integer sum, the axes' band and layer sums and the mean grids' sums
     by one sum in shard order of each shard's own segmented sums."""
-    from ..pipeline import _inventory_shard
-
     n_seg = cfg.segmentation.max_segments + 1
 
     def step(pos_s, seg_s, cls_s, valid_s):
-        return run(mesh, [_inventory_shard(
+        return run(mesh, [rbv.inventory_shard(
             p, s, c, v, n_seg, method, symmetric, axis_algo, rbv_kw,
             across=True) for p, s, c, v in zip(pos_s, seg_s, cls_s,
                                                valid_s)])[0]
@@ -602,8 +600,8 @@ def sharded_height_above_ground(mesh: Mesh, pos_s, classification_s, live_s,
     read it; bit-equal to one device's."""
     (rows, cols), shape, cell = rs.grid_dims(lo, hi, cell, cap=cap)
     return run(mesh, [rs.height_above_ground_shard(
-        p, c, live, rs.f32(lo[0], p), rs.f32(lo[2], p),
-        rs.f32(1.0 / cell, p), shape, (rows, cols), across=True)
+        p, c, live, full(lo[0], p), full(lo[2], p),
+        full(1.0 / cell, p), shape, (rows, cols), across=True)
         for p, c, live in zip(pos_s, classification_s, live_s)])
 
 

@@ -38,6 +38,7 @@ from .. import rasters as rs
 from ..cloud import CLASS_GROUND
 from ..config import Config, DEFAULT_CONFIG
 from ..device import DEFAULT_DEVICE, resolve
+from ..ops.f32 import full
 from ..pipeline import full_pipeline
 from . import sharding
 
@@ -285,11 +286,9 @@ def tiled_rasters(pos: np.ndarray, classification: np.ndarray,
     n = len(pos)
     lo, hi = pos.min(axis=0), pos.max(axis=0)
     (rows, cols), (ph, pw), cell = rs.grid_dims(lo, hi, cell, cap=cap)
-    lo_x = torch.tensor(float(np.float32(lo[0])), device=dev)
-    lo_z = torch.tensor(float(np.float32(lo[2])), device=dev)
-    inv = torch.tensor(float(np.float32(1.0 / cell)), device=dev)
     dtm = torch.full((ph, pw), rs.BIG, dtype=torch.float32, device=dev)
     dsm = torch.full((ph, pw), -rs.BIG, dtype=torch.float32, device=dev)
+    lo_x, lo_z, inv = full(lo[0], dtm), full(lo[2], dtm), full(1.0 / cell, dtm)
     slab = max(1, min(slab, n))
     n_slabs = -(-n // slab)
     for t in range(n_slabs):

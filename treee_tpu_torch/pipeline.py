@@ -53,6 +53,7 @@ from .config import Config, DEFAULT_CONFIG, RenderConfig
 from .device import DEFAULT_DEVICE, resolve
 from .io import exports, ipc, las
 from .ops import octree as octree_mod
+from .ops.f32 import full
 from .parallel import sharding
 from .parallel.program import run_alone
 from .render import Camera, lines, palettes, splat
@@ -139,47 +140,6 @@ def _u8(img: torch.Tensor) -> np.ndarray:
     with span("render.readback", img.device):
         waited("render.readback")
         return splat.to_u8(img).cpu().numpy()
-
-
-def _segment_class_counts(segment, classification, mask,
-                          n_segments: int) -> torch.Tensor:
-    """i32[S,3] point counts per (segment, ground/trunk/crown class)."""
-    t = torch.where(mask, segment * 3 + torch.clamp(classification, 0, 2),
-                    n_segments * 3)
-    counts = torch.zeros(n_segments * 3 + 1, dtype=torch.int32,
-                         device=segment.device)
-    counts.index_add_(0, t.long(), torch.ones_like(t, dtype=torch.int32))
-    return counts[:-1].view(n_segments, 3)
-
-
-def _inventory_shard(pos, segment, classification, valid, n_segments: int,
-                     method: int, symmetric: bool, axis_algo: str,
-                     rbv_kw: dict, across: bool):
-    """The inventory's device part as a shard program
-    (``parallel/program.py``) -> (Traits, counts i32[S,3], axes' found and
-    origin): every segment's trunk axis, split RBVs, traits and class
-    counts.  ``Session.inventory`` runs it alone or over the shards
-    (``sharding.sharded_inventory``); the counts add across shards."""
-    live = (valid & (segment != DELETED_SEGMENT) & (segment >= 0)
-            & (segment < n_segments))
-    trunk = live & (classification == CLASS_TRUNK)
-    if axis_algo == "lowhigh":
-        axes = yield from trunk_axis.batched_low_high_layer_shard(
-            pos, trunk, segment, n_segments, 1.0, across)
-    else:
-        axes = yield from trunk_axis.batched_average_direction_shard(
-            pos, trunk, segment, n_segments, 10, across)
-    transforms = trunk_axis.batched_axis_transform(axes)
-    crown, trunk_rbv = yield from rbv_mod.batched_split_rbv_shard(
-        pos, classification, live, segment, n_segments, transforms,
-        rbv_kw.get("crown_slices", 26), rbv_kw.get("crown_sectors", 32),
-        rbv_kw.get("trunk_slices", 5), rbv_kw.get("trunk_sectors", 32),
-        method, symmetric, across)
-    counts = _segment_class_counts(segment, classification, live, n_segments)
-    if across:
-        counts = yield "sum", counts
-    return (rbv_mod.batched_traits(crown, trunk_rbv), counts, axes.found,
-            axes.origin)
 
 
 class Session:
@@ -1175,7 +1135,7 @@ class Session:
                 self.mesh, self.config, method, symmetric, axis_algo,
                 **rbv_kw)(*cols)
         else:
-            tr, counts, found, origin = run_alone(_inventory_shard(
+            tr, counts, found, origin = run_alone(rbv_mod.inventory_shard(
                 *cols, n_seg, method, symmetric, axis_algo, rbv_kw,
                 across=False))
         cnts = counts.cpu().numpy()
@@ -1310,8 +1270,8 @@ class Session:
                 self.mesh, pos, cls_, live, lo, hi, cell, cap=cap)
         (rows, cols), shape, cell = rs.grid_dims(lo, hi, cell, cap=cap)
         return rs.height_above_ground(
-            pos, cls_, live, rs.f32(lo[0], pos), rs.f32(lo[2], pos),
-            rs.f32(1.0 / cell, pos), shape, (rows, cols))
+            pos, cls_, live, full(lo[0], pos), full(lo[2], pos),
+            full(1.0 / cell, pos), shape, (rows, cols))
 
     def hag_prop(self, cell: float = 1.0):
         """The height above ground divided by its maximum (at least 1e-6),

@@ -5,9 +5,9 @@ surface model (DSM) from all live returns, and their difference, the canopy
 height model (CHM); and each point's height above the hole-filled DTM.
 
 The per-cell extremes are an integer min / max over the order-preserving
-i32 image of the heights (``kernels.seg_cummax.order``), of the selected
-rows only: integer atomics give the same bits on every run on the card,
-the sign of zero included.  Ground holes take the nearest ground cell's
+i32 image of the heights (``f32.order``), of the selected rows only:
+integer atomics give the same bits on every run on the card, the sign of
+zero included.  Ground holes take the nearest ground cell's
 height by a jump flood over the grid, ``kernels.jump_flood_grid`` with the
 JAX package's schedule (``next_pow2(max(H, W))/2, ..., 1``, then ``2, 1``),
 each cell's seed carried as the seed cell's flat index.  Grid dims are
@@ -24,7 +24,7 @@ import torch
 
 from .cloud import CLASS_GROUND
 from .ops import kernels
-from .ops.kernels.seg_cummax import order, unorder
+from .ops.f32 import full, order, unorder
 from .parallel.program import run_alone
 
 BIG = 3.0e38
@@ -49,12 +49,6 @@ def grid_dims(lo, hi, cell: float, cap: int = 4096, pad: int = 128):
     pad_r = (rows + pad - 1) // pad * pad
     pad_c = (cols + pad - 1) // pad * pad
     return (rows, cols), (pad_r, pad_c), cell
-
-
-def f32(value: float, like: torch.Tensor) -> torch.Tensor:
-    """``value`` rounded to f32, as a 0-d tensor on ``like``'s device."""
-    return torch.tensor(float(np.float32(value)), dtype=torch.float32,
-                        device=like.device)
 
 
 def cell_index(pos: torch.Tensor, lo_x: torch.Tensor, lo_z: torch.Tensor,
@@ -140,8 +134,8 @@ def compute_rasters(pos, classification, live, lo, hi, cell: float,
     (rows, cols), (ph, pw), cell = grid_dims(lo, hi, cell, cap=cap)
     ground = live & (classification == CLASS_GROUND)
     dtm_raw, dsm_raw = height_grids(
-        pos, ground, live, f32(lo[0], pos), f32(lo[2], pos),
-        f32(1.0 / cell, pos), (ph, pw), (rows, cols))
+        pos, ground, live, full(lo[0], pos), full(lo[2], pos),
+        full(1.0 / cell, pos), (ph, pw), (rows, cols))
     return (finalize_rasters(dtm_raw, dsm_raw, rows, cols, y_offset=y_offset),
             (rows, cols), cell)
 
@@ -190,7 +184,7 @@ def finalize_rasters(dtm_raw, dsm_raw, rows: int, cols: int,
     dtm_filled, filled_ok = jfa_fill(dtm_raw, dtm_raw < BIG)
     have_s = dsm_raw > -BIG
     chm = torch.clamp(dsm_raw - dtm_filled, min=0.0)
-    yo = f32(y_offset, dtm_raw)
+    yo = full(y_offset, dtm_raw)
 
     def host(a):
         return a[:rows, :cols].contiguous().cpu().numpy()

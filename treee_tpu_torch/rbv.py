@@ -21,6 +21,9 @@ by the CUDA kernel ``segmented_cumsum``, so they repeat bit for bit on the
 card.  ``batched_split_rbv_shard`` is the same sequence as a shard program
 (``parallel/sharding.py``): the extents and max grids combine over shards
 by a min and a max (exact), the mean grids' sums and counts by one sum.
+``inventory_shard`` is the whole inventory's device part as one program:
+every segment's trunk axis (``trunk_axis``), split RBVs, traits and class
+counts.
 
 A single tree's RBV is centred on its axis frame when one is given, else on
 the midpoint of two farthest points (p farthest from the (x, z) centroid, q
@@ -41,9 +44,10 @@ import numpy as np
 
 import torch
 
-from .cloud import CLASS_CROWN, CLASS_TRUNK
+from . import trunk_axis
+from .cloud import CLASS_CROWN, CLASS_TRUNK, DELETED_SEGMENT
 from .ops import kernels
-from .ops.kernels.dilate import div, full
+from .ops.f32 import div, full
 from .ops.sums import ordered_sums, sums_by_key
 from .parallel.program import run_alone
 from .utils.profiling import waited
@@ -99,19 +103,6 @@ class BatchedRBV:
     distances: torch.Tensor     # f32[S, slices*sectors]
     slices: int
     sectors: int
-
-
-def run_fill(key_s, left, right, table: torch.Tensor) -> torch.Tensor:
-    """Each sorted row's segment row of ``table`` f32[S,C], f32[N,C]: the
-    table rows are set at their runs' first rows (empty runs go to the drop
-    row N), and a segmented cummax carries them down each run.  Rows of keys
-    outside [0, S) get -INF."""
-    n = key_s.shape[0]
-    tgt = torch.where(left < right, left, n)
-    start = torch.full((n + 1, table.shape[1]), -INF, dtype=torch.float32,
-                       device=key_s.device)
-    start[tgt] = table
-    return kernels.segmented_cummax(key_s, start[:n])
 
 
 def _sorted_extents(key_s, left, right, y, sels):
@@ -209,7 +200,7 @@ def batched_split_rbv_shard(pos, classification, mask, segment,
     comp = [(0, 3), (1, 3), (2, 3), (0, 0), (1, 0), (2, 0),
             (0, 1), (1, 1), (2, 1), (0, 2), (1, 2), (2, 2)]
     table = torch.stack([transforms[:, i, j] for i, j in comp], dim=1)
-    tf = run_fill(key_s, left, right, table)
+    tf = trunk_axis.run_fill(key_s, left, right, table)
     px = x0 - tf[:, 0]
     py = y0 - tf[:, 1]
     pz = z0 - tf[:, 2]
@@ -232,7 +223,7 @@ def batched_split_rbv_shard(pos, classification, mask, segment,
         mx_f = torch.where(any_pt, mx, 1.0)
         return mn_f, torch.clamp(div(mx_f - mn_f, slices), min=1e-6)
 
-    per4 = run_fill(key_s, left, right, torch.stack(
+    per4 = trunk_axis.run_fill(key_s, left, right, torch.stack(
         [*finalize(cmn, cmx, crown_slices), *finalize(tmn, tmx, trunk_slices)],
         dim=1))
     crown = yield from _grid(key_s, x, z, y, sel_c, cmn, cmx, n_segments,
@@ -282,6 +273,47 @@ def batched_traits(crown: BatchedRBV, trunk: BatchedRBV) -> Traits:
         crown_projected_area=crown_projected_area, crown_volume=crown_volume,
         crown_surface=crown_surface, stem_volume=stem_volume,
         wood_volume=wood_volume)
+
+
+def segment_class_counts(segment, classification, mask,
+                         n_segments: int) -> torch.Tensor:
+    """i32[S,3] point counts per (segment, ground/trunk/crown class)."""
+    t = torch.where(mask, segment * 3 + torch.clamp(classification, 0, 2),
+                    n_segments * 3)
+    counts = torch.zeros(n_segments * 3 + 1, dtype=torch.int32,
+                         device=segment.device)
+    counts.index_add_(0, t.long(), torch.ones_like(t, dtype=torch.int32))
+    return counts[:-1].view(n_segments, 3)
+
+
+def inventory_shard(pos, segment, classification, valid, n_segments: int,
+                    method: int, symmetric: bool, axis_algo: str,
+                    rbv_kw: dict, across: bool):
+    """The inventory's device part as a shard program
+    (``parallel/program.py``) -> (Traits, counts i32[S,3], axes' found and
+    origin): every segment's trunk axis, split RBVs, traits and class
+    counts.  ``Session.inventory`` runs it alone or over the shards
+    (``sharding.sharded_inventory``); the counts add across shards."""
+    live = (valid & (segment != DELETED_SEGMENT) & (segment >= 0)
+            & (segment < n_segments))
+    trunk = live & (classification == CLASS_TRUNK)
+    if axis_algo == "lowhigh":
+        axes = yield from trunk_axis.batched_low_high_layer_shard(
+            pos, trunk, segment, n_segments, 1.0, across)
+    else:
+        axes = yield from trunk_axis.batched_average_direction_shard(
+            pos, trunk, segment, n_segments, 10, across)
+    transforms = trunk_axis.batched_axis_transform(axes)
+    crown, trunk_rbv = yield from batched_split_rbv_shard(
+        pos, classification, live, segment, n_segments, transforms,
+        rbv_kw.get("crown_slices", 26), rbv_kw.get("crown_sectors", 32),
+        rbv_kw.get("trunk_slices", 5), rbv_kw.get("trunk_sectors", 32),
+        method, symmetric, across)
+    counts = segment_class_counts(segment, classification, live, n_segments)
+    if across:
+        counts = yield "sum", counts
+    return (batched_traits(crown, trunk_rbv), counts, axes.found,
+            axes.origin)
 
 
 def _apply_inverse(tf: torch.Tensor, pos: torch.Tensor):

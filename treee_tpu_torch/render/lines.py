@@ -13,7 +13,7 @@ from __future__ import annotations
 import torch
 
 from ..config import RenderConfig
-from ..ops.kernels.dilate import full
+from ..ops.f32 import full
 from .camera import Camera
 from .splat import _pixel, _project, f32
 

@@ -11,11 +11,10 @@ displays and hull/RBV/trunk-axis overlays (:971-1000).
 The port is headless, so the same event surface is a line-oriented REPL
 (``treee_tpu/repl.py``, over the port's ``Session``): every widget and mouse
 interaction maps to a command; frames render to PNG on demand, written by
-``serve.png_encode`` (stdlib zlib, no imaging package).  All edits are the
+``io.exports.png_encode`` (stdlib zlib, no imaging package). All edits are the
 ``Session``/``interactive.py`` transitions on the session's device (the card
 unless the session was made on the CPU) — the cloud never leaves the device
-between commands; cameras and sessions a command makes go to the same
-device.
+between commands; cameras and sessions a command makes go to the same device.
 """
 
 from __future__ import annotations
@@ -27,6 +26,7 @@ import time
 import numpy as np
 
 from .input import InputController
+from .io.exports import png_encode
 from .pipeline import Session
 from .render import Camera
 
@@ -274,8 +274,6 @@ class Repl:
         if path is None:
             path = f"frame_{self.frame_idx:03d}.png"
             self.frame_idx += 1
-        from .serve import png_encode
-
         with open(path, "wb") as fh:
             fh.write(png_encode(img))
         self._print(f"wrote {path}")

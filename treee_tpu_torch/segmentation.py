@@ -28,7 +28,7 @@ import torch
 
 from .config import SegmentationConfig
 from .ops import kernels
-from .ops.kernels.dilate import full
+from .ops.f32 import full
 from .ops.kernels.nearest_slot import cell_centers
 from .ops.sums import sums_by_key
 from .parallel.program import run_alone

@@ -31,44 +31,15 @@ from __future__ import annotations
 
 import io
 import json
-import struct
 import threading
 import time
-import zlib
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from urllib.parse import parse_qs, urlparse
 
 import numpy as np
 
+from .io.exports import png_encode
 from .repl import Repl
-
-
-def png_encode(img: np.ndarray) -> bytes:
-    """Minimal RGB8 PNG writer (stdlib zlib; no imaging dependency).
-
-    The viewer page polls frames, so encode speed matters more than ratio:
-    filter type 0 on every row + one zlib deflate (level 6).  The CLI's
-    ``--frames`` and the REPL's ``render`` write their PNGs through it too.
-    """
-    h, w, c = img.shape
-    assert c == 3 and img.dtype == np.uint8
-
-    def chunk(tag: bytes, payload: bytes) -> bytes:
-        return (
-            struct.pack(">I", len(payload)) + tag + payload
-            + struct.pack(">I", zlib.crc32(tag + payload) & 0xFFFFFFFF)
-        )
-
-    ihdr = struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0)  # 8-bit truecolor
-    raw = np.empty((h, 1 + w * 3), np.uint8)
-    raw[:, 0] = 0  # per-row filter byte: None
-    raw[:, 1:] = img.reshape(h, w * 3)
-    return (
-        b"\x89PNG\r\n\x1a\n"
-        + chunk(b"IHDR", ihdr)
-        + chunk(b"IDAT", zlib.compress(raw.tobytes(), 6))
-        + chunk(b"IEND", b"")
-    )
 
 
 # placeholder until the worker publishes its first frame

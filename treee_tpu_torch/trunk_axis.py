@@ -33,8 +33,8 @@ import dataclasses
 
 import torch
 
-from . import rbv
 from .ops import eigen, kernels
+from .ops.f32 import div, full
 from .ops.sums import ordered_sums, sums_by_key
 from .parallel.program import run_alone
 
@@ -120,6 +120,19 @@ def _run_ends(key_s: torch.Tensor, n_runs: int):
     return left, right, right > left, torch.clamp(right - 1, 0, n - 1)
 
 
+def run_fill(key_s, left, right, table: torch.Tensor) -> torch.Tensor:
+    """Each sorted row's segment row of ``table`` f32[S,C], f32[N,C]: the
+    table rows are set at their runs' first rows (empty runs go to the drop
+    row N), and a segmented cummax carries them down each run.  Rows of keys
+    outside [0, S) get -INF."""
+    n = key_s.shape[0]
+    tgt = torch.where(left < right, left, n)
+    start = torch.full((n + 1, table.shape[1]), -INF, dtype=torch.float32,
+                       device=key_s.device)
+    start[tgt] = table
+    return kernels.segmented_cummax(key_s, start[:n])
+
+
 def batched_average_direction(pos: torch.Tensor, mask: torch.Tensor,
                               segment: torch.Tensor, n_segments: int,
                               layers: int = 10) -> TrunkAxis:
@@ -149,9 +162,9 @@ def batched_average_direction_shard(pos, mask, segment, n_segments: int,
     found = lo < INF
     lo = torch.where(found, lo, 0.0)
     hi = torch.where(found, hi, 0.0)
-    layer_h = torch.clamp(rbv.div(hi - lo, layers), min=1e-6)
+    layer_h = torch.clamp(div(hi - lo, layers), min=1e-6)
 
-    per2 = rbv.run_fill(key_s, left, right, torch.stack([lo, layer_h], dim=1))
+    per2 = run_fill(key_s, left, right, torch.stack([lo, layer_h], dim=1))
     lo_p, lh_p = per2[:, 0], per2[:, 1]
     in_seg = key_s < n_segments
     band = in_seg & (y_s >= lo_p + 0.4) & (y_s < lo_p + 0.6)
@@ -192,7 +205,7 @@ def batched_low_high_layer_shard(pos, mask, segment, n_segments: int,
                                                  across)
     # the layer, floored: a flat trunk (hi == lo) would leave both bands empty
     layer = torch.clamp(torch.minimum(
-        rbv.full(layer_width, lo), rbv.div(hi - lo, 2.0)), min=1e-3)
+        full(layer_width, lo), div(hi - lo, 2.0)), min=1e-3)
     lo_p, hi_p, layer_p = lo[seg_c], hi[seg_c], layer[seg_c]
     low = mask & (y - lo_p < layer_p)
     high = mask & (hi_p - y < layer_p)
@@ -264,7 +277,7 @@ def average_direction(pos: torch.Tensor, mask: torch.Tensor,
     band_n = band.float().sum()[None]
     band_x = torch.where(band, x, 0.0).sum()[None]
     band_z = torch.where(band, z, 0.0).sum()[None]
-    layer_h = torch.clamp(rbv.div(hi - lo, layers), min=1e-6)
+    layer_h = torch.clamp(div(hi - lo, layers), min=1e-6)
     li = torch.clamp(torch.div(y - lo, layer_h).to(torch.int32), 0,
                      layers - 1)
     tgt = torch.where(mask, li, layers)
@@ -283,8 +296,8 @@ def low_high_layer(pos: torch.Tensor, mask: torch.Tensor,
     lo, hi, found = _masked_minmax_y(pos, mask)
     x, y, z = pos[:, 0], pos[:, 1], pos[:, 2]
     # the layer, floored: a flat trunk (hi == lo) would leave both bands empty
-    layer = torch.clamp(torch.minimum(rbv.full(layer_width, lo),
-                                      rbv.div(hi - lo, 2.0)), min=1e-3)
+    layer = torch.clamp(torch.minimum(full(layer_width, lo),
+                                      div(hi - lo, 2.0)), min=1e-3)
     low = mask & (y - lo < layer)
     high = mask & (hi - y < layer)
 
